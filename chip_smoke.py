@@ -1,0 +1,458 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port (``vaura_tpu_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure makes the exit code non-zero and suppresses the final
+result line):
+
+  1. build   every CUDA kernel of the generation path from ``csrc/`` with
+             nvcc, one process per source, all at once;
+  2. kernels each kernel against its plain PyTorch version at the flagship
+             shapes (bf16), with its time, the plain version's time, one
+             PyTorch library call's time where one computes the same
+             function, and its bound (bytes over 3.35 TB/s or operations
+             over 989 TFLOP/s, the H100 SXM's published peaks);
+  3. main    the flagship path end to end through ``VauraSystem.generate``:
+             frames [2, 4, 3, 16, 224, 224] -> MotionFormer -> CFG 6.0,
+             top-k 128 decode of 221 tokens -> DAC -> audio [2, 1, 113152],
+             seeded random weights made on the card; every kernel's launch
+             counter is zeroed just before and read just after;
+  4. reference  the same modules at flagship widths, cut depth, on a small
+             input: the card (kernels) against the CPU (plain versions).
+
+It prints the kernels JSON line, the card's name and power limit, and as its
+last line ``{"ok": true, "device": {...}}``. Details go to
+``chiprun_out/chip_smoke.json``. It needs one CUDA card and exits non-zero
+without one.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+import traceback
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+OUT_DIR = os.path.join(ROOT, "chiprun_out")
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM published peaks (dense)
+BF16_FLOP_PER_S = 989e12
+
+# tolerances (max absolute error of the kernel against its plain version)
+# decode attention: both sides float32 softmax and sums, one rounding of an
+# output of magnitude < 1 to bf16 -> at most about one bf16 ulp (2^-8)
+TOL_DECODE = 1e-2
+# encoder sublayers: y = x + f(x) rounded to bf16 at |y| up to ~8, where one
+# ulp is 2^-5; the kernel and the plain version round q/k/v and the hidden
+# activation at the same points but sum in other orders, so a value may
+# land one ulp apart -> two ulps at the top of the range
+TOL_SUBLAYER = 6.25e-2
+# reference phase (card vs CPU, bf16 stacks of ~20 roundings): relative to
+# the largest magnitude of the output
+TOL_REF_REL = 3e-2
+# float32 DAC on both sides (TF32 off for the check): relative RMS error
+TOL_REF_AUDIO = 1e-3
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Device milliseconds of one ``fn()``: the launches are captured once
+    into a CUDA graph and the graph is replayed ``reps`` times between two
+    events, so host overhead between launches is not counted."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+# ---------------------------------------------------------------------------
+def phase_build(report):
+    from vaura_tpu_torch.kernels import build
+
+    t0 = time.time()
+    targets = build.build_all()
+    report["build_s"] = time.time() - t0
+    report["build_logs"] = {n: build.build_log(n) for n in targets}
+    log(f"[build] {len(targets)} kernels in {report['build_s']:.1f} s")
+    for name in targets:
+        for line in build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+
+
+def check_decode_attention(gen):
+    """Flagship decode: B2 = 2 clips x 2 (CFG), H = 16, hd = 96, S = 230."""
+    import torch
+    import torch.nn.functional as F
+
+    from vaura_tpu_torch.ops import decode_attention as da
+
+    B, H, hd, S, L = 4, 16, 96, 230, 24
+    dev, bf = "cuda", torch.bfloat16
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev, dtype=bf)
+    # one cache per layer so a sweep streams from HBM as the decode loop does
+    kc, vc = rnd(L, B, S, H, hd), rnd(L, B, S, H, hd)
+    q, kcur, vcur = rnd(B, H, hd), rnd(B, H, hd), rnd(B, H, hd)
+
+    err = 0.0
+    for pos in (0, 1, 63, 64, 65, 128, 228, S - 1):
+        got = da.decode_attention(q, kc[0], vc[0], kcur, vcur, pos)
+        want = da.decode_attention_plain(q, kc[0], vc[0], kcur, vcur, pos)
+        e = max_err(got, want)
+        log(f"[decode_attention] pos={pos:3d} max_abs_err={e:.3e}")
+        err = max(err, e)
+
+    # the main path's positions: one launch per step at pos = 0 .. 228,
+    # layers cycled; the current K/V are the cache rows at pos, so the
+    # function equals SDPA over cache[:pos + 1]
+    positions = list(range(S - 1))
+    cur = [(kc[p % L][:, p].contiguous(), vc[p % L][:, p].contiguous())
+           for p in positions]
+
+    def sweep(fn):
+        def run():
+            for p, (k1, v1) in zip(positions, cur):
+                fn(q, kc[p % L], vc[p % L], k1, v1, p)
+        return run
+
+    def sdpa(q_, k_, v_, k1, v1, p):
+        F.scaled_dot_product_attention(
+            q_[:, :, None], k_[:, :p + 1].transpose(1, 2),
+            v_[:, :p + 1].transpose(1, 2))
+
+    n = len(positions)
+    ms = cuda_ms(sweep(da.decode_attention_cuda), 20) / n
+    plain_ms = cuda_ms(sweep(da.decode_attention_plain), 5) / n
+    library_ms = cuda_ms(sweep(sdpa), 20) / n
+    bound = sum(
+        max(((2 * B * H * hd + 2 * B * H * hd) + 2 * B * p * H * hd) * 2
+            / HBM_BYTES_PER_S,
+            4 * B * H * (p + 1) * hd / BF16_FLOP_PER_S) for p in positions
+    ) / n * 1e3
+    return {
+        "name": "decode_attention", "route": "cuda",
+        "source": "vaura_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "vaura_tpu/ops/pallas_attention.py:165",
+        "max_abs_err": err, "tol": TOL_DECODE, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": "bytes", "library_ms": library_ms,
+        "library": "F.scaled_dot_product_attention",
+        "shape": f"B2={B} H={H} hd={hd} S={S}, mean over pos 0..{S - 2}",
+    }
+
+
+def _sublayer_inputs(gen, Bp=8, N=1568, D=768):
+    import torch
+
+    dev, bf = "cuda", torch.bfloat16
+    f32 = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    return dict(
+        x_tok=f32(Bp, N, D).to(bf), x_cls=f32(Bp, 1, D).to(bf),
+        ln_scale=1.0 + 0.1 * f32(D), ln_bias=0.1 * f32(D),
+        wqkv=(f32(3 * D, D) * D ** -0.5).to(bf), bqkv=0.02 * f32(3 * D),
+        wproj=(f32(D, D) * D ** -0.5).to(bf), bproj=0.02 * f32(D),
+    )
+
+
+def _attention_cost(Bp, N, D, L):
+    bytes_ = (2 * Bp * N * D + 2 * Bp * D + 4 * D * D) * 2 + (4 * D + 2 * D) * 4
+    flops = (2 * Bp * (N + 1) * D * 4 * D      # q/k/v and output projections
+             + 4 * Bp * N * (L + 1) * D        # group attention + CLS column
+             + 4 * Bp * (N + 1) * D)           # CLS query over all rows
+    return bytes_, flops
+
+
+def check_encoder_attention(gen):
+    """Both geometries of one block: time (L = t = 8) and space (L = 196)."""
+    from vaura_tpu_torch.ops import encoder_fused as ef
+
+    kw = _sublayer_inputs(gen)
+    Bp, N, D = kw["x_tok"].shape
+    err, ms, plain_ms, bound = 0.0, 0.0, 0.0, 0.0
+    for axis, L in (("time", 8), ("space", 196)):
+        args = dict(kw, num_heads=12, L=L, eps=1e-6)
+        got = ef.fused_attention_sublayer(**args)
+        want = ef.fused_attention_sublayer_plain(**args)
+        e = max(max_err(got[0], want[0]), max_err(got[1], want[1]))
+        mean_e = float((got[0].float() - want[0].float()).abs().mean())
+        log(f"[encoder_attention] {axis} L={L} max_abs_err={e:.3e} "
+            f"mean_abs_err={mean_e:.3e}")
+        err = max(err, e)
+        ms += cuda_ms(lambda: ef.fused_attention_sublayer(**args), 10)
+        plain_ms += cuda_ms(lambda: ef.fused_attention_sublayer_plain(**args), 3)
+        b, f = _attention_cost(Bp, N, D, L)
+        bound += max(b / HBM_BYTES_PER_S, f / BF16_FLOP_PER_S) * 1e3
+    return {
+        "name": "encoder_attention", "route": "cuda",
+        "source": "vaura_tpu_torch/csrc/encoder_attention.cu",
+        "replaces": "vaura_tpu/ops/encoder_fused.py:193",
+        "max_abs_err": err, "tol": TOL_SUBLAYER, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "operations",
+        "library_ms": None,
+        "shape": f"B'={Bp} N={N} D={D} H=12, time + space sublayer of one block",
+    }
+
+
+def check_encoder_mlp(gen):
+    import torch
+
+    from vaura_tpu_torch.ops import encoder_fused as ef
+
+    Bp, N, D, Dh = 8, 1568, 768, 3072
+    dev, bf = "cuda", torch.bfloat16
+    f32 = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    args = (f32(Bp, N, D).to(bf), 1.0 + 0.1 * f32(D), 0.1 * f32(D),
+            (f32(Dh, D) * D ** -0.5).to(bf), 0.02 * f32(Dh),
+            (f32(D, Dh) * Dh ** -0.5).to(bf), 0.02 * f32(D))
+    got = ef.fused_mlp_sublayer(*args, eps=1e-6)
+    want = ef.fused_mlp_sublayer_plain(*args, eps=1e-6)
+    err = max_err(got, want)
+    mean_e = float((got.float() - want.float()).abs().mean())
+    log(f"[encoder_mlp] max_abs_err={err:.3e} mean_abs_err={mean_e:.3e}")
+    M = Bp * N
+    bytes_ = 2 * M * D * 2 + 2 * D * Dh * 2 + (Dh + 3 * D) * 4
+    flops = 4 * M * D * Dh
+    return {
+        "name": "encoder_mlp", "route": "cuda",
+        "source": "vaura_tpu_torch/csrc/encoder_mlp.cu",
+        "replaces": "vaura_tpu/ops/encoder_fused.py:366",
+        "max_abs_err": err, "tol": TOL_SUBLAYER,
+        "ms": cuda_ms(lambda: ef.fused_mlp_sublayer(*args, eps=1e-6), 10),
+        "plain_ms": cuda_ms(lambda: ef.fused_mlp_sublayer_plain(*args, eps=1e-6), 3),
+        "bound_ms": max(bytes_ / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3,
+        "bound_by": "operations", "library_ms": None,
+        "shape": f"M={M} D={D} Dh={Dh}",
+    }
+
+
+# ---------------------------------------------------------------------------
+def phase_main(gen, report):
+    import torch
+
+    from vaura_tpu_torch.flagship import GENERATE_KW, flagship_system, random_frames
+    from vaura_tpu_torch.ops import decode_attention as da
+    from vaura_tpu_torch.ops import encoder_fused as ef
+
+    system = flagship_system("cuda", gen)
+    frames = random_frames(2, gen, "cuda")
+    n_steps = system.prepare_generation(GENERATE_KW["max_new_tokens"])[2] - 1
+    expected = {
+        "decode_attention": system.sampler_config.num_layers * n_steps,
+        "encoder_attention": 2 * system.encoder.cfg.depth,
+        "encoder_mlp": system.encoder.cfg.depth,
+    }
+    torch.cuda.synchronize()
+    da.launches = ef.attention_launches = ef.mlp_launches = 0
+    t0 = time.time()
+    out = system.generate(frames, seed=0, **GENERATE_KW)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {"decode_attention": da.launches,
+                "encoder_attention": ef.attention_launches,
+                "encoder_mlp": ef.mlp_launches}
+    codes, audio = out["codes"], out["audio"]
+    report["main"] = {
+        "wall_s": wall, "stage_ms": out["stage_ms"], "launches": launches,
+        "expected_launches": expected, "codes_shape": list(codes.shape),
+        "audio_shape": list(audio.shape),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+    }
+    log(f"[main] wall {wall:.2f} s, stages (ms): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in out["stage_ms"].items()))
+    log(f"[main] launches {launches} expected {expected}")
+    log(f"[main] codes {tuple(codes.shape)} in [{int(codes.min())}, "
+        f"{int(codes.max())}], audio {tuple(audio.shape)} "
+        f"rms {float(audio.float().pow(2).mean().sqrt()):.4f}")
+    problems = []
+    if tuple(codes.shape) != (2, 9, 221):
+        problems.append(f"codes shape {tuple(codes.shape)}")
+    if int(codes.min()) < 0 or int(codes.max()) > 1024:
+        problems.append("codes outside [0, 1024]")
+    if tuple(audio.shape) != (2, 1, 113152):
+        problems.append(f"audio shape {tuple(audio.shape)}")
+    if not bool(torch.isfinite(audio).all()):
+        problems.append("audio not finite")
+    for name, n in expected.items():
+        if launches[name] != n:
+            problems.append(f"{name}: {launches[name]} launches, expected {n}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return launches
+
+
+def phase_reference(gen, report):
+    """Flagship widths, 2 sampler layers and 1 encoder block, one segment:
+    the card (kernels) against the CPU (plain versions), same weights."""
+    import torch
+
+    from vaura_tpu_torch.flagship import flagship_system
+
+    card = flagship_system("cuda", gen, sampler_layers=2, encoder_depth=1)
+    cpu = flagship_system("cpu", sampler_layers=2, encoder_depth=1)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    res = {}
+
+    frames = torch.randn(1, 1, 3, 16, 224, 224, generator=gen, device="cuda",
+                         dtype=torch.bfloat16)
+    fa, fb = card.visual_features(frames), cpu.visual_features(frames.cpu())
+    res["features"] = max_err(fa.cpu(), fb) / float(fb.float().abs().max())
+
+    # teacher-forced decode over 70 positions (crosses the 64-position tile)
+    cfg = card.sampler_config
+    T, B2 = 70, 2
+    toks = torch.randint(0, cfg.d_codebook, (B2, cfg.num_codebooks, T),
+                         generator=gen, device="cuda")
+    cond = torch.randn(B2, T, cfg.cond_dim, generator=gen, device="cuda",
+                       dtype=cfg.dtype)
+    ca, cb = card.sampler.init_cache(B2, T), cpu.sampler.init_cache(B2, T)
+    worst = 0.0
+    for pos in range(T):
+        la = card.sampler.decode_step(toks[:, :, pos:pos + 1],
+                                      cond[:, pos:pos + 1], ca, pos)
+        lb = cpu.sampler.decode_step(toks[:, :, pos:pos + 1].cpu(),
+                                     cond[:, pos:pos + 1].cpu(), cb, pos)
+        worst = max(worst, max_err(la.cpu(), lb) / float(lb.float().abs().max()))
+    res["logits"] = worst
+
+    # the DAC in full float32 (TF32 off for the check), relative RMS error:
+    # with random weights its output is saturated by the final tanh and its
+    # ~30 Snake layers (gain up to 2 each) magnify any rounding difference
+    # near a zero crossing, so the largest single-sample difference says
+    # little; TF32's 1e-3 relative rounding, the cuDNN default the main
+    # path keeps, is reported beside it
+    codes = torch.randint(0, 1024, (1, 9, 16), generator=gen, device="cuda")
+    ab = cpu.decode_audio(codes.cpu())
+    rel_rms = lambda a: float((a.cpu() - ab).pow(2).mean().sqrt()
+                              / ab.pow(2).mean().sqrt())
+    res["audio_rel_rms_tf32"] = rel_rms(card.decode_audio(codes))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        aa = card.decode_audio(codes)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    res["audio_rel_rms"] = rel_rms(aa)
+    res["audio_max_abs"] = max_err(aa.cpu(), ab)
+    report["reference"] = res
+    log(f"[reference] features rel err {res['features']:.3e}, logits rel err "
+        f"{res['logits']:.3e} (tol {TOL_REF_REL}); audio rel rms err "
+        f"{res['audio_rel_rms']:.3e} (tol {TOL_REF_AUDIO}; max abs "
+        f"{res['audio_max_abs']:.3e}; with TF32 rel rms "
+        f"{res['audio_rel_rms_tf32']:.3e})")
+    if not (res["features"] <= TOL_REF_REL and res["logits"] <= TOL_REF_REL
+            and res["audio_rel_rms"] <= TOL_REF_AUDIO):
+        raise AssertionError(f"card and CPU disagree: {res}")
+
+
+# ---------------------------------------------------------------------------
+def main() -> int:
+    try:
+        import torch
+    except ImportError as e:
+        print(f"chip_smoke: {e}", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this test needs a GPU",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    try:
+        import vaura_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the port is not next to this script ({e})",
+              file=sys.stderr)
+        return 2
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    report = {"device": torch.cuda.get_device_name(0)}
+    failed = []
+
+    def run(name, fn, *a):
+        t0 = time.time()
+        try:
+            r = fn(*a)
+            log(f"[{name}] ok in {time.time() - t0:.1f} s")
+            return r
+        except Exception:  # every phase runs; any failure fails the script
+            failed.append(name)
+            log(f"[{name}] FAILED")
+            traceback.print_exc()
+            return None
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    run("build", phase_build, report)
+    kernels = []
+    for check in (check_decode_attention, check_encoder_attention,
+                  check_encoder_mlp):
+        entry = run(check.__name__, check, gen)
+        if entry is None:
+            continue
+        kernels.append(entry)
+        log(f"[{entry['name']}] max_abs_err {entry['max_abs_err']:.3e} "
+            f"(tol {entry['tol']}) ms {entry['ms']:.4f} plain {entry['plain_ms']:.4f} "
+            f"bound {entry['bound_ms']:.4f} library {entry['library_ms']}")
+        if not entry["max_abs_err"] <= entry["tol"]:
+            failed.append(f"{entry['name']} tolerance")
+    launches = run("main", phase_main, gen, report) or {}
+    run("reference", phase_reference, gen, report)
+
+    for entry in kernels:
+        entry["launches"] = launches.get(entry["name"], 0)
+    report["kernels"] = kernels
+    report["failed"] = failed
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
+        json.dump(report, f, indent=1, default=str)
+
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in kernels]}))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+          else f"nvidia-smi: {smi.stderr.strip()}")
+    if failed or len(kernels) != 3:
+        print(f"chip_smoke: FAILED phases: {failed}", file=sys.stderr)
+        return 1
+    for e in kernels:
+        if not (e["launches"] > 0 and all(
+                isinstance(e[k], float) and math.isfinite(e[k])
+                for k in ("ms", "plain_ms", "bound_ms", "max_abs_err"))):
+            print(f"chip_smoke: incomplete kernel entry {e}", file=sys.stderr)
+            return 1
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,59 @@
+"""Rules of the PyTorch port that no parity test sees: it imports nothing
+of JAX, and its entry points never fall back to the CPU unasked."""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "vaura_tpu")
+
+
+def _port_files():
+    files = sorted((ROOT / "vaura_tpu_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module.split(".")[0], node.lineno
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "id", getattr(node.func, "attr", None))
+              in ("__import__", "import_module")
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value).split(".")[0], node.lineno
+
+
+def test_port_imports_no_jax_and_nothing_of_vaura_tpu():
+    files = _port_files()
+    assert len(files) > 10 and all(f.exists() for f in files)
+    bad = [f"{f.relative_to(ROOT)}:{line} imports {mod}"
+           for f in files for mod, line in _imported_roots(f)
+           if mod in FORBIDDEN]
+    assert not bad, "\n".join(bad)
+
+
+def test_entry_point_without_device_raises_when_cuda_is_absent(monkeypatch):
+    from vaura_tpu_torch.models.dac.model import DacConfig
+    from vaura_tpu_torch.models.sampler import SamplerConfig
+    from vaura_tpu_torch.models.vaura import VauraSystem
+    from vaura_tpu_torch.utils import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    tiny = SamplerConfig(num_layers=1, d_model=48, d_codebook=16,
+                         num_codebooks=3, nhead=4, cond_in_dim=24,
+                         codebook_dim=4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        VauraSystem(tiny, DacConfig(), use_visual_conditioning=False)
+    assert resolve_device("cpu") == torch.device("cpu")

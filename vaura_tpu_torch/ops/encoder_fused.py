@@ -1,0 +1,331 @@
+"""Fused divided-attention and MLP sublayers of the MotionFormer encoder.
+
+Counterpart of ``vaura_tpu/ops/encoder_fused.py``:
+
+  fused_attention_sublayer  y = x + proj(divided_attention(LN(x)))
+  fused_mlp_sublayer        y = x + fc2(gelu_exact(fc1(LN(x))))
+
+Tokens are group-major (``x_tok [B', G*L, D]``, each group's L rows
+contiguous) and the CLS row is carried apart (``x_cls [B', 1, D]``). Every
+token group attends within itself plus the CLS key/value; the CLS query
+attends over all rows.
+
+On CUDA tensors the attention sublayer launches the two kernels of
+``csrc/encoder_attention.cu`` (group attention, then the projection GEMM
+with bias and residual) and the MLP sublayer the kernel of
+``csrc/encoder_mlp.cu``. On CPU tensors the ``*_plain`` functions compute
+the same arithmetic in plain PyTorch: bf16 operands, float32 products and
+softmax, the same roundings to the compute dtype. The CLS row's q/k/v, the
+flash merge of the per-pack CLS partials and the CLS projection are plain
+PyTorch on both devices, as the JAX package keeps them outside Pallas.
+
+Weights take torch's ``nn.Linear`` layout: ``wqkv [3D, D]`` (q | k | v
+rows), ``wproj [D, D]``, ``w1 [Dh, D]``, ``w2 [D, Dh]``; biases and LN
+parameters are float32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from vaura_tpu_torch.kernels import build
+
+# launches of the CUDA kernels: one per sublayer call on CUDA tensors (the
+# attention sublayer's count covers its two launches, group attention and
+# projection)
+attention_launches = 0
+mlp_launches = 0
+
+MAX_PACK_ROWS = 256  # rows of one pack in the group-attention kernel
+KERNEL_HEAD_DIM = 64
+KERNEL_MLP_DIM = 768
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_ATTN_SIG = {
+    "vt_group_attention": [_P] * 12 + [_I] * 6 + [_F, _P],
+    "vt_proj_residual": [_P] * 5 + [_I] * 3 + [_P],
+}
+_MLP_SIG = {"vt_encoder_mlp": [_P] * 8 + [_I] * 3 + [_F, _P]}
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float) -> torch.Tensor:
+    """Float32 layer norm in the ``E[x^2] - mean^2`` form of the JAX
+    package; returns float32."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf * xf).mean(-1, keepdim=True) - mean * mean
+    return (xf - mean) * torch.rsqrt(var + eps) * scale.float() + bias.float()
+
+
+def pack_rows(L: int) -> int:
+    """Rows per pack of whole groups: ``L * max(1, 128 // L)``, at most
+    ``MAX_PACK_ROWS`` (time axis L=8 -> 128 rows, space axis L=196 -> 196)."""
+    return L * max(1, 128 // L)
+
+
+def _bf(w: torch.Tensor, dtype) -> torch.Tensor:
+    return w if w.dtype == dtype else w.to(dtype)
+
+
+def _f32(b: Optional[torch.Tensor], n: int, like: torch.Tensor) -> torch.Tensor:
+    if b is None:
+        return torch.zeros(n, dtype=torch.float32, device=like.device)
+    return b.float().contiguous()
+
+
+# --------------------------------------------------------------------------
+# attention sublayer
+# --------------------------------------------------------------------------
+def group_attention_plain(x_tok, ln_scale, ln_bias, wqkv, bqkv, cls_q, cls_k,
+                          cls_v, *, num_heads: int, L: int, eps: float,
+                          rows_per_pack: int):
+    """Plain version of launch (a): LN, q/k/v, group attention with the CLS
+    column. Returns the attention output ``[B', N, D]`` (compute dtype) and
+    the CLS query's per-pack flash partials ``m, l [B', n_packs, H]`` and
+    ``acc [B', n_packs, H, hd]`` (float32)."""
+    Bp, N, D = x_tok.shape
+    H, cdt = num_heads, x_tok.dtype
+    hd, G = D // H, N // L
+    ln = layernorm(x_tok, ln_scale, ln_bias, eps).to(cdt)
+    qkv = ln.float() @ wqkv.float().t() + bqkv
+    q = (qkv[..., :D] * hd ** -0.5).to(cdt).float()
+    k = qkv[..., D:2 * D].to(cdt).float()
+    v = qkv[..., 2 * D:].to(cdt).float()
+    cq, ck, cv = (t.float().reshape(Bp, H, hd) for t in (cls_q, cls_k, cls_v))
+
+    qg, kg, vg = (t.reshape(Bp, G, L, H, hd) for t in (q, k, v))
+    s = torch.einsum("bglhd,bgmhd->bghlm", qg, kg)
+    sc = torch.einsum("bglhd,bhd->bghl", qg, ck)[..., None]
+    full = torch.cat([sc, s], dim=-1)
+    p = torch.exp(full - full.amax(-1, keepdim=True))
+    den = p.sum(-1, keepdim=True)
+    o = torch.einsum("bghlm,bgmhd->bglhd", p[..., 1:], vg)
+    o = o + p[..., 0].permute(0, 1, 3, 2)[..., None] * cv[:, None, None]
+    o = o / den.permute(0, 1, 3, 2, 4)
+    attn = o.reshape(Bp, N, D).to(cdt)
+
+    n_packs = -(-N // rows_per_pack)
+    pad = n_packs * rows_per_pack - N
+    kh, vh = k.reshape(Bp, N, H, hd), v.reshape(Bp, N, H, hd)
+    sct = torch.einsum("bnhd,bhd->bnh", kh, cq)
+    if pad:
+        sct = torch.cat([sct, sct.new_full((Bp, pad, H), float("-inf"))], 1)
+        vh = torch.cat([vh, vh.new_zeros((Bp, pad, H, hd))], 1)
+    sct = sct.reshape(Bp, n_packs, rows_per_pack, H)
+    m = sct.amax(2)
+    e = torch.exp(sct - m[:, :, None])
+    l = e.sum(2)
+    acc = torch.einsum("bprh,bprhd->bphd", e,
+                       vh.reshape(Bp, n_packs, rows_per_pack, H, hd))
+    return attn, m, l, acc
+
+
+def proj_residual_plain(attn, wproj, bproj, x_tok):
+    """Plain version of launch (b): ``x + attn @ wproj^T + bproj``."""
+    y = x_tok.float() + bproj + attn.float() @ wproj.float().t()
+    return y.to(x_tok.dtype)
+
+
+def _attention_cuda(x_tok, ln_scale, ln_bias, wqkv, bqkv, cls_q, cls_k, cls_v,
+                    wproj, bproj, *, num_heads, L, eps, rows_per_pack):
+    global attention_launches
+    Bp, N, D = x_tok.shape
+    if D != num_heads * KERNEL_HEAD_DIM:
+        raise ValueError(f"fused_attention_sublayer: the CUDA kernel takes "
+                         f"head dim {KERNEL_HEAD_DIM}, got D={D}, "
+                         f"H={num_heads}")
+    if L > MAX_PACK_ROWS or N % L:
+        raise ValueError(f"fused_attention_sublayer: group length {L} must "
+                         f"divide N={N} and be <= {MAX_PACK_ROWS}")
+    if x_tok.dtype != torch.bfloat16:
+        raise ValueError("fused_attention_sublayer: the CUDA kernel takes "
+                         f"bfloat16 tokens, got {x_tok.dtype}")
+    x_tok = x_tok.contiguous()
+    n_packs = -(-N // rows_per_pack)
+    dev = x_tok.device
+    attn = torch.empty_like(x_tok)
+    part_m = torch.empty((Bp, n_packs, num_heads), dtype=torch.float32,
+                         device=dev)
+    part_l = torch.empty_like(part_m)
+    part_acc = torch.empty((Bp, n_packs, num_heads, KERNEL_HEAD_DIM),
+                           dtype=torch.float32, device=dev)
+    cq, ck, cv = (t.reshape(Bp, D).contiguous() for t in (cls_q, cls_k, cls_v))
+    lib = build.load("encoder_attention", _ATTN_SIG)
+    stream = build.stream_ptr(dev)
+    rc = lib.vt_group_attention(
+        build.ptr(x_tok), build.ptr(ln_scale), build.ptr(ln_bias),
+        build.ptr(wqkv), build.ptr(bqkv), build.ptr(cq), build.ptr(ck),
+        build.ptr(cv), build.ptr(attn), build.ptr(part_m), build.ptr(part_l),
+        build.ptr(part_acc), Bp, N, D, num_heads, L, rows_per_pack,
+        float(eps), stream,
+    )
+    build.check(lib, rc, "group_attention")
+    y_tok = torch.empty_like(x_tok)
+    rc = lib.vt_proj_residual(
+        build.ptr(attn), build.ptr(wproj), build.ptr(bproj), build.ptr(x_tok),
+        build.ptr(y_tok), Bp * N, D, D, stream,
+    )
+    build.check(lib, rc, "proj_residual")
+    attention_launches += 1
+    return y_tok, part_m, part_l, part_acc
+
+
+def cls_merge(cls_q, cls_k, cls_v, m, l, acc, num_heads: int) -> torch.Tensor:
+    """Exact flash merge of the per-pack CLS partials with the CLS
+    self-term; returns the CLS attention output ``[B', D]`` (float32)."""
+    Bp = cls_q.shape[0]
+    cq, ck, cv = (t.float().reshape(Bp, num_heads, -1)
+                  for t in (cls_q, cls_k, cls_v))
+    s_self = (cq * ck).sum(-1)  # [B', H]
+    m_tot = torch.maximum(m.amax(1), s_self)
+    w = torch.exp(m - m_tot[:, None])  # [B', n_packs, H]
+    w_self = torch.exp(s_self - m_tot)
+    l_tot = (l * w).sum(1) + w_self
+    a_tot = (acc * w[..., None]).sum(1) + w_self[..., None] * cv
+    return (a_tot / l_tot[..., None]).reshape(Bp, -1)
+
+
+def _attention_sublayer(x_tok, x_cls, ln_scale, ln_bias, wqkv, bqkv, wproj,
+                        bproj, *, num_heads: int, L: int, eps: float,
+                        use_kernel: bool):
+    Bp, N, D = x_tok.shape
+    if N % L:
+        raise ValueError(f"tokens {N} not divisible by group length {L}")
+    cdt = x_tok.dtype
+    hd = D // num_heads
+    wqkv, wproj = _bf(wqkv, cdt).contiguous(), _bf(wproj, cdt).contiguous()
+    bqkv = _f32(bqkv, 3 * D, x_tok)
+    bproj = _f32(bproj, D, x_tok)
+    ln_scale, ln_bias = ln_scale.float().contiguous(), ln_bias.float().contiguous()
+
+    # the CLS row's q/k/v (one row per segment-batch)
+    ln_cls = layernorm(x_cls, ln_scale, ln_bias, eps).to(cdt)[:, 0]
+    cls_qkv = (ln_cls @ wqkv.t()).float() + bqkv
+    cls_q = (cls_qkv[:, :D] * hd ** -0.5).to(cdt)
+    cls_k = cls_qkv[:, D:2 * D].to(cdt)
+    cls_v = cls_qkv[:, 2 * D:].to(cdt)
+
+    rows = pack_rows(L)
+    if use_kernel:
+        y_tok, m, l, acc = _attention_cuda(
+            x_tok, ln_scale, ln_bias, wqkv, bqkv, cls_q, cls_k, cls_v, wproj,
+            bproj, num_heads=num_heads, L=L, eps=eps, rows_per_pack=rows)
+    else:
+        attn, m, l, acc = group_attention_plain(
+            x_tok, ln_scale, ln_bias, wqkv, bqkv, cls_q, cls_k, cls_v,
+            num_heads=num_heads, L=L, eps=eps, rows_per_pack=rows)
+        y_tok = proj_residual_plain(attn, wproj, bproj, x_tok)
+
+    cls_attn = cls_merge(cls_q, cls_k, cls_v, m, l, acc, num_heads).to(cdt)
+    y_cls = (x_cls.float() + (cls_attn @ wproj.t()).float()[:, None]
+             + bproj).to(cdt)
+    return y_tok, y_cls
+
+
+def fused_attention_sublayer(
+    x_tok: torch.Tensor,       # [B', G*L, D] group-major
+    x_cls: torch.Tensor,       # [B', 1, D]
+    ln_scale: torch.Tensor,    # [D]
+    ln_bias: torch.Tensor,     # [D]
+    wqkv: torch.Tensor,        # [3D, D]
+    bqkv: Optional[torch.Tensor],   # [3D] or None
+    wproj: torch.Tensor,       # [D, D]
+    bproj: Optional[torch.Tensor],  # [D] or None
+    *,
+    num_heads: int,
+    L: int,
+    eps: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One divided-attention sublayer: returns
+    ``(x_tok + proj(attn), x_cls + proj(cls_attn))``; the CUDA kernels for
+    CUDA tensors, the plain version for CPU tensors."""
+    return _attention_sublayer(
+        x_tok, x_cls, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
+        num_heads=num_heads, L=L, eps=eps, use_kernel=x_tok.is_cuda)
+
+
+def fused_attention_sublayer_plain(x_tok, x_cls, ln_scale, ln_bias, wqkv,
+                                   bqkv, wproj, bproj, *, num_heads: int,
+                                   L: int, eps: float):
+    """The plain PyTorch version on any device (the kernels' yardstick)."""
+    return _attention_sublayer(
+        x_tok, x_cls, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
+        num_heads=num_heads, L=L, eps=eps, use_kernel=False)
+
+
+# --------------------------------------------------------------------------
+# MLP sublayer
+# --------------------------------------------------------------------------
+def _mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, *, eps: float):
+    cdt = x.dtype
+    ln = layernorm(x, ln_scale, ln_bias, eps).to(cdt)
+    h = torch.nn.functional.gelu(ln.float() @ w1.float().t() + b1)
+    h = h.to(cdt)
+    return (x.float() + b2 + h.float() @ w2.float().t()).to(cdt)
+
+
+def _mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, *, eps: float):
+    global mlp_launches
+    Bp, N, D = x.shape
+    Dh = w1.shape[0]
+    if D != KERNEL_MLP_DIM or Dh % 64:
+        raise ValueError(f"fused_mlp_sublayer: the CUDA kernel takes "
+                         f"D={KERNEL_MLP_DIM} and hidden % 64 == 0, got "
+                         f"D={D}, hidden={Dh}")
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"fused_mlp_sublayer: the CUDA kernel takes "
+                         f"bfloat16, got {x.dtype}")
+    x = x.contiguous()
+    y = torch.empty_like(x)
+    lib = build.load("encoder_mlp", _MLP_SIG)
+    rc = lib.vt_encoder_mlp(
+        build.ptr(x), build.ptr(ln_scale), build.ptr(ln_bias), build.ptr(w1),
+        build.ptr(b1), build.ptr(w2), build.ptr(b2), build.ptr(y), Bp * N, D,
+        Dh, float(eps), build.stream_ptr(x.device),
+    )
+    build.check(lib, rc, "encoder_mlp")
+    mlp_launches += 1
+    return y
+
+
+def _mlp_sublayer(x, ln_scale, ln_bias, w1, b1, w2, b2, *, eps: float,
+                  use_kernel: bool):
+    cdt = x.dtype
+    D, Dh = x.shape[-1], w1.shape[0]
+    w1, w2 = _bf(w1, cdt).contiguous(), _bf(w2, cdt).contiguous()
+    b1, b2 = _f32(b1, Dh, x), _f32(b2, D, x)
+    ln_scale, ln_bias = ln_scale.float().contiguous(), ln_bias.float().contiguous()
+    if use_kernel:
+        return _mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, eps=eps)
+    return _mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, eps=eps)
+
+
+def fused_mlp_sublayer(
+    x: torch.Tensor,          # [B', N, D]
+    ln_scale: torch.Tensor,   # [D]
+    ln_bias: torch.Tensor,    # [D]
+    w1: torch.Tensor,         # [Dh, D]
+    b1: Optional[torch.Tensor],
+    w2: torch.Tensor,         # [D, Dh]
+    b2: Optional[torch.Tensor],
+    *,
+    eps: float,
+) -> torch.Tensor:
+    """``x + fc2(gelu_exact(fc1(layernorm(x))))``: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors. The plain version rounds
+    LN and the GELU output to the compute dtype and keeps products and the
+    residual sum in float32, as the kernel does."""
+    return _mlp_sublayer(x, ln_scale, ln_bias, w1, b1, w2, b2, eps=eps,
+                         use_kernel=x.is_cuda)
+
+
+def fused_mlp_sublayer_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, *,
+                             eps: float):
+    """The plain PyTorch version on any device (the kernel's yardstick)."""
+    return _mlp_sublayer(x, ln_scale, ln_bias, w1, b1, w2, b2, eps=eps,
+                         use_kernel=False)

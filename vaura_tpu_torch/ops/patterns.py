@@ -1,0 +1,154 @@
+"""Codebook interleave patterns: ``Pattern`` and ``DelayedPatternProvider``.
+
+Counterpart of ``vaura_tpu/ops/patterns.py:38-290``. The layout is lowered
+once on the host (numpy) into static index tables; ``build`` and ``revert``
+are then single gathers on the device. The host code is a copy of the JAX
+package's (without its ``keep_only_valid_steps`` and model-output
+variants, which only training uses), kept here so that this package imports
+nothing of it.
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+LayoutCoord = Tuple[int, int]  # (timestep t, codebook q)
+PatternLayout = List[List[LayoutCoord]]
+
+
+@dataclass
+class Pattern:
+    """A layout over ``timesteps`` steps and ``n_q`` codebooks:
+    ``layout[s]`` lists the (t, q) coordinates written at sequence step
+    ``s``; ``layout[0]`` is empty (the BOS step)."""
+
+    layout: PatternLayout
+    timesteps: int
+    n_q: int
+
+    def __post_init__(self):
+        assert len(self.layout) > 0
+        assert self.layout[0] == []
+        self._validate_layout()
+        self._build_seq_tables = functools.lru_cache(100)(self._build_seq_tables)
+        self._revert_tables = functools.lru_cache(100)(self._revert_tables)
+
+    def _validate_layout(self):
+        """No step writes one codebook twice, and each codebook's timesteps
+        never go backwards along the sequence."""
+        frontier = np.zeros(self.n_q, dtype=np.int64)
+        for s, coords in enumerate(self.layout):
+            if not coords:
+                continue
+            qs = [q for _, q in coords]
+            assert len(set(qs)) == len(qs), (
+                f"Multiple entries for one codebook at step {s}"
+            )
+            ts = np.array([t for t, _ in coords])
+            assert (ts >= frontier[qs]).all(), f"Past timesteps found at step {s}"
+            frontier[qs] = ts
+
+    def get_sequence_coords_with_timestep(self, t: int, q: Optional[int] = None):
+        assert t <= self.timesteps
+        coords = []
+        for s, seq_codes in enumerate(self.layout):
+            for code in seq_codes:
+                if code[0] == t and (q is None or code[1] == q):
+                    coords.append((s, code))
+        return coords
+
+    def get_steps_with_timestep(self, t: int, q: Optional[int] = None) -> List[int]:
+        return [s for s, _ in self.get_sequence_coords_with_timestep(t, q)]
+
+    def get_first_step_with_timesteps(self, t: int, q: Optional[int] = None):
+        steps = self.get_steps_with_timestep(t, q)
+        return steps[0] if steps else None
+
+    def _build_seq_tables(self, timesteps: int):
+        """Indexes ``[K, S]`` into the flattened codes ``[K*timesteps]``
+        plus one trailing special slot; coordinates at or beyond
+        ``timesteps`` map to the special slot."""
+        K = self.n_q
+        assert timesteps <= self.timesteps, (
+            "invalid number of timesteps used to build the sequence"
+        )
+        indexes = np.full((K, len(self.layout)), K * timesteps, dtype=np.int32)
+        mask = np.zeros((K, len(self.layout)), dtype=bool)
+        for s, coords in enumerate(self.layout):
+            for t, q in coords:
+                if t < timesteps:
+                    indexes[q, s] = t + q * timesteps
+                    mask[q, s] = True
+        return indexes, mask
+
+    def _revert_tables(self, sequence_steps: int):
+        """Indexes ``[K, T]`` into the flattened sequence
+        ``[K*sequence_steps]`` plus one trailing special slot."""
+        K, T = self.n_q, self.timesteps
+        assert sequence_steps <= len(self.layout), (
+            f"sequence to revert is longer than the pattern: "
+            f"{sequence_steps} > {len(self.layout)}"
+        )
+        indexes = np.full((K, T), K * sequence_steps, dtype=np.int32)
+        mask = np.zeros((K, T), dtype=bool)
+        for s, coords in enumerate(self.layout[:sequence_steps]):
+            for t, q in coords:
+                if t < T:
+                    indexes[q, t] = s + q * sequence_steps
+                    mask[q, t] = True
+        return indexes, mask
+
+    @staticmethod
+    def _gather(x: torch.Tensor, np_idx: np.ndarray, special) -> torch.Tensor:
+        B, K, n = x.shape
+        flat = torch.cat(
+            [x.reshape(B, K * n), torch.full((B, 1), special, dtype=x.dtype,
+                                             device=x.device)],
+            dim=1,
+        )
+        idx = torch.as_tensor(np_idx.reshape(-1), dtype=torch.long,
+                              device=x.device)
+        return flat.index_select(1, idx).reshape(B, K, -1)
+
+    def build_pattern_sequence(self, z: torch.Tensor, special_token: int):
+        """``[B, K, T]`` codes -> ``([B, K, S]`` sequence, indexes, mask)."""
+        B, K, T = z.shape
+        assert K == self.n_q, f"codebooks mismatch: {K} != {self.n_q}"
+        np_idx, np_mask = self._build_seq_tables(T)
+        return self._gather(z, np_idx, special_token), np_idx, np_mask
+
+    def revert_pattern_sequence(self, s: torch.Tensor, special_token: int):
+        """``[B, K, S]`` sequence -> ``([B, K, T]`` codes, indexes, mask)."""
+        B, K, S = s.shape
+        assert K == self.n_q
+        np_idx, np_mask = self._revert_tables(S)
+        return self._gather(s, np_idx, special_token), np_idx, np_mask
+
+
+class DelayedPatternProvider:
+    """Delay codebook ``k`` by ``delays[k]`` steps (default ``k``). The JAX
+    provider's ``flatten_first``/``empty_initial`` variants are not ported
+    (no configuration of the generation path sets them)."""
+
+    def __init__(self, n_q: int, delays: Optional[Sequence[int]] = None):
+        if n_q <= 0:
+            raise ValueError(f"n_q must be positive, got {n_q}")
+        self.n_q = n_q
+        self.delays = list(range(n_q)) if delays is None else list(delays)
+        if len(self.delays) != n_q or sorted(self.delays) != self.delays:
+            raise ValueError(f"delays must be {n_q} non-decreasing values")
+        self.get_pattern = functools.lru_cache(100)(self.get_pattern)
+
+    def get_pattern(self, timesteps: int) -> Pattern:
+        """After the BOS row, row ``r`` carries ``(r - delays[q], q)`` for
+        every codebook whose delay has elapsed."""
+        body: PatternLayout = [
+            [(r - d, q) for q, d in enumerate(self.delays) if 0 <= r - d]
+            for r in range(timesteps + max(self.delays))
+        ]
+        return Pattern([[]] + body, timesteps=timesteps, n_q=self.n_q)
