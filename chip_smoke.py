@@ -6,8 +6,8 @@
 Phases (any failure makes the exit code non-zero and suppresses the final
 result line):
 
-  1. build   every CUDA kernel of the generation path from ``csrc/`` with
-             nvcc, one process per source, all at once;
+  1. build   every CUDA kernel of the port from ``csrc/`` with nvcc, one
+             process per source, all at once;
   2. kernels each kernel against its plain PyTorch version at the flagship
              shapes (bf16), with its time, the plain version's time, one
              PyTorch library call's time where one computes the same
@@ -18,8 +18,14 @@ result line):
              top-k 128 decode of 221 tokens -> DAC -> audio [2, 1, 113152],
              seeded random weights made on the card; every kernel's launch
              counter is zeroed just before and read just after;
-  4. reference  the same modules at flagship widths, cut depth, on a small
-             input: the card (kernels) against the CPU (plain versions).
+  4. train   the flagship training configuration (float32 parameters,
+             bf16 compute, unfrozen encoder, batch 2, audio through the DAC
+             encoder): three ``train_step``s and one ``eval_step``, with
+             every launch counter zeroed just before and read after each
+             step, and the time of forward, backward and optimizer;
+  5. reference  the same modules at flagship widths, cut depth, on a small
+             input: the card (kernels) against the CPU (plain versions),
+             for generation and for the training loss and its gradients.
 
 It prints the kernels JSON line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``. Details go to
@@ -52,9 +58,23 @@ TOL_DECODE = 1e-2
 # activation at the same points but sum in other orders, so a value may
 # land one ulp apart -> two ulps at the top of the range
 TOL_SUBLAYER = 6.25e-2
+# grouped attention: the kernel rounds once (float32 probabilities and sums,
+# or unnormalised bf16 probabilities on the tensor cores); the plain version
+# rounds the normalised probabilities to bf16 (2^-9 relative) before the
+# value product and its output again, so the two may land one ulp apart,
+# rarely two. Every shape is held to two bf16 ulps of ITS largest output
+# (a long group averages ~200 values and stays small; a short one does not),
+# and the kernel may be no further from the float32 evaluation than that
+TOL_GROUPED_ULPS = 2
 # reference phase (card vs CPU, bf16 stacks of ~20 roundings): relative to
 # the largest magnitude of the output
 TOL_REF_REL = 3e-2
+# training loss, card vs CPU: a mean over ~150 cross entropies of bf16 logits
+TOL_REF_LOSS = 2e-2
+# gradients of named leaves, card vs CPU, relative to the leaf's largest
+# gradient: bf16 forward and backward through the cut stack, sums in other
+# orders, and the kernel's rounding against the plain version's
+TOL_REF_GRAD = 6e-2
 # float32 DAC on both sides (TF32 off for the check): relative RMS error
 TOL_REF_AUDIO = 1e-3
 
@@ -252,13 +272,146 @@ def check_encoder_mlp(gen):
     }
 
 
+def check_grouped_cls_attention(gen):
+    """Both axes of one unfused block at the flagship shapes: BH = 8
+    segments x 12 heads, hd = 64; time G = 196, L = 8; space G = 8,
+    L = 196."""
+    import torch
+    import torch.nn.functional as F
+
+    from vaura_tpu_torch.ops import divided_attention as ga
+
+    BH, hd = 96, 64
+    dev, bf = "cuda", torch.bfloat16
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    err, tol, ms, plain_ms, library_ms, bound = 0.0, 0.0, 0.0, 0.0, 0.0, 0.0
+    sum_b = sum_f = 0.0
+
+    def hold(tag, got, args):
+        """The kernel's output against the plain version and against the
+        float32 evaluation, both within TOL_GROUPED_ULPS bf16 ulps of the
+        largest output of this shape."""
+        nonlocal err, tol
+        want = ga.grouped_cls_attention_plain(*args)
+        exact = ga.grouped_cls_attention_plain(*(t.float() for t in args))
+        top = float(exact.abs().max())
+        t = TOL_GROUPED_ULPS * 2.0 ** (math.floor(math.log2(top)) - 7)
+        e, e32 = max_err(got, want), max_err(got, exact)
+        log(f"[grouped_cls_attention] {tag} max_abs_err={e:.3e} (tol {t:.3e}, "
+            f"|out| max {top:.3f}) mean_abs_err="
+            f"{float((got.float() - want.float()).abs().mean()):.3e}; against "
+            f"float32: kernel {e32:.3e}, plain {max_err(want, exact):.3e}")
+        if not (e <= t and e32 <= t):
+            raise AssertionError(f"{tag}: max_abs_err {e} / {e32} against "
+                                 f"float32 exceed {t}")
+        err, tol = max(err, e), max(tol, t)
+        return exact
+
+    def inputs(bh, G, L):
+        q = (rnd(bh, G, L, hd) * hd ** -0.5).to(bf)
+        return (q, rnd(bh, G, L, hd).to(bf), rnd(bh, G, L, hd).to(bf),
+                rnd(bh, 1, hd).to(bf), rnd(bh, 1, hd).to(bf))
+
+    # group lengths around the switch between the kernel's two forms (row
+    # kernel below 32, tensor-core kernel from 32 to its longest group) and
+    # ragged packs and tiles: errors only
+    for G, L in ((5, 31), (7, 32), (5, 37), (3, 64), (2, ga.MAX_GROUP_LEN)):
+        args = inputs(6, G, L)
+        hold(f"G={G} L={L}", ga.grouped_cls_attention(*args), args)
+    try:  # a longer group is off contract: the wrapper raises
+        ga.grouped_cls_attention(*inputs(2, 2, ga.MAX_GROUP_LEN + 1))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("a group longer than MAX_GROUP_LEN did not raise")
+    for axis, G, L in (("time", 196, 8), ("space", 8, 196)):
+        args = q, k, v, ck, cv = inputs(BH, G, L)
+        got = ga.grouped_cls_attention(*args)
+        torch.cuda.synchronize()
+        exact = hold(f"{axis} G={G} L={L}", got, args)
+
+        # the autograd.Function on the card against autograd through the
+        # plain version (its backward IS the plain version's, so the two
+        # agree to the last bit) and against float32
+        go = rnd(BH, G, L, hd).to(bf)
+        leaves = lambda dt: [t.detach().to(dt).requires_grad_(True) for t in args]
+        a, b, c = leaves(bf), leaves(bf), leaves(torch.float32)
+        g_fn = torch.autograd.grad(ga.grouped_cls_attention(*a), a, go)
+        g_plain = torch.autograd.grad(ga.grouped_cls_attention_plain(*b), b, go)
+        g_exact = torch.autograd.grad(ga.grouped_cls_attention_plain(*c), c,
+                                      go.float())
+        d_plain = max(max_err(x, y) for x, y in zip(g_fn, g_plain))
+        d_exact = max(max_err(x, y) / float(y.abs().max())
+                      for x, y in zip(g_fn, g_exact))
+        log(f"[grouped_cls_attention] {axis} gradients of q, k, v, cls_k, "
+            f"cls_v: max abs diff to autograd of the plain version "
+            f"{d_plain:.3e}, to float32 {d_exact:.3e} of the largest")
+        if d_plain != 0.0 or not d_exact < 5e-2:
+            raise AssertionError(f"{axis}: gradient mismatch {d_plain} "
+                                 f"{d_exact}")
+
+        # one library call computing the same function: SDPA over
+        # [BH*G, 1, L, hd] queries against keys and values with the CLS row
+        # concatenated. The concatenation is made here, OUTSIDE the timed
+        # region; SDPA scales by 1/sqrt(hd) itself, so it gets q unscaled
+        q4 = (q.float() * hd ** 0.5).to(bf).reshape(BH * G, 1, L, hd)
+        cat = lambda c, t: torch.cat(
+            [c[:, None].expand(BH, G, 1, hd), t], dim=2
+        ).reshape(BH * G, 1, L + 1, hd).contiguous()
+        k4, v4 = cat(ck, k), cat(cv, v)
+        lib = F.scaled_dot_product_attention(q4, k4, v4).reshape(BH, G, L, hd)
+        log(f"[grouped_cls_attention] {axis} SDPA against float32: "
+            f"{max_err(lib, exact):.3e}")
+        ms_axis = cuda_ms(lambda: ga.grouped_cls_attention_cuda(*args), 20)
+        plain_axis = cuda_ms(lambda: ga.grouped_cls_attention_plain(*args), 5)
+        lib_axis = cuda_ms(
+            lambda: F.scaled_dot_product_attention(q4, k4, v4), 20)
+        bytes_ = (4 * BH * G * L * hd + 2 * BH * hd) * 2
+        flops = 4 * BH * G * L * (L + 1) * hd
+        t_b, t_f = bytes_ / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+        sum_b, sum_f = sum_b + t_b, sum_f + t_f
+        log(f"[grouped_cls_attention] {axis} ms {ms_axis:.4f} plain "
+            f"{plain_axis:.4f} library {lib_axis:.4f} bound "
+            f"{max(t_b, t_f) * 1e3:.4f} ({bytes_ / 1e6:.1f} MB, "
+            f"{flops / 1e9:.2f} GFLOP)")
+        ms, plain_ms = ms + ms_axis, plain_ms + plain_axis
+        library_ms, bound = library_ms + lib_axis, bound + max(t_b, t_f) * 1e3
+    return {
+        "name": "grouped_cls_attention", "route": "cuda",
+        "source": "vaura_tpu_torch/csrc/grouped_cls_attention.cu",
+        "replaces": "vaura_tpu/ops/divided_attention.py:126",
+        "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": "bytes" if sum_b >= sum_f else "operations",
+        "library_ms": library_ms, "library": "F.scaled_dot_product_attention",
+        "shape": f"BH={BH} hd={hd}, time (G=196, L=8) + space (G=8, L=196) "
+                 "of one block",
+    }
+
+
 # ---------------------------------------------------------------------------
+def _counters():
+    from vaura_tpu_torch.ops import decode_attention as da
+    from vaura_tpu_torch.ops import divided_attention as ga
+    from vaura_tpu_torch.ops import encoder_fused as ef
+
+    return {"decode_attention": da.launches,
+            "encoder_attention": ef.attention_launches,
+            "encoder_mlp": ef.mlp_launches,
+            "grouped_cls_attention": ga.launches}
+
+
+def _zero_counters():
+    from vaura_tpu_torch.ops import decode_attention as da
+    from vaura_tpu_torch.ops import divided_attention as ga
+    from vaura_tpu_torch.ops import encoder_fused as ef
+
+    da.launches = ef.attention_launches = ef.mlp_launches = ga.launches = 0
+
+
 def phase_main(gen, report):
     import torch
 
     from vaura_tpu_torch.flagship import GENERATE_KW, flagship_system, random_frames
-    from vaura_tpu_torch.ops import decode_attention as da
-    from vaura_tpu_torch.ops import encoder_fused as ef
 
     system = flagship_system("cuda", gen)
     frames = random_frames(2, gen, "cuda")
@@ -269,14 +422,13 @@ def phase_main(gen, report):
         "encoder_mlp": system.encoder.cfg.depth,
     }
     torch.cuda.synchronize()
-    da.launches = ef.attention_launches = ef.mlp_launches = 0
+    _zero_counters()
     t0 = time.time()
     out = system.generate(frames, seed=0, **GENERATE_KW)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {"decode_attention": da.launches,
-                "encoder_attention": ef.attention_launches,
-                "encoder_mlp": ef.mlp_launches}
+    launches = _counters()
+    expected["grouped_cls_attention"] = 0  # inference takes the fused blocks
     codes, audio = out["codes"], out["audio"]
     report["main"] = {
         "wall_s": wall, "stage_ms": out["stage_ms"], "launches": launches,
@@ -305,6 +457,160 @@ def phase_main(gen, report):
     if problems:
         raise AssertionError("; ".join(problems))
     return launches
+
+
+def phase_train(gen, report):
+    """Three training steps and one eval step of the flagship training
+    configuration on one seeded batch."""
+    import torch
+
+    from vaura_tpu_torch.flagship import (
+        flagship_system,
+        flagship_train_state,
+        random_train_batch,
+    )
+    from vaura_tpu_torch.train.steps import make_eval_step, make_train_step
+    from vaura_tpu_torch.utils import StageClock
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    system = flagship_system("cuda", gen, training=True)
+    state = flagship_train_state(system)
+    batch = random_train_batch(2, gen, "cuda")
+    train_step, eval_step = make_train_step(system), make_eval_step(system)
+    n_trainable = sum(p.numel() for p in state.params.values())
+    depth = system.encoder.cfg.depth
+
+    # a cheap fingerprint of every leaf (float64 sum and sum of magnitudes):
+    # equal fingerprints for an untouched leaf, different ones after any
+    # update that is not a pure permutation
+    mark = lambda: {k: (float(p.detach().double().sum()),
+                        float(p.detach().double().abs().sum()))
+                    for k, p in system.named_parameters()}
+    before = mark()
+    problems, steps, launches = [], [], dict.fromkeys(_counters(), 0)
+    for i in range(3):
+        torch.cuda.synchronize()
+        _zero_counters()
+        clock = StageClock(system.device)
+        clock.mark("start")
+        t0 = time.time()
+        state, metrics = train_step(state, batch, gen, clock=clock)
+        ms = clock.ms()
+        wall = (time.time() - t0) * 1e3
+        seen = _counters()
+        steps.append({"loss": float(metrics["loss"]), "wall_ms": wall, **ms,
+                      "launches": seen})
+        log(f"[train] step {i}: loss {steps[-1]['loss']:.5f} wall {wall:.1f} "
+            f"ms (forward {ms['forward']:.1f}, backward {ms['backward']:.1f}, "
+            f"optimizer {ms['optimizer']:.1f}) launches {seen}")
+        want = {"grouped_cls_attention": 2 * depth, "encoder_attention": 0,
+                "encoder_mlp": 0, "decode_attention": 0}
+        if seen != want:
+            problems.append(f"step {i}: launches {seen}, expected {want}")
+        for k, n in seen.items():
+            launches[k] += n
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    after = mark()
+
+    _zero_counters()
+    ev = eval_step(batch)
+    torch.cuda.synchronize()
+    ev_seen = _counters()
+    log(f"[train] eval_step loss {float(ev['loss']):.5f} launches {ev_seen}")
+    if (ev_seen["encoder_attention"], ev_seen["encoder_mlp"],
+            ev_seen["grouped_cls_attention"]) != (2 * depth, depth, 0):
+        problems.append(f"eval_step launches {ev_seen}")
+
+    losses = [s["loss"] for s in steps] + [float(ev["loss"])]
+    if not all(math.isfinite(x) for x in losses):
+        problems.append(f"losses not finite: {losses}")
+    if abs(losses[0] - math.log(1024)) > 1e-2:
+        problems.append(f"first loss {losses[0]} is not ln 1024")
+    if not losses[2] < losses[0]:
+        problems.append(f"loss did not fall: {losses[:3]}")
+    unchanged = [k for k in state.params
+                 if after[k] == before[k] and not k.endswith("uncond_embedding")]
+    moved = [k for k in after if after[k] != before[k]
+             and (k.startswith("dac.") or k.endswith("uncond_embedding"))]
+    if unchanged:
+        problems.append(f"{len(unchanged)} trainable leaves unchanged: "
+                        f"{unchanged[:5]}")
+    if moved:
+        problems.append(f"frozen leaves changed: {moved[:5]}")
+    report["train"] = {
+        "steps": steps, "eval_loss": float(ev["loss"]), "eval_launches": ev_seen,
+        "peak_mem_gib": peak, "trainable_parameters": n_trainable,
+        "trainable_leaves": len(state.params), "batch": 2,
+    }
+    log(f"[train] {n_trainable / 1e9:.3f} G trainable parameters in "
+        f"{len(state.params)} leaves; peak memory {peak:.2f} GiB")
+    del state, system
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return launches
+
+
+def _reference_train(gen, res):
+    """``train_forward`` at flagship widths and cut depth, every stochastic
+    rate 0, from ``codes=`` (the RVQ's argmax may flip between two devices):
+    loss and the gradients of a few named leaves, card against CPU."""
+    import torch
+
+    from vaura_tpu_torch.flagship import flagship_system
+
+    kw = dict(sampler_layers=2, encoder_depth=1, training=True,
+              sampler_overrides={"dropout": 0.0, "class_dropout_prob": 0.0},
+              encoder_overrides={"drop_path_rate": 0.0})
+    card = flagship_system("cuda", gen, **kw)
+    # the zero-initialised head would make every other gradient zero
+    with torch.no_grad():
+        card.sampler.lm_head.weight.normal_(0.0, 0.02, generator=gen)
+    cpu = flagship_system("cpu", **kw)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    frames = torch.randn(1, 1, 3, 16, 224, 224, generator=gen, device="cuda",
+                         dtype=torch.bfloat16)
+    codes = torch.randint(0, 1024, (1, 9, 24), generator=gen, device="cuda")
+    leaves = ["sampler.lm_head.weight", "sampler.layers.0.attention.wqkv.weight",
+              "sampler.cls_embeddings.fc1.weight",
+              "encoder.blocks.0.timeattn.qkv.weight",
+              "encoder.blocks.0.attn.proj.weight",
+              "encoder.blocks.0.mlp.fc1.weight", "encoder.patch_embed_3d.weight"]
+
+    def run(system, f, c):
+        named = dict(system.named_parameters())
+        loss, _ = system.train_forward(f, None, None, train=True, codes=c)
+        grads = torch.autograd.grad(loss, [named[k] for k in leaves])
+        return float(loss.detach()), [g.float().cpu() for g in grads]
+
+    la, ga_ = run(card, frames, codes)
+    lb, gb = run(cpu, frames.cpu(), codes.cpu())
+    res["train_loss"] = [la, lb]
+    res["train_grad_rel"] = {
+        k: max_err(a, b) / float(b.abs().max()) for k, a, b in zip(leaves, ga_, gb)}
+    log(f"[reference] train_forward loss card {la:.5f} cpu {lb:.5f} (tol "
+        f"{TOL_REF_LOSS}); gradient error relative to the leaf's largest "
+        f"(tol {TOL_REF_GRAD}): "
+        + ", ".join(f"{k} {v:.2e}" for k, v in res["train_grad_rel"].items()))
+
+    # the DAC encoder's latent in full float32 (TF32 off), relative RMS
+    audio = 0.3 * torch.randn(1, 1, 16 * 512, generator=gen, device="cuda")
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        za = card.dac.encode_latent(audio).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    zb = cpu.dac.encode_latent(audio.cpu())
+    res["latent_rel_rms"] = float((za - zb).pow(2).mean().sqrt()
+                                  / zb.pow(2).mean().sqrt())
+    log(f"[reference] DAC encoder latent rel rms err "
+        f"{res['latent_rel_rms']:.3e} (tol {TOL_REF_AUDIO})")
+    if not (abs(la - lb) <= TOL_REF_LOSS
+            and all(v <= TOL_REF_GRAD for v in res["train_grad_rel"].values())
+            and res["latent_rel_rms"] <= TOL_REF_AUDIO):
+        raise AssertionError(f"card and CPU disagree in training: {res}")
 
 
 def phase_reference(gen, report):
@@ -369,6 +675,8 @@ def phase_reference(gen, report):
     if not (res["features"] <= TOL_REF_REL and res["logits"] <= TOL_REF_REL
             and res["audio_rel_rms"] <= TOL_REF_AUDIO):
         raise AssertionError(f"card and CPU disagree: {res}")
+    del card, cpu
+    _reference_train(gen, res)
 
 
 # ---------------------------------------------------------------------------
@@ -409,8 +717,9 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     run("build", phase_build, report)
     kernels = []
-    for check in (check_decode_attention, check_encoder_attention,
-                  check_encoder_mlp):
+    checks = (check_decode_attention, check_encoder_attention,
+              check_encoder_mlp, check_grouped_cls_attention)
+    for check in checks:
         entry = run(check.__name__, check, gen)
         if entry is None:
             continue
@@ -421,10 +730,15 @@ def main() -> int:
         if not entry["max_abs_err"] <= entry["tol"]:
             failed.append(f"{entry['name']} tolerance")
     launches = run("main", phase_main, gen, report) or {}
+    train_launches = run("train", phase_train, gen, report) or {}
     run("reference", phase_reference, gen, report)
 
+    # each kernel's count on the main path that runs it: generation for the
+    # decode and fused encoder kernels, the three training steps for the
+    # grouped attention
     for entry in kernels:
-        entry["launches"] = launches.get(entry["name"], 0)
+        entry["launches"] = (launches.get(entry["name"], 0)
+                             + train_launches.get(entry["name"], 0))
     report["kernels"] = kernels
     report["failed"] = failed
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -439,7 +753,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
           else f"nvidia-smi: {smi.stderr.strip()}")
-    if failed or len(kernels) != 3:
+    if failed or len(kernels) != len(checks):
         print(f"chip_smoke: FAILED phases: {failed}", file=sys.stderr)
         return 1
     for e in kernels:

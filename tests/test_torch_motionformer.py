@@ -42,7 +42,8 @@ def test_features_match_jax():
 
     tm = TMF(port_encoder_config(J_CFG), device=CPU)
     tm.load_state_dict(from_jax_params({"encoder": tree})["encoder"])
-    got = tm(torch.from_numpy(frames))
+    with torch.no_grad():  # forward records a graph unless told not to
+        got = tm(torch.from_numpy(frames))
     assert got.shape == (2, 3, 2, 128) == want.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
                                atol=1e-4)

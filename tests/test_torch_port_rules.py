@@ -57,3 +57,29 @@ def test_entry_point_without_device_raises_when_cuda_is_absent(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         VauraSystem(tiny, DacConfig(), use_visual_conditioning=False)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_training_modules_are_covered_and_need_a_device(monkeypatch):
+    names = {str(f.relative_to(ROOT)) for f in _port_files()}
+    for mod in ("ops/divided_attention.py", "ops/losses.py", "ops/dropout.py",
+                "ops/schedules.py", "train/state.py", "train/steps.py"):
+        assert f"vaura_tpu_torch/{mod}" in names, mod
+    from vaura_tpu_torch.flagship import flagship_system
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        flagship_system(training=True, sampler_layers=1, encoder_depth=1)
+
+
+def test_every_kernel_source_is_built_and_counted():
+    """Each CUDA source under ``csrc/`` is in the build list, and its
+    wrapper module keeps a launch counter."""
+    from vaura_tpu_torch.kernels import build
+    from vaura_tpu_torch.ops import decode_attention, divided_attention
+    from vaura_tpu_torch.ops import encoder_fused
+
+    on_disk = {p.stem for p in (ROOT / "vaura_tpu_torch" / "csrc").glob("*.cu")}
+    assert on_disk == set(build.SOURCES)
+    assert divided_attention.launches == 0 and decode_attention.launches == 0
+    assert encoder_fused.attention_launches == 0
+    assert encoder_fused.mlp_launches == 0

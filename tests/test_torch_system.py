@@ -78,6 +78,10 @@ def test_encoder_chunks_and_dac_chunks_change_nothing(systems):
     whole = tsys.visual_features(f)
     chunked = tsys.visual_features(f, chunk_size=3)  # largest divisor: 2
     torch.testing.assert_close(chunked, whole, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="inference"):
+        tsys.visual_features(f, train=True, chunk_size=2)
+    with pytest.raises(TypeError):  # the options are keyword-only
+        tsys.visual_features(f, 2)
     codes = torch.randint(0, 16, (4, 3, 5), generator=torch.Generator().manual_seed(0))
     torch.testing.assert_close(tsys.decode_audio(codes, chunk_size=2),
                                tsys.decode_audio(codes), rtol=0, atol=1e-5)

@@ -41,22 +41,28 @@ J_ENC = JEncConfig(
 
 
 def _port_config(jcfg, tcls, **extra):
-    names = {f.name for f in dataclasses.fields(tcls)} - {"dtype"}
+    """The port's config with every field the two share, float32."""
+    names = {f.name for f in dataclasses.fields(tcls)} - {"dtype", "param_dtype"}
     kw = {n: getattr(jcfg, n) for n in names if hasattr(jcfg, n)}
     kw.update(extra)
     return tcls(dtype=torch.float32, **kw)
 
 
-def port_sampler_config(jcfg=J_SAMPLER) -> TSamplerConfig:
-    return _port_config(jcfg, TSamplerConfig)
+def port_sampler_config(jcfg=J_SAMPLER, **extra) -> TSamplerConfig:
+    return _port_config(jcfg, TSamplerConfig, **extra)
 
 
 def port_dac_config(jcfg=J_DAC) -> TDacConfig:
     return _port_config(jcfg, TDacConfig)
 
 
-def port_encoder_config(jcfg=J_ENC) -> TEncConfig:
-    return _port_config(jcfg, TEncConfig)
+def port_encoder_config(jcfg=J_ENC, **extra) -> TEncConfig:
+    """The JAX configs here turn the Pallas paths off to stay fast on the
+    CPU (``fused_encoder_block=False``: its einsum path computes the same
+    function); the port keeps its own default: fused sublayers when not
+    training. When training it always takes the grouped-attention op."""
+    extra = {"fused_encoder_block": None, **extra}
+    return _port_config(jcfg, TEncConfig, **extra)
 
 
 def np_tree(tree):
@@ -80,12 +86,13 @@ def randomize_sampler_heads(sampler_tree, seed: int):
     return out
 
 
-def init_jax_system(seed: int = 0):
+def init_jax_system(seed: int = 0, sampler_config=J_SAMPLER,
+                    encoder_config=J_ENC, **system_kw):
     from vaura_tpu.models.vaura import VauraSystem
 
     sysm = VauraSystem(
-        sampler_config=J_SAMPLER, dac_config=J_DAC,
-        encoder_config=J_ENC,
+        sampler_config=sampler_config, dac_config=J_DAC,
+        encoder_config=encoder_config, **system_kw,
     )
     # each subtree on its own (init_params would also trace the unused DAC
     # encoder), jitted
@@ -96,11 +103,89 @@ def init_jax_system(seed: int = 0):
             r, codes, method=sysm.dac.decode))(r_dac)["params"],
         "sampler": jax.jit(lambda r: sysm.sampler.init(
             {"params": r, "dropout": r, "cfg_dropout": r},
-            jnp.zeros((1, J_SAMPLER.num_codebooks, 16), jnp.int32),
-            jnp.zeros((1, 8, J_SAMPLER.cond_in_dim)), False))(r_sam)["params"],
+            jnp.zeros((1, sampler_config.num_codebooks, 16), jnp.int32),
+            jnp.zeros((1, 8, sampler_config.cond_in_dim)), False))(r_sam)["params"],
         "encoder": jax.jit(lambda r: sysm.encoder.init(
             r, jnp.zeros((1, 1, 3, 4, 16, 16))))(r_enc)["params"],
     }
     tree = np_tree(params)
     tree["sampler"] = randomize_sampler_heads(tree["sampler"], seed + 100)
     return sysm, tree
+
+
+# --------------------------------------------------------------------------
+# training: every stochastic rate at 0 (JAX's dropout streams cannot be
+# reproduced), the encoder through the Pallas grouped attention in interpret
+# mode, as tests/test_divided_attention_kernel.py runs it
+J_SAMPLER_TRAIN = dataclasses.replace(J_SAMPLER, class_dropout_prob=0.0)
+J_ENC_TRAIN = dataclasses.replace(J_ENC, fused_divided_attention=True)
+AUDIO_SAMPLES = 10 * J_DAC.hop_length  # 10 codec frames
+
+
+def init_jax_train_system(seed: int = 0, freeze_feature_extractor=False):
+    """``init_jax_system`` for the training tests: the tiny training
+    configuration, the DAC encoder initialised too, Snake alphas and the
+    zero-initialised biases and ``temp_embed`` filled with seeded values so
+    that no gradient is trivially zero. Returns ``(jax system, numpy
+    parameter tree)``."""
+    sysm, tree = init_jax_system(
+        seed, J_SAMPLER_TRAIN, J_ENC_TRAIN,
+        freeze_feature_extractor=freeze_feature_extractor)
+    wav = jnp.zeros((1, 1, J_DAC.hop_length * 4))
+    tree["dac"] = np_tree(jax.jit(lambda r: sysm.dac.init(r, wav))(
+        jax.random.PRNGKey(seed + 7))["params"])
+    rng = np.random.default_rng(seed + 200)
+
+    def fill(node, path=()):
+        for k, v in node.items():
+            if hasattr(v, "items"):
+                fill(v, path + (k,))
+            elif k == "alpha":
+                node[k] = rng.uniform(0.5, 2.0, v.shape).astype(np.float32)
+            elif k in ("bias", "temp_embed") or k.endswith("_b"):
+                node[k] = (0.05 * rng.standard_normal(v.shape)).astype(np.float32)
+
+    fill(tree)
+    return sysm, tree
+
+
+def port_train_system(tree, freeze_feature_extractor=False, **sampler_extra):
+    """The port's system of the tiny training configuration on the CPU,
+    loaded with ``tree``."""
+    from vaura_tpu_torch.convert import from_jax_params
+    from vaura_tpu_torch.models.vaura import VauraSystem as TSystem
+
+    tsys = TSystem(port_sampler_config(J_SAMPLER_TRAIN, **sampler_extra),
+                   port_dac_config(), port_encoder_config(J_ENC_TRAIN),
+                   freeze_feature_extractor=freeze_feature_extractor,
+                   device=CPU)
+    tsys.load_state_dicts(from_jax_params(tree))
+    return tsys
+
+
+def train_batch(seed: int = 0, batch: int = 2):
+    """Seeded numpy ``{"frames" [B, 2, 3, 4, 16, 16], "audio" [B, 1, T]}``."""
+    rng = np.random.default_rng(seed)
+    return {
+        "frames": rng.standard_normal((batch, 2, 3, 4, 16, 16)).astype(np.float32),
+        "audio": (0.5 * rng.standard_normal((batch, 1, AUDIO_SAMPLES))
+                  ).astype(np.float32),
+    }
+
+
+def jax_train_state(jsys, tree, learning_rate, **opt_kw):
+    """``(TrainState, frozen subtrees)`` of the JAX package over ``tree``."""
+    from vaura_tpu.train.state import TrainState, make_optimizer
+    from vaura_tpu.train.steps import split_params
+
+    params = jax.tree_util.tree_map(jnp.asarray, tree)
+    trainable, frozen = split_params(jsys, params)
+    tx = make_optimizer(learning_rate, **opt_kw)
+    return TrainState.create(trainable, tx), frozen
+
+
+def flat_state_dicts(state_dicts):
+    """``{"sampler": {...}, ...}`` -> ``{"sampler.<name>": tensor}``, the
+    names of ``VauraSystem.named_parameters()``."""
+    return {f"{top}.{k}": v for top, sd in state_dicts.items()
+            for k, v in sd.items()}

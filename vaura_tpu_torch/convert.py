@@ -17,6 +17,11 @@ Layouts:
     ``vaura_tpu/models/convert.py:64``) -> ``[in, out, W]`` by the inverse
     ``transpose(1, 2, 0)``.
 Weight norm is already folded on the JAX side.
+
+Every mapping is linear (a transpose, a slice or a copy), so a JAX GRADIENT
+tree or an UPDATED parameter tree goes through ``from_jax_params`` just as
+the parameters do: the tests compare the port's gradients and optimizer
+steps with the JAX package's that way.
 """
 
 from __future__ import annotations
@@ -116,11 +121,23 @@ def _res_unit(p: Tree, sd: Dict[str, torch.Tensor], prefix: str) -> None:
 
 
 def dac_state_dict(p: Tree) -> Dict[str, torch.Tensor]:
-    """Decoder and the RVQ tables ``from_codes`` reads."""
+    """Quantizer, decoder and, where the tree has it, the encoder."""
     sd: Dict[str, torch.Tensor] = {}
-    q = p["quantizer"]
-    for name in ("codebooks", "out_proj_w", "out_proj_b"):
-        sd[f"quantizer.{name}"] = _t(q[name])
+    for name, a in p["quantizer"].items():
+        sd[f"quantizer.{name}"] = _t(a)
+    if "encoder" in p:
+        e = p["encoder"]
+        _conv1d(e["conv_in"], sd, "encoder.conv_in")
+        i = 0
+        while f"block{i}" in e:
+            bp, pre = e[f"block{i}"], f"encoder.blocks.{i}"
+            for r in ("res1", "res2", "res3"):
+                _res_unit(bp[r], sd, f"{pre}.{r}")
+            sd[f"{pre}.snake.alpha"] = _t(bp["snake"]["alpha"])
+            _conv1d(bp["down"], sd, f"{pre}.down")
+            i += 1
+        sd["encoder.snake_out.alpha"] = _t(e["snake_out"]["alpha"])
+        _conv1d(e["conv_out"], sd, "encoder.conv_out")
     d = p["decoder"]
     _conv1d(d["conv_in"], sd, "decoder.conv_in")
     i = 0

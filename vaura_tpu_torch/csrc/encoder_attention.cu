@@ -32,7 +32,9 @@
 //    through L2. LN and the x reads are repeated once per head (12x).
 //  * q/k/v of the pack for one head live in shared memory (<= 256 rows);
 //    attention runs one warp per query row, one lane per key, float32
-//    online-free softmax over <= 256 keys plus the CLS column.
+//    online-free softmax over <= 256 keys plus the CLS column
+//    (warp_group_attention_row in common.cuh, shared with
+//    grouped_cls_attention.cu).
 //  * the per-head attention output makes one extra HBM round trip
 //    ([B', N, D] bf16 written by (a), read by (b)); the Pallas kernel kept
 //    it in VMEM. Fusing the projection into (a) is the next step.
@@ -45,12 +47,11 @@ using namespace nvcuda;
 
 namespace {
 
-constexpr int kHD = 64;           // head dim the kernel is built for
-constexpr int kMaxRows = 256;     // rows of one pack
+constexpr int kHD = kAttnHD;      // head dim the kernel is built for
+constexpr int kMaxRows = kAttnMaxKeys;  // rows of one pack
 constexpr int kChunk = 32;        // LN'd rows staged per projection pass
 constexpr int kWarps = 8;
-constexpr int kQKVStride = kHD + 2;  // 33 words: conflict-free row reads
-constexpr int kMaxKeyIters = kMaxRows / 32;
+constexpr int kQKVStride = kAttnStride;  // 33 words: conflict-free row reads
 
 struct GroupSmem {
   // byte offsets into dynamic shared memory
@@ -169,63 +170,13 @@ group_attention_kernel(
   const float ck1 = to_f(cls_k[cls_off + 2 * lane + 1]);
   const float cv0 = to_f(cls_v[cls_off + 2 * lane]);
   const float cv1 = to_f(cls_v[cls_off + 2 * lane + 1]);
-  const int n_key_iters = (L + 31) / 32;
   for (int i = warp; i < nrows; i += kWarps) {
     const int g0 = (i / L) * L;
-    const __nv_bfloat162* qrow =
-        reinterpret_cast<const __nv_bfloat162*>(q_sm + i * kQKVStride);
-    float s[kMaxKeyIters];
-    float mx;
-    {
-      const float2 qp = __bfloat1622float2(qrow[lane]);
-      mx = warp_sum(qp.x * ck0 + qp.y * ck1);  // CLS column score
-    }
-    const float sc = mx;
-#pragma unroll
-    for (int t = 0; t < kMaxKeyIters; ++t) {
-      s[t] = -INFINITY;
-      const int j = t * 32 + lane;
-      if (t < n_key_iters && j < L) {
-        const __nv_bfloat162* krow =
-            reinterpret_cast<const __nv_bfloat162*>(k_sm + (g0 + j) * kQKVStride);
-        float a = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < kHD / 2; ++d) {
-          const float2 qv = __bfloat1622float2(qrow[d]);
-          const float2 kv = __bfloat1622float2(krow[d]);
-          a += qv.x * kv.x + qv.y * kv.y;
-        }
-        s[t] = a;
-        mx = fmaxf(mx, a);
-      }
-    }
-    mx = warp_max(mx);
-    float den = 0.f;
-#pragma unroll
-    for (int t = 0; t < kMaxKeyIters; ++t) {
-      s[t] = (t < n_key_iters && t * 32 + lane < L) ? expf(s[t] - mx) : 0.f;
-      den += s[t];
-    }
-    const float pc = expf(sc - mx);
-    den = warp_sum(den) + pc;
-    float o0 = pc * cv0, o1 = pc * cv1;
-#pragma unroll
-    for (int t = 0; t < kMaxKeyIters; ++t) {
-      if (t < n_key_iters) {
-        const int nk = min(32, L - t * 32);
-        for (int src = 0; src < nk; ++src) {
-          const float p = __shfl_sync(0xffffffffu, s[t], src);
-          const float2 vv = __bfloat1622float2(
-              reinterpret_cast<const __nv_bfloat162*>(
-                  v_sm + (g0 + t * 32 + src) * kQKVStride)[lane]);
-          o0 += p * vv.x;
-          o1 += p * vv.y;
-        }
-      }
-    }
-    __nv_bfloat162* orow = reinterpret_cast<__nv_bfloat162*>(
-        attn + (static_cast<size_t>(b) * N + r0 + i) * D + h * kHD);
-    orow[lane] = __floats2bfloat162_rn(o0 / den, o1 / den);
+    warp_group_attention_row(
+        q_sm + i * kQKVStride, k_sm + g0 * kQKVStride, v_sm + g0 * kQKVStride,
+        L, ck0, ck1, cv0, cv1,
+        reinterpret_cast<__nv_bfloat162*>(
+            attn + (static_cast<size_t>(b) * N + r0 + i) * D + h * kHD));
   }
 
   // 4. CLS query partials over the pack's rows

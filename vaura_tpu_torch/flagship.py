@@ -1,5 +1,5 @@
-"""The flagship configuration of the generation path, with seeded random
-weights made on the target device.
+"""The flagship configuration, for generation and for training, with seeded
+random weights made on the target device.
 
   sampler  SamplerConfig(): 24 layers, d=1536, 16 heads (hd=96), 9 codebooks
            of 1024, bf16 compute and cache
@@ -11,6 +11,17 @@ weights made on the target device.
 The generation settings of the flagship run (``GENERATE_KW``) are CFG 6.0,
 top-k 128, 221 new tokens at 7 tokens per video frame, from frames
 ``[B, 4, 3, 16, 224, 224]``.
+
+A system made for generation stores its matmul weights in bf16 and records
+no graph. ``training=True`` makes the training configuration: float32
+parameters (cast to bf16 at use), an unfrozen encoder, the configurations'
+own dropout and stochastic-depth rates, a zero-initialised ``lm_head`` (as
+the JAX package initialises it, so the first loss is ``ln 1024``) and the
+optimizer of ``configs/vaura_defaults.yaml`` (``TRAIN_KW``,
+``LR_SCHEDULER``: AdamW at 1e-3 behind an inverse-sqrt schedule with 3000
+warmup steps, value clipping at 1.0). A training batch (``random_train_batch``) is frames
+``[B, 4, 3, 16, 224, 224]`` with audio ``[B, 1, 113152]`` (221 codec frames
+at hop 512).
 """
 
 from __future__ import annotations
@@ -29,26 +40,70 @@ from vaura_tpu_torch.utils import DeviceLike, seeded_init_
 GENERATE_KW = dict(cfg_scale=6.0, top_k=128, max_new_tokens=221,
                    tokens_per_frame=7)
 FRAMES_SHAPE = (4, 3, 16, 224, 224)  # per clip: segments, C, T, H, W
+AUDIO_SAMPLES = 221 * 512
+# the optimizer of ``configs/vaura_defaults.yaml``
+TRAIN_KW = dict(learning_rate=1e-3, weight_decay=0.0, betas=(0.9, 0.95),
+                gradient_clip_val=1.0, gradient_clip_algorithm="value",
+                accumulate_grad_batches=1)
+LR_SCHEDULER = {"target": "InverseSquareRootLRScheduler",
+                "params": {"warmup_steps": 3000, "warmup_init_lr": 1e-6}}
 
 
 def flagship_system(device: DeviceLike = None,
                     generator: Optional[torch.Generator] = None,
                     sampler_layers: Optional[int] = None,
-                    encoder_depth: Optional[int] = None) -> VauraSystem:
+                    encoder_depth: Optional[int] = None,
+                    training: bool = False,
+                    sampler_overrides: Optional[dict] = None,
+                    encoder_overrides: Optional[dict] = None) -> VauraSystem:
     """The flagship system; ``sampler_layers``/``encoder_depth`` cut depth
-    only. With a ``generator`` the weights are drawn from it
-    (``utils.seeded_init_``); without one they are left for
-    ``load_state_dicts``."""
-    s_cfg, e_cfg = SamplerConfig(), MotionFormerConfig()
+    only and the ``*_overrides`` replace fields of the two configurations
+    (``{"remat": True}``, dropout rates). With a ``generator`` the weights
+    are drawn from it (``utils.seeded_init_``); without one they are left
+    for ``load_state_dicts``. See the module docstring for ``training``."""
+    store = torch.float32 if training else torch.bfloat16
+    s_cfg = dataclasses.replace(SamplerConfig(), param_dtype=store,
+                                **(sampler_overrides or {}))
+    e_cfg = dataclasses.replace(MotionFormerConfig(), param_dtype=store,
+                                **(encoder_overrides or {}))
     if sampler_layers:
         s_cfg = dataclasses.replace(s_cfg, num_layers=sampler_layers)
     if encoder_depth:
         e_cfg = dataclasses.replace(e_cfg, depth=encoder_depth)
     system = VauraSystem(s_cfg, config_for_sample_rate(44100), e_cfg,
-                         device=device)
+                         freeze_feature_extractor=False, device=device)
     if generator is not None:
         seeded_init_(system, generator)
+    if training:
+        torch.nn.init.zeros_(system.sampler.lm_head.weight)
+    else:
+        system.requires_grad_(False)
     return system
+
+
+def flagship_train_state(system: VauraSystem):
+    """The ``TrainState`` of the flagship training configuration over
+    ``system`` (made with ``training=True``)."""
+    from vaura_tpu_torch.train.state import (
+        TrainState,
+        build_schedule,
+        make_optimizer,
+    )
+    from vaura_tpu_torch.train.steps import split_params
+
+    kw = dict(TRAIN_KW)
+    lr = build_schedule(LR_SCHEDULER, kw.pop("learning_rate"))
+    trainable, _ = split_params(system)
+    return TrainState.create(trainable, make_optimizer(lr, **kw))
+
+
+def random_train_batch(batch: int, generator: torch.Generator,
+                       device: DeviceLike = None) -> dict:
+    """Seeded ``{"frames", "audio"}``: bf16 frames and a float32 waveform
+    ``[batch, 1, 113152]`` of amplitude about 0.3."""
+    audio = 0.3 * torch.randn(batch, 1, AUDIO_SAMPLES, generator=generator,
+                              device=device)
+    return {"frames": random_frames(batch, generator, device), "audio": audio}
 
 
 def random_frames(batch: int, generator: torch.Generator,

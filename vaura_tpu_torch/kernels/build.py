@@ -30,7 +30,8 @@ from typing import Dict, Iterable, Sequence
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("decode_attention", "encoder_attention", "encoder_mlp")
+SOURCES = ("decode_attention", "encoder_attention", "encoder_mlp",
+           "grouped_cls_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -1,4 +1,4 @@
-"""DAC decoder building blocks, channels-first ``[B, C, T]``.
+"""DAC building blocks, channels-first ``[B, C, T]``.
 
 Counterpart of ``vaura_tpu/models/dac/layers.py``. Weight norm is stored
 folded (``W = g * v / ||v||``), as the JAX package stores it. Where the JAX
@@ -50,6 +50,26 @@ class ResidualUnit(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.conv2(self.snake2(self.conv1(self.snake1(x))))
         return x + y
+
+
+class EncoderBlock(nn.Module):
+    """Three residual units, Snake, then a strided downsampling conv.
+    ``dim`` is the number of output channels; the units run at ``dim // 2``."""
+
+    def __init__(self, dim: int, stride: int, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        half = dim // 2
+        self.res1 = ResidualUnit(half, 1, **kw)
+        self.res2 = ResidualUnit(half, 3, **kw)
+        self.res3 = ResidualUnit(half, 9, **kw)
+        self.snake = Snake1d(half, **kw)
+        self.down = Conv1d(half, dim, 2 * stride, stride=stride,
+                           padding=math.ceil(stride / 2), **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.res3(self.res2(self.res1(x)))
+        return self.down(self.snake(x))
 
 
 class DecoderBlock(nn.Module):

@@ -1,9 +1,10 @@
-"""DAC codec, decode direction: codes -> 44.1 kHz waveform.
+"""DAC codec: waveform -> codes (``encode``, the frozen front of a training
+step) and codes -> 44.1 kHz waveform (``decode``).
 
-Counterpart of ``vaura_tpu/models/dac/model.py:44-257`` without the encoder
-and the RVQ encode (not on the generation path). Public layouts are the JAX
-package's: codes ``[B, K, T]``, audio ``[B, 1, T * hop]``; inside, the
-decoder runs channels-first.
+Counterpart of ``vaura_tpu/models/dac/model.py:44-257``. Public layouts are
+the JAX package's: codes ``[B, K, T]``, audio ``[B, 1, T * hop]``; inside,
+the conv stacks run channels-first. The codec is never trained: both entry
+points run without a graph.
 """
 
 from __future__ import annotations
@@ -13,9 +14,15 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from vaura_tpu_torch.models.dac.layers import Conv1d, DecoderBlock, Snake1d
+from vaura_tpu_torch.models.dac.layers import (
+    Conv1d,
+    DecoderBlock,
+    EncoderBlock,
+    Snake1d,
+)
 
 MODEL_SR = [16000, 24000, 44000, 44100]
 
@@ -55,6 +62,29 @@ def config_for_sample_rate(model_sr: int) -> DacConfig:
     return DacConfig(sample_rate=16000, n_codebooks=12)
 
 
+class DacEncoder(nn.Module):
+    """``[B, 1, T]`` -> ``[B, latent, T / hop]``."""
+
+    def __init__(self, cfg: DacConfig, device=None):
+        super().__init__()
+        kw = dict(device=device, dtype=cfg.dtype)
+        d = cfg.encoder_dim
+        self.conv_in = Conv1d(1, d, 7, padding=3, **kw)
+        blocks = []
+        for stride in cfg.encoder_rates:
+            d *= 2
+            blocks.append(EncoderBlock(d, stride, **kw))
+        self.blocks = nn.ModuleList(blocks)
+        self.snake_out = Snake1d(d, **kw)
+        self.conv_out = Conv1d(d, cfg.resolved_latent_dim, 3, padding=1, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv_in(x)
+        for block in self.blocks:
+            x = block(x)
+        return self.conv_out(self.snake_out(x))
+
+
 class DacDecoder(nn.Module):
     """``[B, latent, T]`` -> ``[B, 1, T * hop]``."""
 
@@ -80,8 +110,10 @@ class DacDecoder(nn.Module):
 
 
 class ResidualVectorQuantize(nn.Module):
-    """The RVQ tables needed to turn codes back into the latent: per stage
-    a codebook ``[V, cd]`` and a folded out-projection ``[cd, D]``."""
+    """Residual vector quantiser: per stage a codebook ``[V, cd]`` and
+    folded 1x1 in- and out-projections ``[D, cd]`` / ``[cd, D]``. A stage
+    projects the residual to ``codebook_dim``, takes the nearest codebook
+    entry by cosine similarity, projects it back and subtracts it."""
 
     def __init__(self, cfg: DacConfig, device=None):
         super().__init__()
@@ -89,8 +121,33 @@ class ResidualVectorQuantize(nn.Module):
                        cfg.resolved_latent_dim)
         self.codebook_size = V
         self.codebooks = nn.Parameter(torch.empty(K, V, cd, device=device))
+        self.in_proj_w = nn.Parameter(torch.empty(K, D, cd, device=device))
+        self.in_proj_b = nn.Parameter(torch.zeros(K, cd, device=device))
         self.out_proj_w = nn.Parameter(torch.empty(K, cd, D, device=device))
         self.out_proj_b = nn.Parameter(torch.zeros(K, D, device=device))
+
+    def encode(self, z: torch.Tensor, return_margins: bool = False):
+        """``[B, T, D]`` latent -> ``[B, K, T]`` codes (int64). A near-tie at
+        one stage changes every later stage of that frame; with
+        ``return_margins`` the gap between the two best similarities of each
+        choice comes back too, ``[B, K, T]``."""
+        residual = z.float()
+        codes, margins = [], []
+        for cb, wi, bi, wo, bo in zip(self.codebooks, self.in_proj_w,
+                                      self.in_proj_b, self.out_proj_w,
+                                      self.out_proj_b):
+            z_e = residual @ wi + bi
+            z_en = z_e / (z_e.norm(dim=-1, keepdim=True) + 1e-8)
+            cbn = cb / (cb.norm(dim=-1, keepdim=True) + 1e-8)
+            sim = z_en @ cbn.t()  # [B, T, V]
+            idx = sim.argmax(dim=-1)
+            if return_margins:
+                top2 = sim.topk(2, dim=-1).values
+                margins.append(top2[..., 0] - top2[..., 1])
+            residual = residual - (F.embedding(idx, cb) @ wo + bo)
+            codes.append(idx)
+        codes = torch.stack(codes, dim=1)
+        return (codes, torch.stack(margins, dim=1)) if return_margins else codes
 
     def from_codes(self, codes: torch.Tensor) -> torch.Tensor:
         """``[B, K, T]`` codes -> ``[B, T, D]`` latent (float32)."""
@@ -106,13 +163,44 @@ class ResidualVectorQuantize(nn.Module):
 
 
 class Dac(nn.Module):
-    """Decode entry point of the codec."""
+    """Encoder, RVQ and decoder; ``encode`` and ``decode`` are the entry
+    points."""
 
     def __init__(self, cfg: DacConfig, device=None):
         super().__init__()
         self.cfg = cfg
+        self.encoder = DacEncoder(cfg, device)
         self.quantizer = ResidualVectorQuantize(cfg, device)
         self.decoder = DacDecoder(cfg, device)
+
+    def load_state_dict(self, state_dict, strict: bool = True, **kw):
+        """A decode-only state dict (no ``encoder.*`` entry: what the JAX
+        package's ``init(method=decode)`` tree converts to) loads the
+        quantizer and the decoder and leaves the encoder as it is."""
+        if not strict or any(k.startswith("encoder.") for k in state_dict):
+            return super().load_state_dict(state_dict, strict=strict, **kw)
+        result = super().load_state_dict(state_dict, strict=False, **kw)
+        bad = [k for k in result.missing_keys if not k.startswith("encoder.")]
+        if bad or result.unexpected_keys:
+            raise RuntimeError(f"Dac.load_state_dict: missing {bad}, "
+                               f"unexpected {result.unexpected_keys}")
+        return result
+
+    def preprocess(self, wav: torch.Tensor) -> torch.Tensor:
+        """Right-pad ``[B, 1, T]`` with zeros to a multiple of the hop."""
+        hop = self.cfg.hop_length
+        return F.pad(wav, (0, (hop - wav.shape[-1] % hop) % hop))
+
+    @torch.no_grad()
+    def encode_latent(self, wav: torch.Tensor) -> torch.Tensor:
+        """``[B, 1, T]`` waveform -> ``[B, T / hop, D]`` float32 latent."""
+        z = self.encoder(self.preprocess(wav).to(self.cfg.dtype))
+        return z.transpose(1, 2).float()
+
+    @torch.no_grad()
+    def encode(self, wav: torch.Tensor) -> torch.Tensor:
+        """``[B, 1, T]`` waveform -> ``[B, K, T / hop]`` codes."""
+        return self.quantizer.encode(self.encode_latent(wav))
 
     @torch.no_grad()
     def decode(self, codes: torch.Tensor) -> torch.Tensor:

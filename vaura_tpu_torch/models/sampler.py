@@ -1,14 +1,21 @@
-"""Multi-codebook autoregressive sampler (Llama-style decoder): the decode
-path.
+"""Multi-codebook autoregressive sampler (Llama-style decoder): the
+teacher-forced forward of training and the decode path of generation.
 
 Counterpart of ``vaura_tpu/models/sampler.py``: per-codebook token
 embeddings (DAC-factored, weight-normed), AVCLIP visual features projected
 and fused by channel concatenation, interleaved RoPE, RMSNorm + SwiGLU
 blocks, one fused LM head for all codebooks.
 
-Compute runs in ``config.dtype`` (bf16 by default): the matmul weights are
-stored in it (JAX casts its float32 parameters to it at each use, which
-rounds the same way), norms, embeddings and the softmax stay float32.
+Compute runs in ``config.dtype`` (bf16 by default). The matmul weights are
+stored in ``config.param_dtype`` (float32 by default, what the optimizer
+updates) and cast to the compute dtype at each use, as the JAX package
+does; a system that only generates may store them in the compute dtype
+(``param_dtype=torch.bfloat16``), which rounds the same way once. Norms,
+embeddings and the softmax stay float32.
+
+Every stochastic operation of ``forward(train=True)`` (token, ``wo`` and
+feed-forward dropout, attention dropout, stochastic depth, the CFG
+``token_drop``) draws its mask from the explicit ``generator``.
 
 The KV cache is one preallocated ``[L, B, S, H_kv, hd]`` buffer per key and
 value. A layer never writes it: it reads positions ``< pos`` through
@@ -28,7 +35,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torch.utils.checkpoint import checkpoint
+
 from vaura_tpu_torch.ops.decode_attention import decode_attention
+from vaura_tpu_torch.ops.dropout import drop_path, dropout
 from vaura_tpu_torch.ops.rope import apply_rotary_emb, precompute_freqs_cis
 
 
@@ -49,6 +59,10 @@ class SamplerConfig:
     n_kv_head: Optional[int] = None
     block_size_audio: int = 256
     block_size_video: int = 64
+    dropout: float = 0.1
+    class_dropout_prob: float = 0.1
+    attn_dropout_p: float = 0.0
+    drop_path_rate: float = 0.0
     layer_norm_eps: float = 1e-5
     rope_base: float = 10000.0
     multiple_of: int = 256
@@ -57,8 +71,13 @@ class SamplerConfig:
     cond_feature_channel_scaler: int = 3
     cond_token_num: int = 32
     codebook_dim: int = 8
+    # recompute each block in the backward pass instead of keeping its
+    # activations (torch.utils.checkpoint per block): memory and time
+    # change, numbers do not.
+    remat: bool = False
     quantize_cache: bool = False  # int8 cache: not ported yet
     dtype: torch.dtype = torch.bfloat16
+    param_dtype: torch.dtype = torch.float32  # storage of the matmul weights
 
     @property
     def block_size(self) -> int:
@@ -97,8 +116,19 @@ class SamplerConfig:
         return self.d_codebook
 
 
-def _linear(i: int, o: int, cfg: SamplerConfig, device) -> nn.Linear:
-    return nn.Linear(i, o, bias=False, dtype=cfg.dtype, device=device)
+class PDense(nn.Module):
+    """Bias-free dense: weight ``[out, in]`` stored in ``param_dtype``, cast
+    to the compute dtype at use."""
+
+    def __init__(self, i: int, o: int, cfg: SamplerConfig, device=None):
+        super().__init__()
+        self.dtype = cfg.dtype
+        self.weight = nn.Parameter(torch.empty(o, i, dtype=cfg.param_dtype,
+                                               device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+
 
 
 class RMSNorm(nn.Module):
@@ -120,23 +150,53 @@ class FeedForward(nn.Module):
 
     def __init__(self, cfg: SamplerConfig, device=None):
         super().__init__()
-        self.w1 = _linear(cfg.d_model, cfg.ffn_hidden_dim, cfg, device)
-        self.w3 = _linear(cfg.d_model, cfg.ffn_hidden_dim, cfg, device)
-        self.w2 = _linear(cfg.ffn_hidden_dim, cfg.d_model, cfg, device)
+        self.dropout = cfg.dropout
+        self.w1 = PDense(cfg.d_model, cfg.ffn_hidden_dim, cfg, device)
+        self.w3 = PDense(cfg.d_model, cfg.ffn_hidden_dim, cfg, device)
+        self.w2 = PDense(cfg.ffn_hidden_dim, cfg.d_model, cfg, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.w2(F.silu(self.w1(x)) * self.w3(x))
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        out = self.w2(F.silu(self.w1(x)) * self.w3(x))
+        return dropout(out, self.dropout, train, generator)
 
 
 class Attention(nn.Module):
-    """Fused-QKV attention, decode branch: one position against the cache."""
+    """Fused-QKV attention with RoPE: ``forward`` is the full-sequence
+    masked branch (training), ``decode`` one position against the cache."""
 
     def __init__(self, cfg: SamplerConfig, device=None):
         super().__init__()
         self.cfg = cfg
         kv_dim = cfg.n_kv_heads * cfg.head_dim
-        self.wqkv = _linear(cfg.d_model, cfg.d_model + 2 * kv_dim, cfg, device)
-        self.wo = _linear(cfg.d_model, cfg.d_model, cfg, device)
+        self.wqkv = PDense(cfg.d_model, cfg.d_model + 2 * kv_dim, cfg, device)
+        self.wo = PDense(cfg.d_model, cfg.d_model, cfg, device)
+
+    def forward(self, x: torch.Tensor, freqs_cis: torch.Tensor,
+                mask: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``x [B, S, d_model]``, ``mask [S, S]`` bool (True = attend).
+        Float32 scores, ``-1e30`` at masked pairs, probabilities cast to the
+        value dtype, dropout on the probabilities and on the output."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        H, Hkv, hd = cfg.nhead, cfg.n_kv_heads, cfg.head_dim
+        q, k, v = self.wqkv(x).split([H * hd, Hkv * hd, Hkv * hd], dim=-1)
+        q = apply_rotary_emb(q.reshape(B, S, H, hd), freqs_cis)
+        k = apply_rotary_emb(k.reshape(B, S, Hkv, hd), freqs_cis)
+        v = v.reshape(B, S, Hkv, hd)
+        if H != Hkv:
+            k = k.repeat_interleave(H // Hkv, dim=2)
+            v = v.repeat_interleave(H // Hkv, dim=2)
+        scores = torch.einsum("bshd,bthd->bhst", q.float(), k.float())
+        scores = scores * (1.0 / math.sqrt(hd))
+        scores = torch.where(mask[None, None], scores,
+                             scores.new_full((), -1e30))
+        probs = torch.softmax(scores, dim=-1)
+        probs = dropout(probs, cfg.attn_dropout_p, train, generator)
+        out = torch.einsum("bhst,bthd->bshd", probs.to(v.dtype), v)
+        out = self.wo(out.reshape(B, S, H * hd).to(cfg.dtype))
+        return dropout(out, cfg.dropout, train, generator)
 
     def decode(self, x: torch.Tensor, freqs_cis: torch.Tensor,
                k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int
@@ -161,10 +221,19 @@ class TransformerBlock(nn.Module):
 
     def __init__(self, cfg: SamplerConfig, device=None):
         super().__init__()
+        self.drop_path_rate = cfg.drop_path_rate
         self.attention = Attention(cfg, device)
         self.feed_forward = FeedForward(cfg, device)
         self.attention_norm = RMSNorm(cfg.d_model, cfg.layer_norm_eps, device)
         self.ffn_norm = RMSNorm(cfg.d_model, cfg.layer_norm_eps, device)
+
+    def forward(self, x: torch.Tensor, freqs_cis: torch.Tensor,
+                mask: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        dp = lambda t: drop_path(t, self.drop_path_rate, train, generator)
+        h = x + dp(self.attention(self.attention_norm(x), freqs_cis, mask,
+                                  train, generator))
+        return h + dp(self.feed_forward(self.ffn_norm(h), train, generator))
 
     def decode(self, x, freqs_cis, k_cache, v_cache, pos: int):
         a, kv = self.attention.decode(self.attention_norm(x), freqs_cis,
@@ -211,8 +280,8 @@ class AVCLIPEmbedder(nn.Module):
     def __init__(self, cfg: SamplerConfig, device=None):
         super().__init__()
         self.cfg = cfg
-        self.fc1 = _linear(cfg.cond_in_dim, cfg.cond_dim, cfg, device)
-        self.fc2 = _linear(cfg.cond_dim, cfg.cond_dim, cfg, device)
+        self.fc1 = PDense(cfg.cond_in_dim, cfg.cond_dim, cfg, device)
+        self.fc2 = PDense(cfg.cond_dim, cfg.cond_dim, cfg, device)
         self.uncond_embedding = nn.Parameter(
             torch.empty(cfg.cond_token_num, cfg.cond_in_dim, device=device))
 
@@ -224,11 +293,24 @@ class AVCLIPEmbedder(nn.Module):
             u = u.repeat(-(-n_tokens // u.shape[0]), 1)
         return u[:n_tokens]
 
+    def token_drop(self, feats: torch.Tensor,
+                   generator: Optional[torch.Generator] = None
+                   ) -> torch.Tensor:
+        """Replace whole samples (one draw per batch row) with the null
+        condition with probability ``class_dropout_prob``."""
+        drop = torch.rand(feats.shape[0], device=feats.device,
+                          generator=generator) < self.cfg.class_dropout_prob
+        uncond = self._uncond_rows(feats.shape[1]).to(feats.dtype)
+        return torch.where(drop[:, None, None], uncond.expand_as(feats), feats)
+
     def project(self, x: torch.Tensor) -> torch.Tensor:
         h = F.gelu(self.fc1(x.to(self.cfg.dtype)), approximate="tanh")
         return self.fc2(h)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if train and self.cfg.class_dropout_prob > 0.0:
+            x = self.token_drop(x, generator)
         return self.project(x)
 
     def uncond(self, batch: int, n_tokens: int) -> torch.Tensor:
@@ -257,7 +339,8 @@ def default_tokens_per_frame(seq_len: int, n_video_tokens: int,
 
 
 class Sampler(nn.Module):
-    """The autoregressive decoder, decode entry points."""
+    """The autoregressive decoder: ``forward`` (teacher-forced, full
+    sequence) and the decode entry points."""
 
     def __init__(self, cfg: SamplerConfig, device=None):
         super().__init__()
@@ -269,7 +352,7 @@ class Sampler(nn.Module):
         self.layers = nn.ModuleList(
             TransformerBlock(cfg, device) for _ in range(cfg.num_layers))
         self.norm = RMSNorm(cfg.d_model, cfg.layer_norm_eps, device)
-        self.lm_head = _linear(cfg.d_model, cfg.num_codebooks * cfg.d_codebook,
+        self.lm_head = PDense(cfg.d_model, cfg.num_codebooks * cfg.d_codebook,
                                cfg, device)
         freqs = precompute_freqs_cis(cfg.block_size, cfg.head_dim, cfg.rope_base)
         self.register_buffer("freqs_cis", torch.as_tensor(freqs, device=device),
@@ -283,9 +366,58 @@ class Sampler(nn.Module):
                                                  cfg.d_codebook)
         return out.permute(0, 2, 1, 3)  # [B, K, S, vocab]
 
-    def embed_cond(self, cond_feats: torch.Tensor) -> torch.Tensor:
-        """``[B, Tv, cond_in_dim]`` raw features -> ``[B, Tv, cond_dim]``."""
-        return self.cls_embeddings(cond_feats)
+    def embed_cond(self, cond_feats: torch.Tensor, train: bool = False,
+                   generator: Optional[torch.Generator] = None
+                   ) -> torch.Tensor:
+        """``[B, Tv, cond_in_dim]`` raw features -> ``[B, Tv, cond_dim]``
+        (the CFG token drop applied when training)."""
+        return self.cls_embeddings(cond_feats, train, generator)
+
+    def forward(self, tokens: torch.Tensor, cond_feats: torch.Tensor,
+                train: bool = False, tokens_per_frame: Optional[int] = None,
+                attn_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Teacher-forced causal forward: tokens ``[B, K, S]`` and raw visual
+        features ``[B, Tv, cond_in_dim]`` -> logits ``[B, K, S, vocab]``.
+        ``attn_mask [S, S]`` (bool, a subset of the causal mask) replaces
+        the causal mask."""
+        cfg = self.cfg
+        B, K, S = tokens.shape
+        tok_emb = self.tok_embeddings(tokens)
+        if tokens_per_frame is None:
+            tokens_per_frame = default_tokens_per_frame(
+                S, cond_feats.shape[1], cfg.num_codebooks)
+        cond_emb = self.embed_cond(cond_feats, train, generator)
+        cond_seq = self.build_cond_seq(cond_emb, S, tokens_per_frame)
+        h = torch.cat([cond_seq, tok_emb], dim=-1)
+        h = dropout(h, cfg.dropout, train, generator)
+        freqs = self.freqs_cis[:S]
+        if attn_mask is None:
+            mask = torch.ones(S, S, dtype=torch.bool, device=h.device).tril()
+        else:
+            mask = torch.as_tensor(attn_mask, dtype=torch.bool, device=h.device)
+        remat = cfg.remat and torch.is_grad_enabled()
+        stochastic = train and bool(cfg.dropout or cfg.attn_dropout_p
+                                    or cfg.drop_path_rate)
+        for layer in self.layers:
+            if not remat:
+                h = layer(h, freqs, mask, train, generator)
+                continue
+            # the backward pass runs the block again and must draw the same
+            # masks: each block gets a generator of its own, seeded from the
+            # caller's and made anew for either run
+            seed = (int(torch.randint(0, 2 ** 62, (1,), device=h.device,
+                                      generator=generator))
+                    if stochastic else None)
+
+            def run(x, layer=layer, seed=seed):
+                g = (None if seed is None else
+                     torch.Generator(device=x.device).manual_seed(seed))
+                return layer(x, freqs, mask, train, g)
+
+            h = checkpoint(run, h, use_reentrant=False,
+                           preserve_rng_state=False)
+        return self._logits(h)
 
     def uncond_cond_emb(self, batch: int, n_tokens: int) -> torch.Tensor:
         return self.cls_embeddings.uncond(batch, n_tokens)

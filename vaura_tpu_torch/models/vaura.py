@@ -1,9 +1,17 @@
-"""The composite V-AURA system, generation path: frames -> MotionFormer
-features -> bridge -> conditioning sequence (with the CFG null stream) ->
-delayed codebook pattern -> KV-cache decode loop -> pattern revert -> DAC
-waveform.
+"""The composite V-AURA system.
+
+Generation: frames -> MotionFormer features -> bridge -> conditioning
+sequence (with the CFG null stream) -> delayed codebook pattern -> KV-cache
+decode loop -> pattern revert -> DAC waveform.
+
+Training (``train_forward``): audio -> DAC codes (frozen, no graph) ->
+delayed pattern with the implicit BOS shift -> MotionFormer (``train=True``:
+the unfused, differentiable blocks) -> bridge -> teacher-forced sampler ->
+logits reverted to the codes' timesteps (NaN at the slots no step
+predicts) -> masked per-codebook cross entropy.
 
 Counterpart of ``vaura_tpu/models/vaura.py`` (``visual_features``,
+``train_forward``, ``encode_audio``, ``load_dac_embeddings_into_sampler``,
 ``prepare_generation``, ``build_cond_seq_for_generation``, the generation
 step, ``generate_tokens``, ``generate``, ``decode_audio``). JAX runs the
 decode loop as a compiled ``lax.scan``; here it is a Python loop over steps
@@ -15,8 +23,9 @@ decode-attention kernel reads only positions ``< pos``, which is what
 
 from __future__ import annotations
 
-import time
-from typing import Dict, Optional
+import contextlib
+import logging
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,36 +39,12 @@ from vaura_tpu_torch.models.sampler import (
     SamplerConfig,
     default_tokens_per_frame,
 )
+from vaura_tpu_torch.ops.losses import masked_codebook_cross_entropy
 from vaura_tpu_torch.ops.patterns import DelayedPatternProvider
 from vaura_tpu_torch.ops.sampling import cfg_blend, sample_tokens
-from vaura_tpu_torch.utils import DeviceLike, resolve_device
+from vaura_tpu_torch.utils import DeviceLike, StageClock, resolve_device
 
 UNKNOWN_TOKEN = -1
-
-
-class _StageClock:
-    """Wall time of the stages of one ``generate`` call: CUDA events on the
-    card (read once, after the last stage), the host clock on the CPU."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        self.marks = []
-
-    def mark(self, name: str):
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.marks.append((name, ev))
-        else:
-            self.marks.append((name, time.perf_counter()))
-
-    def ms(self) -> Dict[str, float]:
-        if self.cuda and self.marks:
-            self.marks[-1][1].synchronize()
-        out = {}
-        for (_, a), (name, b) in zip(self.marks, self.marks[1:]):
-            out[name] = a.elapsed_time(b) if self.cuda else (b - a) * 1e3
-        return out
 
 
 def _largest_divisor(n: int, cap: int) -> int:
@@ -80,10 +65,12 @@ class VauraSystem(nn.Module):
         pattern_provider: Optional[DelayedPatternProvider] = None,
         bridge: Optional[nn.Module] = None,
         use_visual_conditioning: bool = True,
+        freeze_feature_extractor: bool = False,
         device: DeviceLike = None,
     ):
         super().__init__()
         self.device = resolve_device(device)
+        self.freeze_feature_extractor = freeze_feature_extractor
         self.sampler_config = sampler_config
         self.sampler = Sampler(sampler_config, self.device)
         self.dac = Dac(dac_config, self.device)
@@ -119,31 +106,126 @@ class VauraSystem(nn.Module):
 
     # ------------------------------------------------------------------ #
     @torch.no_grad()
-    def visual_features(self, frames: torch.Tensor,
+    def load_dac_embeddings_into_sampler(self) -> bool:
+        """Initialise the sampler's factored token embeddings from the DAC
+        quantizer: each codebook table (plus a seeded random special row)
+        and the folded out-projection as ``v`` with gain ``||v||``. Returns
+        False, and changes nothing, when the geometries differ."""
+        cfg, dcfg = self.sampler_config, self.dac.cfg
+        K, V, cd = cfg.num_codebooks, cfg.d_codebook, cfg.codebook_dim
+        if (dcfg.codebook_dim != cd or dcfg.codebook_size != V
+                or dcfg.n_codebooks < K
+                or dcfg.resolved_latent_dim != cfg.token_dim):
+            logging.getLogger(__name__).warning(
+                "sampler embedding geometry (%d x %d -> %d) does not match "
+                "the DAC quantizer (%d x %d -> %d); keeping the embeddings",
+                V, cd, cfg.token_dim, dcfg.codebook_size, dcfg.codebook_dim,
+                dcfg.resolved_latent_dim)
+            return False
+        q, tok = self.dac.quantizer, self.sampler.tok_embeddings
+        special = np.random.default_rng(0).standard_normal(
+            (K, 1, cd)).astype(np.float32) * 0.02
+        emb = torch.cat([q.codebooks[:K].float(),
+                         torch.as_tensor(special, device=self.device)], dim=1)
+        tok.emb.copy_(emb.reshape(K * (V + 1), cd))
+        W = q.out_proj_w[:K].transpose(1, 2)  # [K, D, cd]
+        tok.proj_v.copy_(W)
+        tok.proj_g.copy_(W.norm(dim=-1, keepdim=True) + 1e-12)
+        tok.proj_b.copy_(q.out_proj_b[:K])
+        return True
+
+    # ------------------------------------------------------------------ #
+    def visual_features(self, frames: torch.Tensor, *, train: bool = False,
+                        generator: Optional[torch.Generator] = None,
                         chunk_size: Optional[int] = None) -> torch.Tensor:
         """Frames ``[B, S, C, T, H, W]`` -> features ``[B, S*t, D]`` through
-        the encoder and the bridge. ``chunk_size`` runs the encoder over
-        sequential batch slices (the largest divisor of B not above it).
-        Without an encoder, ``frames`` is taken as ``[B, Tv, D]`` features."""
+        the encoder and the bridge. ``train`` runs the encoder's
+        differentiable blocks with dropout and stochastic depth drawn from
+        ``generator``. With ``freeze_feature_extractor`` the encoder records
+        no graph (the features are a constant to what follows).
+        ``chunk_size`` runs the encoder over sequential batch slices (the
+        largest divisor of B not above it; inference only). Without an
+        encoder, ``frames`` is taken as ``[B, Tv, D]`` features."""
+        if train and chunk_size:
+            raise ValueError("chunk_size is for inference: a training step "
+                             "runs the encoder over the whole batch")
         if self.encoder is None:
             if frames.ndim != 3:
                 raise ValueError("no visual encoder configured: pass "
                                  "[B, Tv, D] features")
-            feats = frames
+            feats = frames.to(self.device)
         else:
             frames = frames.to(self.device)
             B = frames.shape[0]
-            if chunk_size and B > chunk_size:
-                c = _largest_divisor(B, chunk_size)
-                feats = torch.cat([self.encoder(frames[i:i + c])
-                                   for i in range(0, B, c)])
-            else:
-                feats = self.encoder(frames)
+            ctx = (torch.no_grad() if self.freeze_feature_extractor
+                   else contextlib.nullcontext())
+            with ctx:
+                if chunk_size and B > chunk_size:
+                    c = _largest_divisor(B, chunk_size)
+                    feats = torch.cat([self.encoder(frames[i:i + c])
+                                       for i in range(0, B, c)])
+                else:
+                    feats = self.encoder(frames, train, generator)
             B, S, t, D = feats.shape
             feats = feats.reshape(B, S * t, D)
         if self.bridge is not None:
             feats = self.bridge(feats)
         return feats
+
+    # ------------------------------------------------------------------ #
+    def encode_audio(self, audio: torch.Tensor) -> torch.Tensor:
+        """Waveform ``[B, 1, T]`` -> codes ``[B, K, T / hop]`` (no graph)."""
+        return self.dac.encode(audio.to(self.device))
+
+    def train_forward(
+        self,
+        frames: Optional[torch.Tensor],
+        audio: Optional[torch.Tensor],          # [B, 1, Ta_samples]
+        generator: Optional[torch.Generator] = None,
+        train: bool = True,
+        vis_feats: Optional[torch.Tensor] = None,
+        codes: Optional[torch.Tensor] = None,   # [B, K, Ta] int
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Teacher-forced loss. Returns ``(loss, aux)`` with ``aux =
+        {loss_per_codebook, logits, targets, mask}``.
+
+        Clip-partitioned audio ``[B, n_clips, 1, Ta_clip]`` is folded into
+        the batch axis with the matching per-clip frames. ``codes``
+        bypasses the DAC encode (datasets with precomputed tokens). Every
+        stochastic mask of ``train=True`` comes from ``generator``."""
+        K = self.num_codebooks
+        if codes is None:
+            if audio.ndim == 4:
+                B0, n_clips = audio.shape[:2]
+                audio = audio.reshape(B0 * n_clips, *audio.shape[2:])
+                if frames is not None and frames.shape[1] == n_clips:
+                    frames = frames.reshape(B0 * n_clips, 1, *frames.shape[2:])
+            codes = self.encode_audio(audio)
+        codes = codes.to(self.device).long().detach()
+        B, _, Ta = codes.shape
+
+        if vis_feats is None:
+            vis_feats = self.visual_features(
+                frames, train=train and not self.freeze_feature_extractor,
+                generator=generator)
+        pattern = self.pattern_provider.get_pattern(Ta)
+        # implicit BOS shift: the sequence is built over codes[:, :, :-1]
+        seq, _, _ = pattern.build_pattern_sequence(codes[:, :K, :-1],
+                                                   self.special_token_id)
+        logits = self.sampler(seq, vis_feats.to(self.device), train,
+                              generator=generator)  # [B, K, S, card]
+        # align the logits with the codes' timesteps; NaN marks the slots
+        # no sequence step predicts
+        reverted, _, logits_mask = pattern.revert_pattern_logits(
+            logits.permute(0, 3, 1, 2), float("nan"))
+        reverted = reverted.permute(0, 2, 3, 1)  # [B, K, Ta, card]
+        mask = torch.as_tensor(logits_mask, device=self.device)[None].expand(
+            B, K, Ta)
+        targets = codes[:, :K]
+        loss, loss_per_cb = masked_codebook_cross_entropy(reverted, targets,
+                                                          mask)
+        return loss, {"loss_per_codebook": loss_per_cb, "logits": reverted,
+                      "targets": targets, "mask": mask}
 
     @torch.no_grad()
     def decode_audio(self, codes: torch.Tensor,
@@ -276,14 +358,15 @@ class VauraSystem(nn.Module):
         encoder, decode loop and DAC stages."""
         K = self.num_codebooks
         dev = self.device
-        clock = _StageClock(dev)
+        clock = StageClock(dev)
         clock.mark("start")
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(seed)
         pattern, valid_mask, S = self.prepare_generation(max_new_tokens)
 
         if vis_feats is None and self.encoder is not None and frames is not None:
-            vis_feats = self.visual_features(frames, chunk_size=encoder_chunk_size)
+            vis_feats = self.visual_features(frames,
+                                             chunk_size=encoder_chunk_size)
         if vis_feats is None:
             raise ValueError("generate needs frames or vis_feats")
         vis_feats = vis_feats.to(dev)

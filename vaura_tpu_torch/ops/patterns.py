@@ -3,9 +3,7 @@
 Counterpart of ``vaura_tpu/ops/patterns.py:38-290``. The layout is lowered
 once on the host (numpy) into static index tables; ``build`` and ``revert``
 are then single gathers on the device. The host code is a copy of the JAX
-package's (without its ``keep_only_valid_steps`` and model-output
-variants, which only training uses), kept here so that this package imports
-nothing of it.
+package's, kept here so that this package imports nothing of it.
 """
 
 from __future__ import annotations
@@ -53,6 +51,22 @@ class Pattern:
             assert (ts >= frontier[qs]).all(), f"Past timesteps found at step {s}"
             frontier[qs] = ts
 
+    @property
+    def max_delay(self) -> int:
+        max_t = 0
+        for seq_coords in self.layout[1:]:
+            for t, _ in seq_coords:
+                max_t = max(max_t, t + 1)
+        return max_t - self.timesteps
+
+    @property
+    def valid_layout(self) -> PatternLayout:
+        """The layout without its trailing ``max_delay`` steps."""
+        return self.layout[:len(self.layout) - self.max_delay]
+
+    def _ref_layout(self, keep_only_valid_steps: bool) -> PatternLayout:
+        return self.valid_layout if keep_only_valid_steps else self.layout
+
     def get_sequence_coords_with_timestep(self, t: int, q: Optional[int] = None):
         assert t <= self.timesteps
         coords = []
@@ -69,7 +83,8 @@ class Pattern:
         steps = self.get_steps_with_timestep(t, q)
         return steps[0] if steps else None
 
-    def _build_seq_tables(self, timesteps: int):
+    def _build_seq_tables(self, timesteps: int,
+                          keep_only_valid_steps: bool = False):
         """Indexes ``[K, S]`` into the flattened codes ``[K*timesteps]``
         plus one trailing special slot; coordinates at or beyond
         ``timesteps`` map to the special slot."""
@@ -77,26 +92,35 @@ class Pattern:
         assert timesteps <= self.timesteps, (
             "invalid number of timesteps used to build the sequence"
         )
-        indexes = np.full((K, len(self.layout)), K * timesteps, dtype=np.int32)
-        mask = np.zeros((K, len(self.layout)), dtype=bool)
-        for s, coords in enumerate(self.layout):
+        ref_layout = self._ref_layout(keep_only_valid_steps)
+        indexes = np.full((K, len(ref_layout)), K * timesteps, dtype=np.int32)
+        mask = np.zeros((K, len(ref_layout)), dtype=bool)
+        for s, coords in enumerate(ref_layout):
             for t, q in coords:
                 if t < timesteps:
                     indexes[q, s] = t + q * timesteps
                     mask[q, s] = True
         return indexes, mask
 
-    def _revert_tables(self, sequence_steps: int):
+    def _revert_tables(self, sequence_steps: int,
+                       keep_only_valid_steps: bool = False,
+                       is_model_output: bool = False):
         """Indexes ``[K, T]`` into the flattened sequence
-        ``[K*sequence_steps]`` plus one trailing special slot."""
+        ``[K*sequence_steps]`` plus one trailing special slot. With
+        ``is_model_output`` step ``s`` of the sequence holds the prediction
+        FOR layout step ``s + 1`` (the BOS step has no prediction made for
+        it), so the layout is read from its second step."""
         K, T = self.n_q, self.timesteps
-        assert sequence_steps <= len(self.layout), (
+        ref_layout = self._ref_layout(keep_only_valid_steps)
+        assert sequence_steps <= len(ref_layout), (
             f"sequence to revert is longer than the pattern: "
-            f"{sequence_steps} > {len(self.layout)}"
+            f"{sequence_steps} > {len(ref_layout)}"
         )
+        if is_model_output:
+            ref_layout = ref_layout[1:]
         indexes = np.full((K, T), K * sequence_steps, dtype=np.int32)
         mask = np.zeros((K, T), dtype=bool)
-        for s, coords in enumerate(self.layout[:sequence_steps]):
+        for s, coords in enumerate(ref_layout[:sequence_steps]):
             for t, q in coords:
                 if t < T:
                     indexes[q, t] = s + q * sequence_steps
@@ -105,29 +129,45 @@ class Pattern:
 
     @staticmethod
     def _gather(x: torch.Tensor, np_idx: np.ndarray, special) -> torch.Tensor:
-        B, K, n = x.shape
+        """Gather along the flattened last two axes ``[..., K, n]`` plus one
+        trailing slot filled with ``special``."""
+        *lead, K, n = x.shape
         flat = torch.cat(
-            [x.reshape(B, K * n), torch.full((B, 1), special, dtype=x.dtype,
-                                             device=x.device)],
-            dim=1,
+            [x.reshape(*lead, K * n),
+             torch.full((*lead, 1), special, dtype=x.dtype, device=x.device)],
+            dim=-1,
         )
         idx = torch.as_tensor(np_idx.reshape(-1), dtype=torch.long,
                               device=x.device)
-        return flat.index_select(1, idx).reshape(B, K, -1)
+        return flat.index_select(-1, idx).reshape(*lead, K, -1)
 
-    def build_pattern_sequence(self, z: torch.Tensor, special_token: int):
+    def build_pattern_sequence(self, z: torch.Tensor, special_token: int,
+                               keep_only_valid_steps: bool = False):
         """``[B, K, T]`` codes -> ``([B, K, S]`` sequence, indexes, mask)."""
         B, K, T = z.shape
         assert K == self.n_q, f"codebooks mismatch: {K} != {self.n_q}"
-        np_idx, np_mask = self._build_seq_tables(T)
+        np_idx, np_mask = self._build_seq_tables(T, keep_only_valid_steps)
         return self._gather(z, np_idx, special_token), np_idx, np_mask
 
-    def revert_pattern_sequence(self, s: torch.Tensor, special_token: int):
+    def revert_pattern_sequence(self, s: torch.Tensor, special_token: int,
+                                keep_only_valid_steps: bool = False):
         """``[B, K, S]`` sequence -> ``([B, K, T]`` codes, indexes, mask)."""
         B, K, S = s.shape
         assert K == self.n_q
-        np_idx, np_mask = self._revert_tables(S)
+        np_idx, np_mask = self._revert_tables(S, keep_only_valid_steps, False)
         return self._gather(s, np_idx, special_token), np_idx, np_mask
+
+    def revert_pattern_logits(self, logits: torch.Tensor, special_token: float,
+                              keep_only_valid_steps: bool = False):
+        """``[B, card, K, S]`` model logits -> ``([B, card, K, T]`` aligned to
+        the codes, indexes, mask ``[K, T])``. Keeps the logits of the first
+        sequence step (the prediction made from the BOS token) and drops
+        the trailing step with no target; slots no step predicts hold
+        ``special_token`` (NaN in training)."""
+        B, card, K, S = logits.shape
+        assert K == self.n_q
+        np_idx, np_mask = self._revert_tables(S, keep_only_valid_steps, True)
+        return self._gather(logits, np_idx, special_token), np_idx, np_mask
 
 
 class DelayedPatternProvider:

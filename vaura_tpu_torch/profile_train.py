@@ -1,0 +1,116 @@
+"""Where the time of one flagship training step goes on the card.
+
+    python3 -m vaura_tpu_torch.profile_train [--batch 2] [--remat] [--out chiprun_out]
+
+Builds the flagship training configuration (``flagship.py``: float32
+parameters, bf16 compute, unfrozen encoder, audio through the DAC encoder),
+takes two steps to warm up, times three with CUDA events (forward, backward,
+optimizer), then takes one more under ``torch.profiler`` and reports, for
+each of the three stages, the wall time, the device time summed over
+kernels, the device busy share, the launches and the kernels that take the
+most device time, and the peak memory. Writes ``profile_train.json`` into
+``--out``. Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+# range names no event of torch's own carries
+STAGES = ("train_step/forward", "train_step/backward", "train_step/optimizer")
+
+
+class _ProfilerClock:
+    """The ``clock`` of ``train_step`` as profiler ranges: the range of a
+    stage is open until the step marks its end, and ends after the device
+    has finished the stage's work."""
+
+    def __init__(self):
+        import torch
+        from torch.profiler import record_function
+
+        self._torch, self._record = torch, record_function
+        self._todo = list(STAGES)
+        self._open = None
+        self._next()
+
+    def _next(self):
+        self._open = self._record(self._todo.pop(0)) if self._todo else None
+        if self._open is not None:
+            self._open.__enter__()
+
+    def mark(self, name: str):
+        self._torch.cuda.synchronize()
+        self._open.__exit__(None, None, None)
+        self._next()
+
+
+def main() -> int:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vaura_tpu_torch.flagship import (
+        flagship_system,
+        flagship_train_state,
+        random_train_batch,
+    )
+    from vaura_tpu_torch.profile_generate import (
+        nvidia_smi,
+        print_stages,
+        stage_report,
+    )
+    from vaura_tpu_torch.train.steps import make_train_step
+    from vaura_tpu_torch.utils import StageClock
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--remat", action="store_true",
+                    help="recompute the sampler's blocks in the backward pass")
+    ap.add_argument("--out", default="chiprun_out")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_train needs a CUDA card")
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    system = flagship_system("cuda", gen, training=True,
+                             sampler_overrides={"remat": args.remat})
+    state = flagship_train_state(system)
+    batch = random_train_batch(args.batch, gen, "cuda")
+    train_step = make_train_step(system)
+    for _ in range(2):
+        state, _ = train_step(state, batch, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timed = []
+    for _ in range(3):
+        clock = StageClock(system.device)
+        clock.mark("start")
+        state, metrics = train_step(state, batch, gen, clock=clock)
+        timed.append({**clock.ms(), "loss": float(metrics["loss"])})
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, _ = train_step(state, batch, gen, clock=_ProfilerClock())
+        torch.cuda.synchronize()
+
+    report = {"device": torch.cuda.get_device_name(0), "batch": args.batch,
+              "remat": args.remat, "nvidia_smi": nvidia_smi(),
+              "step_ms": timed, "peak_mem_gib": peak_gib,
+              "stages": stage_report(prof.events(), STAGES)}
+    os.makedirs(args.out, exist_ok=True)
+    name = "profile_train_remat.json" if args.remat else "profile_train.json"
+    with open(os.path.join(args.out, name), "w") as f:
+        json.dump(report, f, indent=1)
+    print(f"{report['device']} ({report['nvidia_smi']}), batch {args.batch}, "
+          f"remat {args.remat}: peak memory {peak_gib:.2f} GiB; steps (ms):")
+    for t in timed:
+        print("    " + ", ".join(f"{k} {v:.1f}" for k, v in t.items()
+                                 if k != "loss") + f", loss {t['loss']:.5f}")
+    print_stages(report["stages"])
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,9 +1,10 @@
-"""Device resolution and seeded random initialisation."""
+"""Device resolution, stage timing and seeded random initialisation."""
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Union
+import time
+from typing import Dict, Union
 
 import torch
 from torch import nn
@@ -26,6 +27,32 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
     return dev
+
+
+class StageClock:
+    """Milliseconds between successive ``mark(name)`` calls, each interval
+    under the name of the mark that ends it: CUDA events on the card (read
+    once, after the last mark), the host clock on the CPU."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.marks = []
+
+    def mark(self, name: str):
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append((name, ev))
+        else:
+            self.marks.append((name, time.perf_counter()))
+
+    def ms(self) -> Dict[str, float]:
+        if self.cuda and self.marks:
+            self.marks[-1][1].synchronize()
+        out = {}
+        for (_, a), (name, b) in zip(self.marks, self.marks[1:]):
+            out[name] = a.elapsed_time(b) if self.cuda else (b - a) * 1e3
+        return out
 
 
 _EMBEDDINGS = ("emb", "cls_token", "pos_embed", "temp_embed",
