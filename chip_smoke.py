@@ -12,7 +12,13 @@ result line):
              shapes (bf16), with its time, the plain version's time, one
              PyTorch library call's time where one computes the same
              function, and its bound (bytes over 3.35 TB/s or operations
-             over 989 TFLOP/s, the H100 SXM's published peaks);
+             over 989 TFLOP/s, the H100 SXM's published peaks). Decode
+             attention (one launch: the tiles of a cache are the blocks of a
+             thread-block cluster) is held with ``pos`` on the host and in
+             device memory, with GQA and on a 1,024-position cache, and
+             timed beside an empty kernel of the same launch; the encoder
+             attention sublayer (three launches: row statistics, group
+             attention, projection) also at B' = 2 and on ragged packs;
   3. main    the flagship path end to end through ``VauraSystem.generate``:
              frames [2, 4, 3, 16, 224, 224] -> MotionFormer -> CFG 6.0,
              top-k 128 decode of 221 tokens -> DAC -> audio [2, 1, 113152],
@@ -129,7 +135,9 @@ def phase_build(report):
 
 
 def check_decode_attention(gen):
-    """Flagship decode: B2 = 2 clips x 2 (CFG), H = 16, hd = 96, S = 230."""
+    """Flagship decode: B2 = 2 clips x 2 (CFG), H = 16, hd = 96, S = 230,
+    with ``pos`` on the host and in device memory; then GQA (H_kv = H / 4)
+    and a cache of 1,024 positions (more tiles than one cluster holds)."""
     import torch
     import torch.nn.functional as F
 
@@ -138,29 +146,56 @@ def check_decode_attention(gen):
     B, H, hd, S, L = 4, 16, 96, 230, 24
     dev, bf = "cuda", torch.bfloat16
     rnd = lambda *s: torch.randn(*s, generator=gen, device=dev, dtype=bf)
+
+    def hold(tag, q, kc, vc, kcur, vcur, positions):
+        """The kernel with ``pos`` as an int and as a device scalar against
+        the plain version; the two forms must agree to the last bit."""
+        pos_t = torch.arange(kc.shape[1] + 1, dtype=torch.int32, device=dev)
+        worst = 0.0
+        for pos in positions:
+            want = da.decode_attention_plain(q, kc, vc, kcur, vcur, pos)
+            got = da.decode_attention(q, kc, vc, kcur, vcur, pos)
+            got_t = da.decode_attention(q, kc, vc, kcur, vcur,
+                                        pos_t[pos:pos + 1])
+            torch.cuda.synchronize()
+            e = max(max_err(got, want), max_err(got_t, want))
+            log(f"[decode_attention] {tag} pos={pos:4d} max_abs_err={e:.3e}")
+            if not torch.equal(got, got_t):
+                raise AssertionError(f"{tag} pos={pos}: pos on the host and "
+                                     "in device memory give different outputs")
+            worst = max(worst, e)
+        return worst
+
     # one cache per layer so a sweep streams from HBM as the decode loop does
     kc, vc = rnd(L, B, S, H, hd), rnd(L, B, S, H, hd)
     q, kcur, vcur = rnd(B, H, hd), rnd(B, H, hd), rnd(B, H, hd)
-
-    err = 0.0
-    for pos in (0, 1, 63, 64, 65, 128, 228, S - 1):
-        got = da.decode_attention(q, kc[0], vc[0], kcur, vcur, pos)
-        want = da.decode_attention_plain(q, kc[0], vc[0], kcur, vcur, pos)
-        e = max_err(got, want)
-        log(f"[decode_attention] pos={pos:3d} max_abs_err={e:.3e}")
-        err = max(err, e)
+    edge = (0, 1, 63, 64, 65, 128, 228, S - 1)
+    err = hold("flagship", q, kc[0], vc[0], kcur, vcur, edge)
+    Hkv = H // 4
+    err = max(err, hold(
+        f"GQA H_kv={Hkv}", q, rnd(B, S, Hkv, hd), rnd(B, S, Hkv, hd),
+        rnd(B, Hkv, hd), rnd(B, Hkv, hd), edge))
+    S_long = 1024
+    plan = da.launch_plan(S_long, S_long, True)
+    log(f"[decode_attention] S={S_long}: {plan}")
+    err = max(err, hold(
+        f"S={S_long}", q[:2], rnd(2, S_long, H, hd), rnd(2, S_long, H, hd),
+        kcur[:2], vcur[:2], edge + (511, 512, 513, 1000, S_long)))
 
     # the main path's positions: one launch per step at pos = 0 .. 228,
-    # layers cycled; the current K/V are the cache rows at pos, so the
-    # function equals SDPA over cache[:pos + 1]
+    # layers cycled, pos read from device memory as decode_step passes it;
+    # the current K/V are the cache rows at pos, so the function equals SDPA
+    # over cache[:pos + 1]
     positions = list(range(S - 1))
+    pos_t = torch.arange(S, dtype=torch.int32, device=dev)
     cur = [(kc[p % L][:, p].contiguous(), vc[p % L][:, p].contiguous())
            for p in positions]
 
-    def sweep(fn):
+    def sweep(fn, on_device=False):
         def run():
             for p, (k1, v1) in zip(positions, cur):
-                fn(q, kc[p % L], vc[p % L], k1, v1, p)
+                fn(q, kc[p % L], vc[p % L], k1, v1,
+                   pos_t[p:p + 1] if on_device else p)
         return run
 
     def sdpa(q_, k_, v_, k1, v1, p):
@@ -168,15 +203,27 @@ def check_decode_attention(gen):
             q_[:, :, None], k_[:, :p + 1].transpose(1, 2),
             v_[:, :p + 1].transpose(1, 2))
 
+    def empty(on_device):
+        def run(q_, k_, v_, k1, v1, p):
+            da.empty_launch(B, H, H, S, hd, 0 if on_device else p, on_device,
+                            dev)
+        return run
+
     n = len(positions)
-    ms = cuda_ms(sweep(da.decode_attention_cuda), 20) / n
+    ms = cuda_ms(sweep(da.decode_attention_cuda, True), 20) / n
+    ms_host_pos = cuda_ms(sweep(da.decode_attention_cuda), 20) / n
     plain_ms = cuda_ms(sweep(da.decode_attention_plain), 5) / n
     library_ms = cuda_ms(sweep(sdpa), 20) / n
+    floor_ms = cuda_ms(sweep(empty(True), True), 20) / n
+    floor_host_pos = cuda_ms(sweep(empty(False)), 20) / n
     bound = sum(
         max(((2 * B * H * hd + 2 * B * H * hd) + 2 * B * p * H * hd) * 2
             / HBM_BYTES_PER_S,
             4 * B * H * (p + 1) * hd / BF16_FLOP_PER_S) for p in positions
     ) / n * 1e3
+    log(f"[decode_attention] ms per call: pos in device memory {ms:.5f}, pos "
+        f"on the host {ms_host_pos:.5f}; an empty kernel of the same launch "
+        f"{floor_ms:.5f} / {floor_host_pos:.5f}")
     return {
         "name": "decode_attention", "route": "cuda",
         "source": "vaura_tpu_torch/csrc/decode_attention.cu",
@@ -184,7 +231,11 @@ def check_decode_attention(gen):
         "max_abs_err": err, "tol": TOL_DECODE, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound, "bound_by": "bytes", "library_ms": library_ms,
         "library": "F.scaled_dot_product_attention",
-        "shape": f"B2={B} H={H} hd={hd} S={S}, mean over pos 0..{S - 2}",
+        "ms_host_pos": ms_host_pos, "empty_launch_ms": floor_ms,
+        "empty_launch_ms_host_pos": floor_host_pos,
+        "launches_per_call": 1,
+        "shape": f"B2={B} H={H} hd={hd} S={S}, mean over pos 0..{S - 2}, pos "
+                 "read from device memory",
     }
 
 
@@ -210,32 +261,52 @@ def _attention_cost(Bp, N, D, L):
 
 
 def check_encoder_attention(gen):
-    """Both geometries of one block: time (L = t = 8) and space (L = 196)."""
+    """Both geometries of one block, time (L = t = 8) and space (L = 196),
+    at B' = 8 (timed) and B' = 2; then packs of several groups whose last
+    pack ends ragged (N not a multiple of the pack's rows)."""
     from vaura_tpu_torch.ops import encoder_fused as ef
 
-    kw = _sublayer_inputs(gen)
-    Bp, N, D = kw["x_tok"].shape
-    err, ms, plain_ms, bound = 0.0, 0.0, 0.0, 0.0
-    for axis, L in (("time", 8), ("space", 196)):
+    def hold(tag, kw, L):
         args = dict(kw, num_heads=12, L=L, eps=1e-6)
         got = ef.fused_attention_sublayer(**args)
         want = ef.fused_attention_sublayer_plain(**args)
         e = max(max_err(got[0], want[0]), max_err(got[1], want[1]))
         mean_e = float((got[0].float() - want[0].float()).abs().mean())
-        log(f"[encoder_attention] {axis} L={L} max_abs_err={e:.3e} "
-            f"mean_abs_err={mean_e:.3e}")
+        plan = ef.attention_plan(kw["x_tok"].shape[1], L)
+        log(f"[encoder_attention] {tag} L={L} max_abs_err={e:.3e} "
+            f"mean_abs_err={mean_e:.3e} packs {plan['n_packs']} x "
+            f"{plan['rows_per_pack']} rows, last {plan['last_pack_rows']}")
+        return e, args
+
+    kw = _sublayer_inputs(gen)
+    Bp, N, D = kw["x_tok"].shape
+    err, ms, plain_ms, bound, axis_ms = 0.0, 0.0, 0.0, 0.0, {}
+    for axis, L in (("time", 8), ("space", 196)):
+        e, args = hold(f"{axis} B'={Bp}", kw, L)
         err = max(err, e)
-        ms += cuda_ms(lambda: ef.fused_attention_sublayer(**args), 10)
+        axis_ms[axis] = cuda_ms(lambda: ef.fused_attention_sublayer(**args), 10)
+        ms += axis_ms[axis]
         plain_ms += cuda_ms(lambda: ef.fused_attention_sublayer_plain(**args), 3)
         b, f = _attention_cost(Bp, N, D, L)
         bound += max(b / HBM_BYTES_PER_S, f / BF16_FLOP_PER_S) * 1e3
+    log(f"[encoder_attention] ms per sublayer: time {axis_ms['time']:.4f}, "
+        f"space {axis_ms['space']:.4f}")
+    small = _sublayer_inputs(gen, Bp=2)
+    for axis, L in (("time", 8), ("space", 196)):
+        err = max(err, hold(f"{axis} B'=2", small, L)[0])
+    # 7 groups of 40 rows: packs of 240, 40 (ragged), query tiles that
+    # straddle two groups; 13 groups of 32: packs of 256, 160
+    for N_r, L in ((280, 40), (416, 32)):
+        err = max(err, hold("ragged", _sublayer_inputs(gen, Bp=2, N=N_r), L)[0])
     return {
         "name": "encoder_attention", "route": "cuda",
         "source": "vaura_tpu_torch/csrc/encoder_attention.cu",
         "replaces": "vaura_tpu/ops/encoder_fused.py:193",
         "max_abs_err": err, "tol": TOL_SUBLAYER, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "operations",
-        "library_ms": None,
+        "library_ms": None, "ms_time_axis": axis_ms["time"],
+        "ms_space_axis": axis_ms["space"],
+        "launches_per_call": ef.ATTENTION_LAUNCHES_PER_CALL,
         "shape": f"B'={Bp} N={N} D={D} H=12, time + space sublayer of one block",
     }
 
@@ -406,6 +477,7 @@ def _zero_counters():
     from vaura_tpu_torch.ops import encoder_fused as ef
 
     da.launches = ef.attention_launches = ef.mlp_launches = ga.launches = 0
+    da.device_pos_launches = 0
 
 
 def phase_main(gen, report):
@@ -428,17 +500,22 @@ def phase_main(gen, report):
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = _counters()
+    from vaura_tpu_torch.ops import decode_attention as da
+    device_pos = da.device_pos_launches
     expected["grouped_cls_attention"] = 0  # inference takes the fused blocks
     codes, audio = out["codes"], out["audio"]
     report["main"] = {
         "wall_s": wall, "stage_ms": out["stage_ms"], "launches": launches,
-        "expected_launches": expected, "codes_shape": list(codes.shape),
+        "expected_launches": expected,
+        "decode_attention_device_pos_launches": device_pos,
+        "codes_shape": list(codes.shape),
         "audio_shape": list(audio.shape),
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
     }
     log(f"[main] wall {wall:.2f} s, stages (ms): "
         + ", ".join(f"{k} {v:.1f}" for k, v in out["stage_ms"].items()))
-    log(f"[main] launches {launches} expected {expected}")
+    log(f"[main] launches {launches} expected {expected}; decode attention "
+        f"launches with pos in device memory: {device_pos}")
     log(f"[main] codes {tuple(codes.shape)} in [{int(codes.min())}, "
         f"{int(codes.max())}], audio {tuple(audio.shape)} "
         f"rms {float(audio.float().pow(2).mean().sqrt()):.4f}")
@@ -454,6 +531,9 @@ def phase_main(gen, report):
     for name, n in expected.items():
         if launches[name] != n:
             problems.append(f"{name}: {launches[name]} launches, expected {n}")
+    if device_pos != expected["decode_attention"]:
+        problems.append(f"decode_attention: {device_pos} launches took pos "
+                        "from device memory, expected all")
     if problems:
         raise AssertionError("; ".join(problems))
     return launches

@@ -76,3 +76,103 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     q, kc, vc, kcur, vcur = _t(*_inputs(1))
     with pytest.raises(ValueError):
         decode_attention_cuda(q, kc, vc, kcur, vcur, 5)
+
+
+# --------------------------------------------------------------------------
+# pos as a device scalar (a one-element int32 tensor), as the JAX package
+# passes it, and the launch the kernel would make for it
+EDGE_POSITIONS = [0, 1, 63, 64, 65, 128, 228, 229]
+
+
+def _long_inputs(seed, S2=230, Hkv=H):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    return f(2, H, HD), f(2, S2, Hkv, HD), f(2, S2, Hkv, HD), f(2, Hkv, HD), f(2, Hkv, HD)
+
+
+@pytest.mark.parametrize("Hkv", [H, 1])
+@pytest.mark.parametrize("pos", EDGE_POSITIONS)
+def test_pos_tensor_equals_int_and_matches_jax(pos, Hkv):
+    """``pos`` as a one-element int32 tensor gives the ``int`` form's output
+    bit for bit, through the dispatcher and through the plain version, and
+    stays within 2e-5 of the JAX package (GQA there by repeated KV heads)."""
+    q, kc, vc, kcur, vcur = _long_inputs(pos + 7 * Hkv, Hkv=Hkv)
+    kc[:, pos:] = 1e4   # stale rows must not be read
+    vc[:, pos:] = -1e4
+    args = _t(q, kc, vc, kcur, vcur)
+    pos_t = torch.arange(230, dtype=torch.int32)[pos:pos + 1]
+    want = decode_attention(*args, pos)
+    for fn in (decode_attention, decode_attention_plain):
+        assert torch.equal(fn(*args, pos_t), want)
+        assert torch.equal(fn(*args, torch.tensor(pos, dtype=torch.int32)), want)
+    rep = H // Hkv
+    jargs = [jnp.asarray(a) for a in (
+        q, np.repeat(kc, rep, 2), np.repeat(vc, rep, 2),
+        np.repeat(kcur, rep, 1), np.repeat(vcur, rep, 1))]
+    ref = np.asarray(decode_attention_reference(*jargs, jnp.int32(pos)))
+    np.testing.assert_allclose(want.numpy(), ref, rtol=2e-5, atol=2e-5)
+    if pos > 0:
+        kern = np.asarray(jax_decode_attention(*jargs, jnp.int32(pos),
+                                               interpret=True))
+        np.testing.assert_allclose(want.numpy(), kern, rtol=2e-5, atol=2e-5)
+
+
+def test_pos_tensor_is_clamped_like_the_kernel():
+    """The kernel clamps a device ``pos`` to [0, S]; the plain version does
+    the same with a tensor, while an ``int`` outside the range raises."""
+    args = _t(*_inputs(3))
+    full = decode_attention_plain(*args, S)
+    over = decode_attention_plain(*args, torch.tensor([S + 5], dtype=torch.int32))
+    assert torch.equal(full, over)
+    with pytest.raises(ValueError):
+        decode_attention(*args, S + 1)
+    with pytest.raises(ValueError):
+        decode_attention(*args, -1)
+
+
+@pytest.mark.parametrize(
+    "bad",
+    [
+        lambda: torch.tensor([5], dtype=torch.int64),         # dtype
+        lambda: torch.tensor([5, 6], dtype=torch.int32),      # size
+        lambda: torch.empty(1, dtype=torch.int32, device="meta"),  # device
+    ],
+)
+def test_pos_tensor_of_wrong_dtype_size_or_device_raises(bad):
+    with pytest.raises(ValueError):
+        decode_attention(*_t(*_inputs(4)), bad())
+
+
+@pytest.mark.parametrize(
+    "S2,pos,on_device,want",
+    [
+        # flagship cache, pos in device memory: the launch covers S + 1 rows
+        (230, 0, True, dict(tiles=4, cluster=4, tiles_per_block=1)),
+        # pos on the host: as many tiles as pos + 1 rows need
+        (230, 0, False, dict(tiles=1, cluster=1, tiles_per_block=1)),
+        (230, 63, False, dict(tiles=1, cluster=1, tiles_per_block=1)),
+        (230, 64, False, dict(tiles=2, cluster=2, tiles_per_block=1)),
+        (230, 229, False, dict(tiles=4, cluster=4, tiles_per_block=1)),
+        # more tiles than the portable cluster of 8: a block walks several
+        (1024, 0, True, dict(tiles=17, cluster=8, tiles_per_block=3)),
+        (1024, 511, False, dict(tiles=8, cluster=8, tiles_per_block=1)),
+        (1024, 512, False, dict(tiles=9, cluster=8, tiles_per_block=2)),
+    ],
+)
+def test_launch_plan(S2, pos, on_device, want):
+    from vaura_tpu_torch.ops.decode_attention import launch_plan
+
+    assert launch_plan(S2, pos, on_device) == want
+
+
+def test_shared_memory_plan_fits_a_block():
+    from vaura_tpu_torch.ops.decode_attention import SMEM_LIMIT, smem_bytes
+
+    # flagship: hd 96, one query head per KV head, a cluster of 4
+    flagship = smem_bytes(96, 1, 4)
+    assert flagship == 2 * 65 * 224 + 16 + 4 * (96 + 4 * 98 + 98 + 2 + 4 * 98)
+    assert flagship < 48 * 1024
+    # GQA of 4 and a long cache (cluster of 8), the widest head dim
+    assert smem_bytes(128, 4, 8) < SMEM_LIMIT
+    # shared memory grows with the heads a block serves, up to refusal
+    assert smem_bytes(128, 64, 8) > SMEM_LIMIT

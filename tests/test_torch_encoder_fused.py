@@ -66,10 +66,10 @@ def test_attention_sublayer_matches_pallas_and_reference(G, L, H, with_bias):
 
 
 def test_attention_cls_partials_merge_across_packs():
-    """Many packs (time axis, L=2: 64 groups per 128-row pack, a ragged
+    """Many packs (time axis, L=2: 128 groups per 256-row pack, a ragged
     last pack): the flash merge of the per-pack CLS partials is exact."""
-    a = _attn_args(5, 2, 70, 2, 64)
-    assert port.pack_rows(2) == 128
+    a = _attn_args(5, 2, 300, 2, 64)
+    assert port.pack_rows(2) == 256
     y_tok, y_cls = _port_call(a, port.fused_attention_sublayer, num_heads=2,
                               L=2, eps=1e-6)
     ja = {k: jnp.asarray(v) for k, v in a.items()}
@@ -113,8 +113,46 @@ def test_cuda_entry_points_refuse_configs_outside_the_kernel_contract():
             t(a["x_tok"]), t(a["ln_scale"]), t(a["ln_bias"]), t(a["wqkv"].T),
             t(a["bqkv"]), t(a["x_cls"][:, 0]), t(a["x_cls"][:, 0]),
             t(a["x_cls"][:, 0]), t(a["wproj"].T), t(a["bproj"]), num_heads=4,
-            L=2, eps=1e-6, rows_per_pack=128)
+            L=2, eps=1e-6, rows_per_pack=256)
     with pytest.raises(ValueError):  # D=128: the MLP kernel takes 768
         x = torch.zeros(1, 4, 128, dtype=torch.bfloat16)
         w = torch.zeros(512, 128, dtype=torch.bfloat16)
         port._mlp_cuda(x, None, None, w, None, w.t(), None, eps=1e-6)
+
+
+@pytest.mark.parametrize(
+    "N,L,want",
+    [
+        # flagship time axis: 32 groups of 8 frames a pack, a ragged last pack
+        (1568, 8, dict(rows_per_pack=256, n_packs=7, last_pack_rows=32,
+                       query_tiles=16)),
+        # flagship space axis: one group of 196 locations a pack, padded to 256
+        (1568, 196, dict(rows_per_pack=196, n_packs=8, last_pack_rows=196,
+                         query_tiles=13)),
+        # several groups a pack, query tiles that straddle two groups, ragged
+        (280, 40, dict(rows_per_pack=240, n_packs=2, last_pack_rows=40,
+                       query_tiles=15)),
+        # fewer rows than one pack
+        (96, 32, dict(rows_per_pack=256, n_packs=1, last_pack_rows=96,
+                      query_tiles=6)),
+    ],
+)
+def test_attention_plan_at_flagship_and_ragged_shapes(N, L, want):
+    plan = port.attention_plan(N, L)
+    assert {k: plan[k] for k in want} == want
+    assert plan["padded_rows"] == 256 >= plan["rows_per_pack"]
+    # three stages of (256 + 192) rows of 128 bytes; q, k, v laid over them
+    assert plan["ring_bytes"] == 3 * (256 + 192) * 128
+    assert plan["qkv_bytes"] == 3 * (256 + 16) * 144 <= plan["ring_bytes"]
+    assert plan["smem_bytes"] <= port.SMEM_LIMIT
+
+
+def test_attention_plan_refuses_what_the_kernel_refuses():
+    with pytest.raises(ValueError):
+        port.attention_plan(100, 8)        # N not whole groups
+    with pytest.raises(ValueError):
+        port.attention_plan(600, 300)      # a group longer than a pack
+    with pytest.raises(ValueError):
+        port.attention_plan(64, 8, rows_per_pack=20)  # not whole groups
+    assert port.pack_rows(8) == 256 and port.pack_rows(196) == 196
+    assert port.pack_rows(100) == 200 and port.pack_rows(256) == 256

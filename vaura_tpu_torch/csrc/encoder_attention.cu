@@ -1,11 +1,12 @@
-// Fused divided-attention sublayer of the MotionFormer encoder, in two
+// Fused divided-attention sublayer of the MotionFormer encoder, in three
 // launches:
+//   (n) vt_layernorm_rows: LN of every token row, once, rounded to bf16;
 //   (a) vt_group_attention: per (pack of whole groups, head, batch row)
-//       LN -> this head's q/k/v projection -> masked group attention with
-//       the shared CLS key/value column -> the head's attention output,
-//       plus the CLS query's flash partials (max, sumexp, weighted values)
-//       over the pack's rows;
-//   (b) vt_proj_residual: y = x + attn @ Wproj^T + bproj, a tiled bf16
+//       this head's q/k/v projection of the normalised rows -> masked group
+//       attention with the shared CLS key/value column -> the head's
+//       attention output, plus the CLS query's flash partials (max, sumexp,
+//       weighted values) over the pack's rows;
+//   (b) vt_proj_residual: y = x + attn @ Wproj^T + bproj, a pipelined bf16
 //       GEMM with the bias and residual in its epilogue.
 //
 // Replaces the Pallas kernel vaura_tpu/ops/encoder_fused.py::
@@ -19,290 +20,614 @@
 //
 // Bound on the H100: operations. Per sublayer at the flagship shapes
 // (B'=8, N=1568, D=768) the q/k/v and output projections are
-// 2*B'*N*D*4D = 59 GFLOP on the tensor cores and the group attention
-// 4*B'*N*L*D (L=196 on the space axis: 7.5 GFLOP) on the CUDA cores, against
-// about 2*B'*N*D*2 = 38 MB of activations read and written.
+// 2*B'*N*D*4D = 59 GFLOP and the group attention 4*B'*N*L*D (L=196 on the
+// space axis: 7.5 GFLOP), all on the tensor cores, against about
+// 2*B'*N*D*2 = 38 MB of activations read and written. What binds the q/k/v
+// product inside an SM is not the tensor cores but the shared-memory pipe
+// (128 bytes a cycle) that feeds them: a k-slab of 64 costs wgmma 128 KB of
+// operand reads (the 24 KB of weights again for each of the 4 warpgroups)
+// and the copies 56 KB of writes, 1,440 cycles against 1,536 of arithmetic,
+// so every further pass over shared memory shows in full.
 //
-// Design and its limits (targets for later work):
-//  * one group on the space axis is L=196 rows x 768 = 301 KB of LN'd bf16,
-//    more than a block's 227 KB of shared memory, so (a) never holds the
-//    LN'd rows: it keeps per-row statistics and re-normalises 32-row chunks
-//    into shared memory, each chunk multiplied (nvcuda::wmma bf16 tiles,
-//    float32 accumulators) against the head's 192 columns of Wqkv read
-//    through L2. LN and the x reads are repeated once per head (12x).
-//  * q/k/v of the pack for one head live in shared memory (<= 256 rows);
-//    attention runs one warp per query row, one lane per key, float32
-//    online-free softmax over <= 256 keys plus the CLS column
-//    (warp_group_attention_row in common.cuh, shared with
-//    grouped_cls_attention.cu).
-//  * the per-head attention output makes one extra HBM round trip
-//    ([B', N, D] bf16 written by (a), read by (b)); the Pallas kernel kept
-//    it in VMEM. Fusing the projection into (a) is the next step.
-//  * wmma tiles instead of wgmma/TMA: simple and right first.
-#include <mma.h>
-
+// Design:
+//  * Both products run as wgmma (m64n192k16, float32 sums in registers) on
+//    128-byte-swizzled shared-memory tiles, both operands copied by cp.async
+//    (16 bytes a thread, no registers) into a ring of k-slabs of 64: three
+//    stages in (a), four in (b). A step queues the product on slab s behind
+//    the one on slab s - 1, waits for that one and for slab s + 1, and only
+//    then requests the slab after into the stage set free, so the tensor
+//    cores never wait for a barrier.
+//  * Layer norm is a launch of its own, (n): one group on the space axis is
+//    L=196 rows x 768 = 301 KB of LN'd bf16, more than a block's 227 KB, and
+//    an earlier form of (a) that took row statistics and normalised each
+//    k-slab in shared memory, in place, on its way to wgmma paid for it
+//    twice: once per head (12x the arithmetic) and, worse, with 64 KB more
+//    shared-memory traffic a slab on the pipe that is the bottleneck (4,750
+//    cycles a slab against 2,070 now; NVIDIA H100 80GB HBM3, 700 W). (n)
+//    moves 38 MB once, and its output is read back from L2.
+//  * (a) keeps one block per (pack, head, batch row): the 192 columns of a
+//    head are exactly one wgmma width, and the [256, 192] float32 sums of
+//    four warpgroups of 64 rows fill three quarters of the SM's registers
+//    (96 a thread), which is also why a block cannot hold a second head or
+//    the output projection's [rows, 768] sums. A pack is as many whole
+//    groups as fit 256 rows (time axis 32 groups of 8, space axis one of
+//    196); the grid's 672-768 blocks fill 132 SMs five to six times.
+//  * q/k/v of the pack are rounded to bf16 into shared memory over the ring
+//    (it is free by then), q pre-scaled. Attention runs on the tensor cores
+//    for every group length, flash-style in registers: a warp takes 16
+//    consecutive rows of the pack, S = Q K^T by mma.sync from ldmatrix
+//    fragments in chunks of 64 keys (16 where no more are left) over the
+//    groups those rows touch, each row masked to its own group, an online
+//    float32 softmax on the fragments (no score strip in shared memory), the
+//    unnormalised probabilities rounded to bf16 as the A operand of
+//    O += P V, one division by the float32 denominator at the end. The CLS
+//    key/value are a chunk of their own (one valid key), taken first. An
+//    earlier form kept one warp per query row for the time axis's groups of
+//    8 keys; it took as long as the whole q/k/v product.
+//  * (b) is a 128 x 192 tile per block (392 blocks: three full waves of 132
+//    SMs at the flagship shape); the residual tile is copied to shared
+//    memory ahead of the loop and the sums are staged through shared memory,
+//    so that y is written in 16-byte rows and the epilogue waits for no
+//    device memory. The per-head attention output still makes one round trip
+//    through device memory between (a) and (b).
 #include "common.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
-constexpr int kHD = kAttnHD;      // head dim the kernel is built for
-constexpr int kMaxRows = kAttnMaxKeys;  // rows of one pack
-constexpr int kChunk = 32;        // LN'd rows staged per projection pass
-constexpr int kWarps = 8;
-constexpr int kQKVStride = kAttnStride;  // 33 words: conflict-free row reads
+constexpr int kHD = kAttnHD;           // head dim the kernel is built for
+constexpr int kRows = kAttnMaxKeys;    // rows of one pack, at most
+constexpr int kWG = kRows / 64;        // warpgroups of 64 rows
+constexpr int kThreads = kWG * 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kQKVCols = 3 * kHD;      // one head's q | k | v: one wgmma width
+constexpr int kTileA = 64 * kSlabRowBytes;        // one warpgroup's A tile
+constexpr int kTileW = kQKVCols * kSlabRowBytes;  // 192 weight rows
+constexpr int kPadRows = 16;     // a query or key tile may overhang the pack
 
+__host__ __device__ constexpr int round_up(int v, int m) {
+  return (v + m - 1) / m * m;
+}
+
+// Byte offsets into dynamic shared memory (from a 1024-byte boundary). While
+// the q/k/v product runs: a ring of kStages k-slabs, each the pack's
+// activations (A) and the head's weights (W), both swizzled for wgmma.
+// Afterwards q, k and v are laid over the ring.
+constexpr int kStages = 3;
 struct GroupSmem {
-  // byte offsets into dynamic shared memory
-  size_t stats, a, stage, q, k, v, cls_s, total;
-  explicit __host__ __device__ GroupSmem(int D) {
-    size_t off = 0;
-    stats = off; off += sizeof(float2) * kMaxRows;
-    a = off;     off += sizeof(bf16) * kChunk * (D + 8);
-    off = (off + 127) / 128 * 128;
-    stage = off; off += sizeof(float) * kWarps * 256;
-    q = off;     off += sizeof(bf16) * kMaxRows * kQKVStride;
-    k = off;     off += sizeof(bf16) * kMaxRows * kQKVStride;
-    v = off;     off += sizeof(bf16) * kMaxRows * kQKVStride;
-    cls_s = off; off += sizeof(float) * kMaxRows;
-    total = off;
-  }
+  static constexpr int kStageA = kWG * kTileA;
+  static constexpr int kStage = kStageA + kTileW;
+  static constexpr int kRing = kStages * kStage;
+  static constexpr int kQKV = (kRows + kPadRows) * kMmaStride * 2;  // one of 3
+  static constexpr int q = 0, k = kQKV, v = 2 * kQKV;
+  static_assert(3 * kQKV <= kRing, "q, k, v fit over the ring");
+  static constexpr int cls_k = round_up(kRing, 1024);        // bf16[16][72]
+  static constexpr int cls_v = cls_k + 16 * kMmaStride * 2;
+  static constexpr int cls_s = cls_v + 16 * kMmaStride * 2;  // float[kRows]
+  static constexpr int cls_e = cls_s + 4 * kRows;            // float[kRows]
+  static constexpr int red = cls_e + 4 * kRows;              // float[8][64]
+  static constexpr int total = red + 4 * (kThreads / kHD) * kHD + 1024;
 };
 
-__global__ void __launch_bounds__(kWarps * 32)
+// Layer norm of every row of x [M, D], once per row (not once per head):
+// float32 statistics in the E[x^2] - mean^2 form of the JAX package, the
+// normalised row rounded to bf16, as the plain version rounds it. One warp a
+// row; the second pass over the row finds it in L1.
+__global__ void __launch_bounds__(256)
+layernorm_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
+                      const float* __restrict__ ln_b, bf16* __restrict__ y, int M,
+                      int D, float eps) {
+  const int r = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (r >= M) return;
+  const uint4* row = reinterpret_cast<const uint4*>(x + static_cast<size_t>(r) * D);
+  uint4* out = reinterpret_cast<uint4*>(y + static_cast<size_t>(r) * D);
+  float s = 0.f, ss = 0.f;
+  for (int c = lane; c < D / 8; c += 32) {
+    const uint4 raw = row[c];
+    const __nv_bfloat162* in = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 v = __bfloat1622float2(in[e]);
+      s += v.x + v.y;
+      ss += v.x * v.x + v.y * v.y;
+    }
+  }
+  s = warp_sum(s);
+  ss = warp_sum(ss);
+  const float mean = s / D;
+  const float rstd = rsqrtf(ss / D - mean * mean + eps);
+  for (int c = lane; c < D / 8; c += 32) {
+    uint4 vec = row[c];
+    const __nv_bfloat162* in = reinterpret_cast<const __nv_bfloat162*>(&vec);
+    float sc[8], bi[8];
+    *reinterpret_cast<float4*>(sc) = __ldg(reinterpret_cast<const float4*>(ln_s + c * 8));
+    *reinterpret_cast<float4*>(sc + 4) = __ldg(reinterpret_cast<const float4*>(ln_s + c * 8 + 4));
+    *reinterpret_cast<float4*>(bi) = __ldg(reinterpret_cast<const float4*>(ln_b + c * 8));
+    *reinterpret_cast<float4*>(bi + 4) = __ldg(reinterpret_cast<const float4*>(ln_b + c * 8 + 4));
+    uint4 res;
+    uint32_t* o = reinterpret_cast<uint32_t*>(&res);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 v = __bfloat1622float2(in[e]);
+      o[e] = pack_bf16((v.x - mean) * rstd * sc[2 * e] + bi[2 * e],
+                       (v.y - mean) * rstd * sc[2 * e + 1] + bi[2 * e + 1]);
+    }
+    out[c] = res;
+  }
+}
+
+// One chunk of NT*8 keys for a warp's 16 query rows: S = Q K^T, online
+// softmax, O += P V. k_addr/v_addr: shared-memory addresses of the chunk's
+// first key row (row stride kMmaStride); the first n_valid keys of the chunk
+// are looked at, and of those the query row r (0: lane / 4, 1: eight rows
+// further down) takes the keys lo[r] <= key < hi[r], those of its own group.
+template <int NT>
+__device__ __forceinline__ void attention_chunk(const uint32_t (&qf)[4][4],
+                                                uint32_t k_addr, uint32_t v_addr,
+                                                int n_valid, const int (&lo)[2],
+                                                const int (&hi)[2],
+                                                float (&o)[8][4], float (&m)[2],
+                                                float (&l)[2]) {
+  const int lane = threadIdx.x & 31;
+  float s[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+  const uint32_t k_lane =
+      k_addr + (((lane & 7) + ((lane >> 4) << 3)) * kMmaStride + ((lane >> 3) & 1) * 8) * 2;
+#pragma unroll
+  for (int p = 0; p < NT / 2; ++p) {
+    if (p * 16 < n_valid) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t b[4];
+        ldmatrix_x4(b, k_lane + (p * 16 * kMmaStride + kk * 16) * 2);
+        mma_m16n8k16(s[2 * p], qf[kk], b[0], b[1]);
+        mma_m16n8k16(s[2 * p + 1], qf[kk], b[2], b[3]);
+      }
+    }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * j + 2 * (lane & 3) + (e & 1);
+      if (col < lo[e >> 1] || col >= hi[e >> 1]) s[j][e] = -INFINITY;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    }
+  float corr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float mn = fmaxf(m[r], mx[r]);  // finite: the CLS chunk came first
+    corr[r] = __expf(m[r] - mn);
+    m[r] = mn;
+    l[r] *= corr[r];
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] *= corr[e >> 1];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = __expf(s[j][e] - m[e >> 1]);
+      l[e >> 1] += s[j][e];
+    }
+  const uint32_t v_lane =
+      v_addr + (((lane & 7) + ((lane >> 3) & 1) * 8) * kMmaStride + (lane >> 4) * 8) * 2;
+#pragma unroll
+  for (int kk = 0; kk < NT / 2; ++kk) {
+    if (kk * 16 < n_valid) {
+      uint32_t a[4];
+      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int dp = 0; dp < 4; ++dp) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, v_lane + (kk * 16 * kMmaStride + dp * 16) * 2);
+        mma_m16n8k16(o[2 * dp], a, b[0], b[1]);
+        mma_m16n8k16(o[2 * dp + 1], a, b[2], b[3]);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
 group_attention_kernel(
-    const bf16* __restrict__ x, const float* __restrict__ ln_s,
-    const float* __restrict__ ln_b, const bf16* __restrict__ wqkv,
-    const float* __restrict__ bqkv, const bf16* __restrict__ cls_q,
-    const bf16* __restrict__ cls_k, const bf16* __restrict__ cls_v,
-    bf16* __restrict__ attn, float* __restrict__ part_m,
-    float* __restrict__ part_l, float* __restrict__ part_acc, int N, int D,
-    int H, int L, int pack_rows, float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const GroupSmem lay(D);
-  float2* stats = reinterpret_cast<float2*>(smem + lay.stats);
-  bf16* a_sm = reinterpret_cast<bf16*>(smem + lay.a);
-  float* stage = reinterpret_cast<float*>(smem + lay.stage);
-  bf16* q_sm = reinterpret_cast<bf16*>(smem + lay.q);
-  bf16* k_sm = reinterpret_cast<bf16*>(smem + lay.k);
-  bf16* v_sm = reinterpret_cast<bf16*>(smem + lay.v);
-  float* cls_s = reinterpret_cast<float*>(smem + lay.cls_s);
+    const bf16* __restrict__ x_ln, const bf16* __restrict__ wqkv,
+    const float* __restrict__ bqkv,
+    const bf16* __restrict__ cls_q, const bf16* __restrict__ cls_k,
+    const bf16* __restrict__ cls_v, bf16* __restrict__ attn,
+    float* __restrict__ part_m, float* __restrict__ part_l,
+    float* __restrict__ part_acc, int N, int D, int H, int L, int pack_rows) {
+  using Lay = GroupSmem;
+  constexpr int T = kThreads;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t smem_base = smem_u32(smem);
+  bf16* q_sm = reinterpret_cast<bf16*>(smem + Lay::q);
+  bf16* k_sm = reinterpret_cast<bf16*>(smem + Lay::k);
+  bf16* v_sm = reinterpret_cast<bf16*>(smem + Lay::v);
+  bf16* ck_sm = reinterpret_cast<bf16*>(smem + Lay::cls_k);
+  bf16* cv_sm = reinterpret_cast<bf16*>(smem + Lay::cls_v);
+  float* cls_s = reinterpret_cast<float*>(smem + Lay::cls_s);
+  float* cls_e = reinterpret_cast<float*>(smem + Lay::cls_e);
+  float* red = reinterpret_cast<float*>(smem + Lay::red);
 
   const int pack = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int n_packs = gridDim.x;
   const int r0 = pack * pack_rows;
   const int nrows = min(pack_rows, N - r0);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int lda = D + 8;
-  const float scale = rsqrtf(static_cast<float>(kHD));
-  const bf16* xb = x + (static_cast<size_t>(b) * N + r0) * D;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2;
+  const bool wg_active = wg * 64 < nrows;
+  const bf16* xb = x_ln + (static_cast<size_t>(b) * N + r0) * D;
+  const int n_slabs = D / kSlabK;
 
-  // 1. per-row LN statistics of the pack
-  for (int r = warp; r < nrows; r += kWarps) {
-    const float2 st = warp_row_stats(xb + static_cast<size_t>(r) * D, D, eps);
-    if (lane == 0) stats[r] = st;
+  // A thread copies the same 16-byte vectors of every k-slab: chunk tid % 8
+  // of row tid / 8 of each of the kWG activation tiles (zeros for rows past
+  // the pack) and of the head's q, k and v weight rows, all at one swizzled
+  // offset inside their 64-row tile.
+  static_assert(kThreads == 64 * 8, "one thread per 16-byte vector of a 64-row tile");
+  const int row64 = tid >> 3, c8 = tid & 7;
+  const uint32_t off64 = swz128(row64, c8);
+  const bf16* x_src = xb + static_cast<size_t>(row64) * D + c8 * 8;
+  const bf16* w_src = wqkv + (static_cast<size_t>(h) * kHD + row64) * D + c8 * 8;
+  auto load_slab = [&](int s) {
+    const uint32_t dst = smem_base + (s % kStages) * Lay::kStage + off64;
+#pragma unroll
+    for (int i = 0; i < kWG; ++i) {
+      const bool ok = i * 64 + row64 < nrows;
+      cp_async16(dst + i * kTileA,
+                 x_src + (ok ? static_cast<size_t>(i) * 64 * D : 0) + s * kSlabK, ok);
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i)  // the head's q | k | v rows
+      cp_async16(dst + Lay::kStageA + i * kTileA,
+                 w_src + static_cast<size_t>(i) * D * D + s * kSlabK);
+  };
+
+  // 1. the first two slabs are on their way while the CLS key/value (row 0
+  //    of a 16-key chunk of their own) are fetched
+  load_slab(0);
+  cp_async_commit();
+  if (n_slabs > 1) load_slab(1);
+  cp_async_commit();
+  const size_t cls_off = static_cast<size_t>(b) * D + h * kHD;
+  for (int i = tid; i < 16 * kMmaStride; i += T) {
+    const int r = i / kMmaStride, c = i % kMmaStride;
+    const bool take = r == 0 && c < kHD;
+    ck_sm[i] = take ? cls_k[cls_off + c] : __float2bfloat16(0.f);
+    cv_sm[i] = take ? cls_v[cls_off + c] : __float2bfloat16(0.f);
+  }
+  cp_async_wait<1>();
+  fence_proxy_async();
+  __syncthreads();
+
+  // 2. q | k | v = LN(x) Wqkv_h^T: each warpgroup 64 rows x 192 columns.
+  //    Entering step s, slab s has landed and slab s + 1 is in flight. The
+  //    step starts the product on slab s, makes sure the one on slab s - 1
+  //    is done and slab s + 1 has landed, and requests slab s + 2 into the
+  //    stage that product has left: the tensor cores always have the next
+  //    product queued behind the one they work on.
+  float acc[96];
+#pragma unroll
+  for (int i = 0; i < 96; ++i) acc[i] = 0.f;
+  for (int s = 0; s < n_slabs; ++s) {
+    if (wg_active) {
+      const uint32_t stage = smem_base + (s % kStages) * Lay::kStage;
+      wgmma_fence();
+      wgmma_slab(acc, stage + wg * kTileA, stage + Lay::kStageA);
+      wgmma_commit();
+    }
+    wgmma_wait<1>();
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();
+    if (s + 2 < n_slabs) load_slab(s + 2);
+    cp_async_commit();
+  }
+  wgmma_wait<0>();
+  wgmma_acc_fence(acc);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // 3. bias, q scaled, rounded to bf16 over the ring. Rows past the pack are
+  //    finite (their A rows were zeros); the overhang rows are zeroed.
+  {
+    static_assert(kHD == 64, "the query scale below is 1 / sqrt(64)");
+    constexpr float scale = 0.125f;
+    const int row = wg * 64 + (warp & 3) * 16 + (lane >> 2);
+#pragma unroll
+    for (int j = 0; j < 24; ++j) {
+      const int sel = j / 8, c = (j % 8) * 8 + 2 * (lane & 3);
+      const float2 bb = __ldg(reinterpret_cast<const float2*>(
+          bqkv + static_cast<size_t>(sel) * D + h * kHD + c));
+      const float mul = sel == 0 ? scale : 1.f;
+      bf16* dst = sel == 0 ? q_sm : (sel == 1 ? k_sm : v_sm);
+      *reinterpret_cast<uint32_t*>(dst + row * kMmaStride + c) =
+          pack_bf16((acc[4 * j] + bb.x) * mul, (acc[4 * j + 1] + bb.y) * mul);
+      *reinterpret_cast<uint32_t*>(dst + (row + 8) * kMmaStride + c) =
+          pack_bf16((acc[4 * j + 2] + bb.x) * mul, (acc[4 * j + 3] + bb.y) * mul);
+    }
+    for (int i = tid; i < kPadRows * kMmaStride; i += T) {
+      q_sm[kRows * kMmaStride + i] = __float2bfloat16(0.f);
+      k_sm[kRows * kMmaStride + i] = __float2bfloat16(0.f);
+      v_sm[kRows * kMmaStride + i] = __float2bfloat16(0.f);
+    }
   }
   __syncthreads();
 
-  // 2. q/k/v of head h for the pack, 32 LN'd rows at a time. Warp w owns
-  //    row tile w/4 of the chunk and 3 of the 12 column tiles (q 0-3,
-  //    k 4-7, v 8-11) of the head's 192 output columns.
-  const int rt = warp / 4;
-  const int n_chunks = (nrows + kChunk - 1) / kChunk;
-  float* wst = stage + warp * 256;
-  for (int c = 0; c < n_chunks; ++c) {
-    for (int rr = warp; rr < kChunk; rr += kWarps) {
-      const int r = c * kChunk + rr;
-      bf16* dst = a_sm + rr * lda;
-      if (r < nrows) {
-        const float2 st = stats[r];
-        const bf16* src = xb + static_cast<size_t>(r) * D;
-        for (int col = lane; col < D; col += 32)
-          dst[col] = __float2bfloat16((to_f(src[col]) - st.x) * st.y *
-                                      ln_s[col] + ln_b[col]);
-      } else {
-        for (int col = lane; col < D; col += 32)
-          dst[col] = __float2bfloat16(0.f);
+  // 4. token queries, 16 consecutive rows of the pack a warp: against the
+  //    CLS column, then against the keys of every group the 16 rows touch,
+  //    each row masked to its own group
+  for (int t0 = warp * 16; t0 < nrows; t0 += kWarps * 16) {
+    const int k_lo = (t0 / L) * L;
+    const int k_hi = (min(t0 + 15, nrows - 1) / L + 1) * L;
+    int row[2], lo[2], hi[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      row[r] = t0 + (lane >> 2) + 8 * r;
+      lo[r] = (row[r] / L) * L - k_lo;
+      hi[r] = lo[r] + L;
+    }
+    uint32_t qf[4][4];
+    const uint32_t q_lane = smem_u32(q_sm) +
+        ((t0 + (lane & 15)) * kMmaStride + (lane >> 4) * 8) * 2;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) ldmatrix_x4(qf[kk], q_lane + kk * 32);
+    float o[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    {
+      const int cls_lo[2] = {0, 0}, cls_hi[2] = {1, 1};
+      attention_chunk<2>(qf, smem_u32(ck_sm), smem_u32(cv_sm), 1, cls_lo, cls_hi,
+                         o, m, l);
+    }
+    for (int c0 = 0; c0 < k_hi - k_lo; c0 += 64) {
+      const int clo[2] = {lo[0] - c0, lo[1] - c0}, chi[2] = {hi[0] - c0, hi[1] - c0};
+      const uint32_t k_at = smem_u32(k_sm + (k_lo + c0) * kMmaStride);
+      const uint32_t v_at = smem_u32(v_sm + (k_lo + c0) * kMmaStride);
+      const int left = k_hi - k_lo - c0;
+      if (left <= 16)  // the time axis's two groups, or a long group's tail
+        attention_chunk<2>(qf, k_at, v_at, left, clo, chi, o, m, l);
+      else
+        attention_chunk<8>(qf, k_at, v_at, min(64, left), clo, chi, o, m, l);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      if (row[r] < nrows) {
+        bf16* dst = attn + (static_cast<size_t>(b) * N + r0 + row[r]) * D +
+                    h * kHD + 2 * (lane & 3);
+        const float inv = 1.f / l[r];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+              pack_bf16(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
       }
     }
-    __syncthreads();
-
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[3];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) wmma::fill_fragment(acc[j], 0.f);
-    for (int kk = 0; kk < D; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, a_sm + rt * 16 * lda + kk, lda);
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const int ct = (warp % 4) * 3 + j;
-        const int grow = (ct / 4) * D + h * kHD + (ct % 4) * 16;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fb, wqkv + static_cast<size_t>(grow) * D + kk, D);
-        wmma::mma_sync(acc[j], fa, fb, acc[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const int ct = (warp % 4) * 3 + j;
-      const int sel = ct / 4;
-      const int col0 = (ct % 4) * 16;
-      const int gcol = sel * D + h * kHD + col0;
-      wmma::store_matrix_sync(wst, acc[j], 16, wmma::mem_row_major);
-      __syncwarp();
-      bf16* dst = sel == 0 ? q_sm : (sel == 1 ? k_sm : v_sm);
-      for (int i = lane; i < 256; i += 32) {
-        const int r = i / 16, cc = i % 16;
-        float val = wst[i] + bqkv[gcol + cc];
-        if (sel == 0) val *= scale;
-        dst[(c * kChunk + rt * 16 + r) * kQKVStride + col0 + cc] =
-            __float2bfloat16(val);
-      }
-      __syncwarp();
-    }
-    __syncthreads();
   }
 
-  // 3. token queries: one warp per row, one lane per key of its group
-  const size_t cls_off = static_cast<size_t>(b) * D + h * kHD;
-  const float ck0 = to_f(cls_k[cls_off + 2 * lane]);
-  const float ck1 = to_f(cls_k[cls_off + 2 * lane + 1]);
-  const float cv0 = to_f(cls_v[cls_off + 2 * lane]);
-  const float cv1 = to_f(cls_v[cls_off + 2 * lane + 1]);
-  for (int i = warp; i < nrows; i += kWarps) {
-    const int g0 = (i / L) * L;
-    warp_group_attention_row(
-        q_sm + i * kQKVStride, k_sm + g0 * kQKVStride, v_sm + g0 * kQKVStride,
-        L, ck0, ck1, cv0, cv1,
-        reinterpret_cast<__nv_bfloat162*>(
-            attn + (static_cast<size_t>(b) * N + r0 + i) * D + h * kHD));
-  }
-
-  // 4. CLS query partials over the pack's rows
-  const float cq0 = to_f(cls_q[cls_off + 2 * lane]);
-  const float cq1 = to_f(cls_q[cls_off + 2 * lane + 1]);
-  for (int j = warp; j < nrows; j += kWarps) {
-    const float2 kv = __bfloat1622float2(
-        reinterpret_cast<const __nv_bfloat162*>(k_sm + j * kQKVStride)[lane]);
-    const float sj = warp_sum(cq0 * kv.x + cq1 * kv.y);
-    if (lane == 0) cls_s[j] = sj;
+  // 5. CLS query partials over the pack's rows: scores, max, exponentials,
+  //    then the value sum split over T / 64 parts of the rows
+  {
+    // four rows a warp at a time: eight lanes a row, eight dims a lane
+    const int sub = lane >> 3, d0 = (lane & 7) * 8;
+    float cq[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) cq[e] = to_f(cls_q[cls_off + d0 + e]);
+    for (int j = warp * 4 + sub; j < nrows + sub; j += kWarps * 4) {
+      float a = 0.f;
+      if (j < nrows) {
+        const uint4 kv = *reinterpret_cast<const uint4*>(k_sm + j * kMmaStride + d0);
+        const __nv_bfloat162* kp = reinterpret_cast<const __nv_bfloat162*>(&kv);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 k2 = __bfloat1622float2(kp[e]);
+          a += cq[2 * e] * k2.x + cq[2 * e + 1] * k2.y;
+        }
+      }
+      a += __shfl_xor_sync(0xffffffffu, a, 1);
+      a += __shfl_xor_sync(0xffffffffu, a, 2);
+      a += __shfl_xor_sync(0xffffffffu, a, 4);
+      if (j < nrows && (lane & 7) == 0) cls_s[j] = a;
+    }
   }
   __syncthreads();
   float m = -INFINITY;
-  for (int j = 0; j < nrows; ++j) m = fmaxf(m, cls_s[j]);
-  const size_t pidx = (static_cast<size_t>(b) * n_packs + pack) * H + h;
-  if (threadIdx.x < kHD) {
-    const int d = threadIdx.x;
-    float l = 0.f, a = 0.f;
-    for (int j = 0; j < nrows; ++j) {
-      const float e = expf(cls_s[j] - m);
-      l += e;
-      a += e * to_f(v_sm[j * kQKVStride + d]);
-    }
-    part_acc[pidx * kHD + d] = a;
-    if (d == 0) {
-      part_m[pidx] = m;
-      part_l[pidx] = l;
+  for (int j = lane; j < nrows; j += 32) m = fmaxf(m, cls_s[j]);
+  m = warp_max(m);
+  float lsum = 0.f;
+  for (int j = lane; j < nrows; j += 32) lsum += expf(cls_s[j] - m);
+  lsum = warp_sum(lsum);
+  for (int j = tid; j < nrows; j += T) cls_e[j] = expf(cls_s[j] - m);
+  __syncthreads();
+  {
+    constexpr int kParts = T / kHD;
+    const int d = tid % kHD, part = tid / kHD;
+    float a = 0.f;
+    for (int j = part; j < nrows; j += kParts)
+      a += cls_e[j] * to_f(v_sm[j * kMmaStride + d]);
+    red[part * kHD + d] = a;
+    __syncthreads();
+    if (tid < kHD) {
+      float tot = 0.f;
+#pragma unroll
+      for (int p = 0; p < kParts; ++p) tot += red[p * kHD + tid];
+      const size_t pidx = (static_cast<size_t>(b) * n_packs + pack) * H + h;
+      part_acc[pidx * kHD + tid] = tot;
+      if (tid == 0) {
+        part_m[pidx] = m;
+        part_l[pidx] = lsum;
+      }
     }
   }
 }
 
-// y[M, N] = x + A[M, K] @ W[N, K]^T + bias: 64x64 block tiles, 4 warps of
-// 32x32 (2x2 wmma tiles), K in steps of 32 staged through shared memory.
-constexpr int kBM = 64, kBN = 64, kBK = 32, kPad = 8;
+// y[M, N] = resid + A[M, K] @ W[N, K]^T + bias: a 128 x 192 tile per block,
+// two warpgroups of 64 rows, K in slabs of 64 through a four-stage ring. The
+// tile of the residual is requested first and waits in shared memory for the
+// epilogue, which would otherwise stand behind a round trip to device memory.
+constexpr int kPM = 128, kPN = kQKVCols, kPStages = 4, kPThreads = 256;
+constexpr int kPStage = 2 * kTileA + kTileW;
+constexpr int kPCStride = kPN + 4;  // float32 staging rows, 16-byte aligned
+constexpr int kPResid = kPStages * kPStage;      // after the ring: bf16[128][192]
+constexpr int kPSmem = kPResid + kPM * kPN * 2 + 1024;
+static_assert(kPM * kPCStride * 4 <= kPStages * kPStage, "staging fits the ring");
 
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kPThreads, 1)
 proj_residual_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
                      const float* __restrict__ bias,
                      const bf16* __restrict__ resid, bf16* __restrict__ y,
                      int M, int N, int K) {
-  __shared__ __align__(128) bf16 a_sm[kBM][kBK + kPad];
-  __shared__ __align__(128) bf16 w_sm[kBN][kBK + kPad];
-  __shared__ __align__(128) float c_sm[kBM][kBN + 4];
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int warp = threadIdx.x >> 5;
-  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t ring = smem_u32(smem);
+  const int n0 = blockIdx.x * kPN, m0 = blockIdx.y * kPM;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, wg = warp >> 2;
+  const int n_slabs = K / kSlabK;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+  auto load = [&](int s, int stage) {
+    const uint32_t a_dst = ring + stage * kPStage, w_dst = a_dst + 2 * kTileA;
+    for (int v = tid; v < kPM * 8; v += kPThreads) {
+      const int r = v >> 3, c = v & 7;
+      const bool ok = m0 + r < M;
+      cp_async16(a_dst + (r >> 6) * kTileA + swz128(r & 63, c),
+                 A + static_cast<size_t>(ok ? m0 + r : 0) * K + s * kSlabK + c * 8, ok);
+    }
+    for (int v = tid; v < kPN * 8; v += kPThreads) {
+      const int r = v >> 3, c = v & 7;
+      const bool ok = n0 + r < N;
+      cp_async16(w_dst + swz128(r, c),
+                 W + static_cast<size_t>(ok ? n0 + r : 0) * K + s * kSlabK + c * 8, ok);
+    }
+  };
 
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    // 64 rows x 32 cols of A and of W: 256 16-byte vectors each
-    for (int v = threadIdx.x; v < kBM * kBK / 8; v += blockDim.x) {
-      const int r = v / (kBK / 8), c = (v % (kBK / 8)) * 8;
-      uint4 av = make_uint4(0, 0, 0, 0);
-      if (m0 + r < M)
-        av = *reinterpret_cast<const uint4*>(A + static_cast<size_t>(m0 + r) * K + k0 + c);
-      *reinterpret_cast<uint4*>(&a_sm[r][c]) = av;
-      *reinterpret_cast<uint4*>(&w_sm[r][c]) =
-          *reinterpret_cast<const uint4*>(W + static_cast<size_t>(n0 + r) * K + k0 + c);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], &a_sm[wm + i * 16][kk], kBK + kPad);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], &w_sm[wn + j * 16][kk], kBK + kPad);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
+  // the residual tile rides in the first group of copies
+  for (int v = tid; v < kPM * (kPN / 8); v += kPThreads) {
+    const int r = v / (kPN / 8), c = (v % (kPN / 8)) * 8;
+    const bool ok = m0 + r < M && n0 + c < N;
+    cp_async16(ring + kPResid + (r * kPN + c) * 2,
+               resid + (ok ? static_cast<size_t>(m0 + r) * N + n0 + c : 0), ok);
   }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&c_sm[wm + i * 16][wn + j * 16], acc[i][j],
-                              kBN + 4, wmma::mem_row_major);
+  for (int s = 0; s < kPStages - 1; ++s) {
+    if (s < n_slabs) load(s, s);
+    cp_async_commit();
+  }
+  cp_async_wait<kPStages - 2>();
+  fence_proxy_async();
   __syncthreads();
-  for (int e = threadIdx.x; e < kBM * kBN; e += blockDim.x) {
-    const int r = e / kBN, c = e % kBN;
-    if (m0 + r >= M) continue;
-    const size_t g = static_cast<size_t>(m0 + r) * N + n0 + c;
-    y[g] = __float2bfloat16(to_f(resid[g]) + bias[n0 + c] + c_sm[r][c]);
+
+  // Entering step s, slab s has landed and slabs s + 1, s + 2 are in flight.
+  // The step starts the product on slab s, makes sure the one on slab s - 1
+  // is done and slab s + 1 has landed, and requests slab s + 3 into the stage
+  // that product has left.
+  float acc[96];
+#pragma unroll
+  for (int i = 0; i < 96; ++i) acc[i] = 0.f;
+  for (int s = 0; s < n_slabs; ++s) {
+    const uint32_t st = ring + (s % kPStages) * kPStage;
+    wgmma_fence();
+    wgmma_slab(acc, st + wg * kTileA, st + 2 * kTileA);
+    wgmma_commit();
+    wgmma_wait<1>();
+    cp_async_wait<kPStages - 3>();
+    fence_proxy_async();
+    __syncthreads();
+    if (s + kPStages - 1 < n_slabs)
+      load(s + kPStages - 1, (s + kPStages - 1) % kPStages);
+    cp_async_commit();
+  }
+  wgmma_wait<0>();
+  wgmma_acc_fence(acc);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the sums through shared memory, so that y is written (and the residual
+  // read) as whole 16-byte vectors of a row
+  float* c_sm = reinterpret_cast<float*>(smem);
+  {
+    const int row = wg * 64 + (warp & 3) * 16 + (lane >> 2);
+#pragma unroll
+    for (int j = 0; j < 24; ++j) {
+      const int c = 8 * j + 2 * (lane & 3);
+      *reinterpret_cast<float2*>(c_sm + row * kPCStride + c) =
+          make_float2(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<float2*>(c_sm + (row + 8) * kPCStride + c) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+  __syncthreads();
+  for (int v = tid; v < kPM * (kPN / 8); v += kPThreads) {
+    const int r = v / (kPN / 8), c = (v % (kPN / 8)) * 8;
+    if (m0 + r >= M || n0 + c >= N) continue;
+    const uint4 rv = *reinterpret_cast<const uint4*>(smem + kPResid + (r * kPN + c) * 2);
+    const __nv_bfloat162* rin = reinterpret_cast<const __nv_bfloat162*>(&rv);
+    float cs[8], bi[8];
+    *reinterpret_cast<float4*>(cs) = *reinterpret_cast<const float4*>(c_sm + r * kPCStride + c);
+    *reinterpret_cast<float4*>(cs + 4) = *reinterpret_cast<const float4*>(c_sm + r * kPCStride + c + 4);
+    *reinterpret_cast<float4*>(bi) = __ldg(reinterpret_cast<const float4*>(bias + n0 + c));
+    *reinterpret_cast<float4*>(bi + 4) = __ldg(reinterpret_cast<const float4*>(bias + n0 + c + 4));
+    uint4 out;
+    uint32_t* o = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 rf = __bfloat1622float2(rin[e]);
+      o[e] = pack_bf16(rf.x + bi[2 * e] + cs[2 * e],
+                       rf.y + bi[2 * e + 1] + cs[2 * e + 1]);
+    }
+    *reinterpret_cast<uint4*>(y + static_cast<size_t>(m0 + r) * N + n0 + c) = out;
   }
 }
 
 }  // namespace
 
-// x, attn [B', N, D]; wqkv [3D, D] (q|k|v rows); bqkv [3D] f32;
-// cls_q/k/v [B', D] (cls_q pre-scaled); part_m/l [B', n_packs, H];
-// part_acc [B', n_packs, H, 64]. pack_rows is a multiple of L, <= 256.
-extern "C" int vt_group_attention(const void* x, const void* ln_s,
-                                  const void* ln_b, const void* wqkv,
+// y [M, D] = layer norm of x [M, D] (bf16), scale and bias [D] f32.
+extern "C" int vt_layernorm_rows(const void* x, const void* ln_s,
+                                 const void* ln_b, void* y, int M, int D,
+                                 float eps, void* stream) {
+  if (M <= 0 || D <= 0 || D % 8 != 0) return cudaErrorInvalidValue;
+  layernorm_rows_kernel<<<(M + 7) / 8, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
+      static_cast<const float*>(ln_b), static_cast<bf16*>(y), M, D, eps);
+  return cudaGetLastError();
+}
+
+// x_ln (from vt_layernorm_rows), attn [B', N, D]; wqkv [3D, D] (q|k|v rows);
+// bqkv [3D] f32; cls_q/k/v [B', D] (cls_q pre-scaled); part_m/l
+// [B', n_packs, H]; part_acc [B', n_packs, H, 64]. pack_rows is a multiple
+// of L, <= 256.
+extern "C" int vt_group_attention(const void* x_ln, const void* wqkv,
                                   const void* bqkv, const void* cls_q,
                                   const void* cls_k, const void* cls_v,
                                   void* attn, void* part_m, void* part_l,
                                   void* part_acc, int Bp, int N, int D, int H,
-                                  int L, int pack_rows, float eps,
-                                  void* stream) {
-  if (D != H * kHD || D % 32 != 0 || L <= 0 || L > kMaxRows ||
-      pack_rows % L != 0 || pack_rows > kMaxRows || N % L != 0)
+                                  int L, int pack_rows, void* stream) {
+  if (D != H * kHD || L <= 0 || L > kRows || pack_rows % L != 0 ||
+      pack_rows > kRows || N % L != 0 || Bp <= 0 || Bp > 65535 || H > 65535)
     return cudaErrorInvalidValue;
-  const size_t smem = GroupSmem(D).total;
   static const cudaError_t attr_err = allow_max_smem(group_attention_kernel);
   if (attr_err != cudaSuccess) return attr_err;
   const int n_packs = (N + pack_rows - 1) / pack_rows;
-  group_attention_kernel<<<dim3(n_packs, H, Bp), kWarps * 32, smem,
+  group_attention_kernel<<<dim3(n_packs, H, Bp), kThreads, GroupSmem::total,
                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
-      static_cast<const float*>(ln_b), static_cast<const bf16*>(wqkv),
+      static_cast<const bf16*>(x_ln), static_cast<const bf16*>(wqkv),
       static_cast<const float*>(bqkv), static_cast<const bf16*>(cls_q),
       static_cast<const bf16*>(cls_k), static_cast<const bf16*>(cls_v),
       static_cast<bf16*>(attn), static_cast<float*>(part_m),
       static_cast<float*>(part_l), static_cast<float*>(part_acc), N, D, H, L,
-      pack_rows, eps);
+      pack_rows);
   return cudaGetLastError();
 }
 
@@ -310,9 +635,12 @@ extern "C" int vt_group_attention(const void* x, const void* ln_s,
 extern "C" int vt_proj_residual(const void* attn, const void* w,
                                 const void* bias, const void* resid, void* y,
                                 int M, int N, int K, void* stream) {
-  if (N % kBN != 0 || K % kBK != 0) return cudaErrorInvalidValue;
-  dim3 grid(N / kBN, (M + kBM - 1) / kBM);
-  proj_residual_kernel<<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (N % 8 != 0 || K % kSlabK != 0 || M <= 0) return cudaErrorInvalidValue;
+  static const cudaError_t attr_err = allow_max_smem(proj_residual_kernel);
+  if (attr_err != cudaSuccess) return attr_err;
+  dim3 grid((N + kPN - 1) / kPN, (M + kPM - 1) / kPM);
+  proj_residual_kernel<<<grid, kPThreads, kPSmem,
+                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(attn), static_cast<const bf16*>(w),
       static_cast<const float*>(bias), static_cast<const bf16*>(resid),
       static_cast<bf16*>(y), M, N, K);

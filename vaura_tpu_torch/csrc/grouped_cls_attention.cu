@@ -23,7 +23,7 @@
 //  * short groups (L < 32, the time axis), grouped_cls_attention_kernel: a
 //    block takes one "pack" of whole groups (pack_rows = a multiple of L,
 //    <= 256 rows) and one warp per query row runs warp_group_attention_row
-//    (common.cuh, shared with encoder_attention.cu): one lane per key,
+//    (below): one lane per key,
 //    float32 scores, max, sum and accumulator on the CUDA cores, the CLS
 //    key as one extra score column, one rounding of the output to bf16.
 //    Scores and probabilities never leave registers.
@@ -52,7 +52,77 @@ using namespace nvcuda;
 namespace {
 
 constexpr int kWarps = 8;
-constexpr int kMmaStride = kAttnHD + 8;  // bf16 row stride of q/k/v tiles
+
+// The row kernel's q/k/v rows in shared memory: 33 words, so the 32 lanes of
+// a warp, one key row each, hit 32 different banks.
+constexpr int kAttnStride = kAttnHD + 2;
+constexpr int kAttnMaxKeyIters = kAttnMaxKeys / 32;
+
+// One warp computes one query row of head dim 64 against the L <= 256 keys
+// and values of its group plus the shared CLS key/value column.
+// q_row: the (pre-scaled) query, 64 values; k_grp/v_grp: row 0 of the group's
+// keys/values; (ck0, ck1)/(cv0, cv1): this lane's two dims (2*lane, 2*lane+1)
+// of the CLS key/value. One lane per key scores 32 keys at a time; float32
+// scores, max, sum and accumulator; the unnormalised float32 probabilities
+// multiply the values and the sum is divided by the denominator once, then
+// rounded to bf16: out_row[lane] receives dims (2*lane, 2*lane+1).
+__device__ __forceinline__ void warp_group_attention_row(
+    const bf16* q_row, const bf16* k_grp, const bf16* v_grp, int L, float ck0,
+    float ck1, float cv0, float cv1, __nv_bfloat162* out_row) {
+  const int lane = threadIdx.x & 31;
+  const __nv_bfloat162* qrow = reinterpret_cast<const __nv_bfloat162*>(q_row);
+  const int n_key_iters = (L + 31) / 32;
+  float s[kAttnMaxKeyIters];
+  float mx;
+  {
+    const float2 qp = __bfloat1622float2(qrow[lane]);
+    mx = warp_sum(qp.x * ck0 + qp.y * ck1);  // CLS column score
+  }
+  const float sc = mx;
+#pragma unroll
+  for (int t = 0; t < kAttnMaxKeyIters; ++t) {
+    s[t] = -INFINITY;
+    const int j = t * 32 + lane;
+    if (t < n_key_iters && j < L) {
+      const __nv_bfloat162* krow =
+          reinterpret_cast<const __nv_bfloat162*>(k_grp + j * kAttnStride);
+      float a = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < kAttnHD / 2; ++d) {
+        const float2 qv = __bfloat1622float2(qrow[d]);
+        const float2 kv = __bfloat1622float2(krow[d]);
+        a += qv.x * kv.x + qv.y * kv.y;
+      }
+      s[t] = a;
+      mx = fmaxf(mx, a);
+    }
+  }
+  mx = warp_max(mx);
+  float den = 0.f;
+#pragma unroll
+  for (int t = 0; t < kAttnMaxKeyIters; ++t) {
+    s[t] = (t < n_key_iters && t * 32 + lane < L) ? expf(s[t] - mx) : 0.f;
+    den += s[t];
+  }
+  const float pc = expf(sc - mx);
+  den = warp_sum(den) + pc;
+  float o0 = pc * cv0, o1 = pc * cv1;
+#pragma unroll
+  for (int t = 0; t < kAttnMaxKeyIters; ++t) {
+    if (t < n_key_iters) {
+      const int nk = min(32, L - t * 32);
+      for (int src = 0; src < nk; ++src) {
+        const float p = __shfl_sync(0xffffffffu, s[t], src);
+        const float2 vv = __bfloat1622float2(
+            reinterpret_cast<const __nv_bfloat162*>(
+                v_grp + (t * 32 + src) * kAttnStride)[lane]);
+        o0 += p * vv.x;
+        o1 += p * vv.y;
+      }
+    }
+  }
+  out_row[lane] = __floats2bfloat162_rn(o0 / den, o1 / den);
+}
 constexpr int kMmaMinL = 32;
 
 __host__ __device__ inline int mma_padded_len(int L) {

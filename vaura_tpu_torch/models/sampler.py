@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -199,9 +199,12 @@ class Attention(nn.Module):
         return dropout(out, cfg.dropout, train, generator)
 
     def decode(self, x: torch.Tensor, freqs_cis: torch.Tensor,
-               k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int
+               k_cache: torch.Tensor, v_cache: torch.Tensor,
+               pos: Union[int, torch.Tensor]
                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-        """``x [B, 1, d_model]`` at position ``pos``; ``k/v_cache`` one
+        """``x [B, 1, d_model]`` at position ``pos`` (an ``int`` or a
+        one-element int32 tensor on ``x``'s device, whose RoPE row is
+        ``freqs_cis``); ``k/v_cache`` one
         layer ``[B, S, H_kv, hd]``, read below ``pos`` only. Returns the
         output and this position's ``(k, v) [B, H_kv, hd]``."""
         cfg = self.cfg
@@ -235,7 +238,7 @@ class TransformerBlock(nn.Module):
                                   train, generator))
         return h + dp(self.feed_forward(self.ffn_norm(h), train, generator))
 
-    def decode(self, x, freqs_cis, k_cache, v_cache, pos: int):
+    def decode(self, x, freqs_cis, k_cache, v_cache, pos):
         a, kv = self.attention.decode(self.attention_norm(x), freqs_cis,
                                       k_cache, v_cache, pos)
         h = x + a
@@ -437,7 +440,15 @@ class Sampler(nn.Module):
         dev = self.freqs_cis.device
         dtype = dtype or cfg.dtype
         return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                "v": torch.zeros(shape, dtype=dtype, device=dev)}
+                "v": torch.zeros(shape, dtype=dtype, device=dev),
+                "positions": self._positions(max_seq, dev)}
+
+    @staticmethod
+    def _positions(max_seq: int, device) -> torch.Tensor:
+        """``0 .. max_seq - 1`` as int32 on the cache's device, made once
+        per cache: ``positions[pos:pos + 1]`` is the position as a device
+        scalar for decode attention, a view that costs no launch."""
+        return torch.arange(max_seq, dtype=torch.int32, device=device)
 
     def prefill(self, *args, **kwargs):
         raise NotImplementedError("prefill for long prompts is not ported yet")
@@ -448,14 +459,21 @@ class Sampler(nn.Module):
         """One step at position ``pos``: ``tokens_t [B, K, 1]``,
         ``cond_t [B, 1, cond_dim]``. Returns next-token logits
         ``[B, K, vocab]`` and commits this position's K/V into ``cache`` in
-        place after all layers have read it."""
+        place after all layers have read it. Decode attention takes the
+        position from device memory (a one-element view of the cache's
+        ``positions``, added to a cache that lacks it); RoPE and the cache
+        write index with the host ``int``."""
         pos = int(pos)
+        if "positions" not in cache:
+            cache["positions"] = self._positions(cache["k"].shape[2],
+                                                 cache["k"].device)
+        pos_t = cache["positions"][pos:pos + 1]
         tok_emb = self.tok_embeddings(tokens_t)
         h = torch.cat([cond_t.to(tok_emb.dtype), tok_emb], dim=-1)
         freqs = self.freqs_cis[pos:pos + 1]
         ks, vs = [], []
         for layer, k_l, v_l in zip(self.layers, cache["k"], cache["v"]):
-            h, (k, v) = layer.decode(h, freqs, k_l, v_l, pos)
+            h, (k, v) = layer.decode(h, freqs, k_l, v_l, pos_t)
             ks.append(k)
             vs.append(v)
         cache["k"][:, :, pos] = torch.stack(ks).to(cache["k"].dtype)

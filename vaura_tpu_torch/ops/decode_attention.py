@@ -3,9 +3,20 @@
 Counterpart of ``vaura_tpu/ops/pallas_attention.py``: the query of position
 ``pos`` attends over the cached positions ``< pos`` plus the current
 position's ``k_cur``/``v_cur`` (not yet committed to the cache), with a
-float32 softmax. On a CUDA tensor ``decode_attention`` launches the
-split-K kernel of ``csrc/decode_attention.cu``; on a CPU tensor it runs
+float32 softmax. On a CUDA tensor ``decode_attention`` launches the kernel
+of ``csrc/decode_attention.cu`` once: the 64-row tiles of one (batch row, KV
+head) are the blocks of a thread-block cluster, each fetched by bulk
+asynchronous copies and serving every query head of the KV head; the blocks
+send their partial softmaxes into the first block's shared memory, which
+merges them, so there is no scratch tensor and no second launch. On a CPU
+tensor it runs
 ``decode_attention_plain``, the same function in plain PyTorch.
+
+``pos`` is an ``int`` or, as in the JAX package, a scalar on the device: a
+one-element int32 tensor on ``q``'s device. With the tensor the launch
+covers the whole cache length and the kernel reads ``pos`` itself, so the
+launch is the same for every position (what replaying a captured decode
+step needs); the kernel clamps it to ``[0, S]``.
 
 Layouts (JAX's, kept at the public function):
   q, k_cur, v_cur  [B, H, hd] / [B, H_kv, hd]
@@ -16,25 +27,60 @@ Layouts (JAX's, kept at the public function):
 from __future__ import annotations
 
 import ctypes
+from typing import Union
 
 import torch
 
 from vaura_tpu_torch.kernels import build
 
-# launches of the CUDA kernel (one per call on a CUDA tensor)
+# launches of the CUDA kernel (one per call on a CUDA tensor), and how many
+# of them took ``pos`` from device memory
 launches = 0
+device_pos_launches = 0
 
-TILE = 64
+TILE = 64          # cache positions per block
+MAX_CLUSTER = 8    # blocks of one cluster (the portable limit)
+SMEM_LIMIT = 227 * 1024
 _SUPPORTED_HD = (32, 64, 96, 128)
+_P, _I = ctypes.c_void_p, ctypes.c_int
 _SIG = {
-    "vt_decode_attention": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-    + [ctypes.c_void_p],
+    "vt_decode_attention": [_P] * 6 + [_I] * 6 + [_P, _P],
+    "vt_decode_attention_empty": [_I] * 7 + [_P],
 }
 
+Pos = Union[int, torch.Tensor]
 
-def decode_attention_plain(q, k_cache, v_cache, k_cur, v_cur, pos: int):
+
+def launch_plan(S: int, pos: int, pos_on_device: bool) -> dict:
+    """The launch ``decode_attention`` makes: ``cluster`` blocks per (batch
+    row, KV head), each walking ``tiles_per_block`` tiles of ``TILE`` rows
+    at most, over the ``pos`` cached rows and the current one. With ``pos``
+    on the device the plan covers ``S + 1`` rows."""
+    tiles = (S if pos_on_device else pos) // TILE + 1
+    cluster = min(tiles, MAX_CLUSTER)
+    return {"tiles": tiles, "cluster": cluster,
+            "tiles_per_block": -(-tiles // cluster)}
+
+
+def smem_bytes(hd: int, rep: int, cluster: int = MAX_CLUSTER) -> int:
+    """Dynamic shared memory of one block: the K and V tiles (``TILE`` rows
+    and the current position's, rows padded by 32 bytes), two mbarriers and,
+    per query head of the KV head (``rep`` of them), q, the four warps'
+    partials of a tile, the block's running partial and rank 0's inbox of
+    one partial per block of the cluster. Mirrors
+    ``DecodeSmem`` in ``csrc/decode_attention.cu``."""
+    partial = hd + 2
+    floats = rep * (hd + 4 * partial + partial + 2 + cluster * partial)
+    return 2 * (TILE + 1) * (2 * hd + 32) + 16 + 4 * floats
+
+
+def decode_attention_plain(q, k_cache, v_cache, k_cur, v_cur, pos: Pos):
     """Dense reference: float32 scores over the positions ``< pos`` and the
-    current one, one softmax, float32 value sum, cast to ``q.dtype``."""
+    current one, one softmax, float32 value sum, cast to ``q.dtype``. A
+    ``pos`` tensor is read back to the host and clamped as the kernel
+    clamps it."""
+    if isinstance(pos, torch.Tensor):
+        pos = max(0, min(int(pos.item()), k_cache.shape[1]))
     B, H, hd = q.shape
     rep = H // k_cache.shape[2]
     qf = q.float() * hd ** -0.5
@@ -55,7 +101,22 @@ def decode_attention_plain(q, k_cache, v_cache, k_cur, v_cur, pos: int):
     return out.to(q.dtype)
 
 
-def _check(q, k_cache, v_cache, k_cur, v_cur, pos: int):
+def _check_pos(pos: Pos, S: int, device) -> None:
+    if isinstance(pos, torch.Tensor):
+        if pos.dtype != torch.int32:
+            raise ValueError(f"decode_attention: a pos tensor must be int32, "
+                             f"got {pos.dtype}")
+        if pos.numel() != 1:
+            raise ValueError(f"decode_attention: a pos tensor must hold one "
+                             f"element, got {tuple(pos.shape)}")
+        if pos.device != device:
+            raise ValueError(f"decode_attention: the pos tensor must be on "
+                             f"{device}, got {pos.device}")
+    elif not 0 <= int(pos) <= S:
+        raise ValueError(f"decode_attention: pos={pos} outside [0, {S}]")
+
+
+def _check(q, k_cache, v_cache, k_cur, v_cur, pos: Pos):
     B, H, hd = q.shape
     _, S, Hkv, hd_c = k_cache.shape
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
@@ -77,35 +138,54 @@ def _check(q, k_cache, v_cache, k_cur, v_cur, pos: int):
     if H % Hkv:
         raise ValueError(f"decode_attention: H={H} not a multiple of "
                          f"H_kv={Hkv}")
-    if not 0 <= pos <= S:
-        raise ValueError(f"decode_attention: pos={pos} outside [0, {S}]")
+    _check_pos(pos, S, q.device)
+    plan = launch_plan(S, 0 if isinstance(pos, torch.Tensor) else int(pos),
+                       isinstance(pos, torch.Tensor))
+    if smem_bytes(hd, H // Hkv, plan["cluster"]) > SMEM_LIMIT:
+        raise ValueError(
+            f"decode_attention: {H // Hkv} query heads per KV head of dim "
+            f"{hd} over a cluster of {plan['cluster']} blocks do not fit a "
+            "block's shared memory")
 
 
-def decode_attention_cuda(q, k_cache, v_cache, k_cur, v_cur, pos: int):
+def decode_attention_cuda(q, k_cache, v_cache, k_cur, v_cur, pos: Pos):
     """Launch the kernel; raises on any input outside its contract."""
-    global launches
-    pos = int(pos)
+    global launches, device_pos_launches
     _check(q, k_cache, v_cache, k_cur, v_cur, pos)
     B, H, hd = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
-    n_split = -(-pos // TILE)
-    part = torch.empty(max(B * H * n_split * (hd + 2), 1), dtype=torch.float32,
-                       device=q.device)
+    on_device = isinstance(pos, torch.Tensor)
     out = torch.empty_like(q)
     lib = build.load("decode_attention", _SIG)
     rc = lib.vt_decode_attention(
         build.ptr(q), build.ptr(k_cache), build.ptr(v_cache), build.ptr(k_cur),
-        build.ptr(v_cur), build.ptr(part), build.ptr(out),
-        B, H, Hkv, S, hd, pos, build.stream_ptr(q.device),
+        build.ptr(v_cur), build.ptr(out), B, H, Hkv, S, hd,
+        0 if on_device else int(pos), build.ptr(pos) if on_device else None,
+        build.stream_ptr(q.device),
     )
     build.check(lib, rc, "decode_attention")
     launches += 1
+    device_pos_launches += on_device
     return out
 
 
-def decode_attention(q, k_cache, v_cache, k_cur, v_cur, pos: int):
-    """Attention of position ``pos`` over the cache prefix and itself:
-    the CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+def empty_launch(B: int, H: int, Hkv: int, S: int, hd: int, pos: int,
+                 pos_on_device: bool, device) -> None:
+    """An empty kernel with the grid, cluster and shared memory
+    ``decode_attention_cuda`` would launch for these sizes: a yardstick for
+    what one launch costs. Not counted as a launch of the kernel."""
+    lib = build.load("decode_attention", _SIG)
+    rc = lib.vt_decode_attention_empty(B, H, Hkv, S, hd, int(pos),
+                                       int(pos_on_device),
+                                       build.stream_ptr(device))
+    build.check(lib, rc, "decode_attention_empty")
+
+
+def decode_attention(q, k_cache, v_cache, k_cur, v_cur, pos: Pos):
+    """Attention of position ``pos`` (an ``int`` or a one-element int32
+    tensor on ``q``'s device) over the cache prefix and itself: the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors."""
     if q.is_cuda:
         return decode_attention_cuda(q, k_cache, v_cache, k_cur, v_cur, pos)
+    _check_pos(pos, k_cache.shape[1], q.device)
     return decode_attention_plain(q, k_cache, v_cache, k_cur, v_cur, pos)

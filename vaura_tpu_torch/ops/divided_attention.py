@@ -30,13 +30,21 @@ import ctypes
 import torch
 
 from vaura_tpu_torch.kernels import build
-from vaura_tpu_torch.ops.encoder_fused import pack_rows
 
 # launches of the CUDA kernel (one per forward call on CUDA tensors)
 launches = 0
 
 KERNEL_HEAD_DIM = 64
 MAX_GROUP_LEN = 239  # longest group whose tiles fit the block's shared memory
+
+
+def pack_rows(L: int) -> int:
+    """Rows per block of the row kernel (groups shorter than 32 keys): whole
+    groups, ``L * max(1, 128 // L)`` (time axis L=8 -> 128 rows, so that four
+    blocks' q/k/v fit an SM's shared memory together)."""
+    return L * max(1, 128 // L)
+
+
 _SIG = {
     "vt_grouped_cls_attention": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
     + [ctypes.c_void_p],

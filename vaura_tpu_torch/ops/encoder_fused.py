@@ -10,11 +10,19 @@ contiguous) and the CLS row is carried apart (``x_cls [B', 1, D]``). Every
 token group attends within itself plus the CLS key/value; the CLS query
 attends over all rows.
 
-On CUDA tensors the attention sublayer launches the two kernels of
-``csrc/encoder_attention.cu`` (group attention, then the projection GEMM
-with bias and residual) and the MLP sublayer the kernel of
-``csrc/encoder_mlp.cu``. On CPU tensors the ``*_plain`` functions compute
-the same arithmetic in plain PyTorch: bf16 operands, float32 products and
+On CUDA tensors the attention sublayer launches the three kernels of
+``csrc/encoder_attention.cu``: layer norm of the token rows (once per row,
+not once per head, rounded to the compute dtype as the plain version rounds
+it), group attention (one block per pack, head and batch row: normalised
+rows and the head's weights arrive by ``cp.async`` in a three-stage
+shared-memory ring, the q/k/v product runs as ``wgmma`` from that ring, the
+attention of every group length on the tensor cores with each query masked
+to its own group and the CLS column, then the CLS partials), and the
+projection GEMM with bias and residual (``wgmma`` from a four-stage
+``cp.async`` ring). ``attention_plan`` says how a shape is cut into packs
+and blocks. The MLP sublayer launches the kernel of ``csrc/encoder_mlp.cu``.
+On CPU tensors the ``*_plain`` functions compute the same arithmetic in
+plain PyTorch: bf16 operands, float32 products and
 softmax, the same roundings to the compute dtype. The CLS row's q/k/v, the
 flash merge of the per-pack CLS partials and the CLS projection are plain
 PyTorch on both devices, as the JAX package keeps them outside Pallas.
@@ -34,19 +42,23 @@ import torch
 from vaura_tpu_torch.kernels import build
 
 # launches of the CUDA kernels: one per sublayer call on CUDA tensors (the
-# attention sublayer's count covers its two launches, group attention and
-# projection)
+# attention sublayer's count covers its three launches: layer norm, group
+# attention and projection)
 attention_launches = 0
 mlp_launches = 0
 
 MAX_PACK_ROWS = 256  # rows of one pack in the group-attention kernel
 KERNEL_HEAD_DIM = 64
+ATTENTION_LAUNCHES_PER_CALL = 3
+RING_STAGES = 3      # k-slabs in flight in the group-attention kernel
+SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may use on Hopper
 KERNEL_MLP_DIM = 768
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _ATTN_SIG = {
-    "vt_group_attention": [_P] * 12 + [_I] * 6 + [_F, _P],
+    "vt_layernorm_rows": [_P] * 4 + [_I, _I, _F, _P],
+    "vt_group_attention": [_P] * 10 + [_I] * 6 + [_P],
     "vt_proj_residual": [_P] * 5 + [_I] * 3 + [_P],
 }
 _MLP_SIG = {"vt_encoder_mlp": [_P] * 8 + [_I] * 3 + [_F, _P]}
@@ -63,9 +75,38 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 
 def pack_rows(L: int) -> int:
-    """Rows per pack of whole groups: ``L * max(1, 128 // L)``, at most
-    ``MAX_PACK_ROWS`` (time axis L=8 -> 128 rows, space axis L=196 -> 196)."""
-    return L * max(1, 128 // L)
+    """Rows per pack of whole groups: as many groups as fit the
+    ``MAX_PACK_ROWS`` rows one block of the kernel computes (time axis L=8
+    -> 256 rows, space axis L=196 -> 196)."""
+    return L * max(1, MAX_PACK_ROWS // L)
+
+
+def attention_plan(N: int, L: int, rows_per_pack: Optional[int] = None) -> dict:
+    """How the group-attention kernel cuts ``N`` rows in groups of ``L``:
+    packs and the rows of the last one, the rows the tensor cores compute
+    per block (4 warpgroups of 64), the 16-row query tiles of a full pack,
+    and the block's dynamic shared memory: a ring of ``RING_STAGES`` k-slabs
+    (64 columns: 128-byte rows) of the padded rows and of a head's 192 weight
+    rows, over which q, k and v (144-byte rows, 16 rows of overhang) are laid
+    afterwards, plus the CLS key/value tile and the CLS partial's scratch. Mirrors ``GroupSmem`` in
+    ``csrc/encoder_attention.cu``."""
+    rows = pack_rows(L) if rows_per_pack is None else rows_per_pack
+    if N % L or rows % L or not 0 < rows <= MAX_PACK_ROWS:
+        raise ValueError(f"attention_plan: N={N}, L={L}, pack rows {rows}")
+    n_packs = -(-N // rows)
+    padded, hd = MAX_PACK_ROWS, KERNEL_HEAD_DIM
+    ring = RING_STAGES * (padded * 128 + 3 * hd * 128)
+    qkv = 3 * (padded + 16) * (hd + 8) * 2
+    small = 2 * 16 * (hd + 8) * 2 + 2 * 4 * padded + 4 * (padded * 2 // hd) * hd
+    smem = -(-ring // 1024) * 1024 + small + 1024
+    if qkv > ring or smem > SMEM_LIMIT:
+        raise ValueError("attention_plan: the block's shared memory is over")
+    return {
+        "rows_per_pack": rows, "n_packs": n_packs,
+        "last_pack_rows": N - (n_packs - 1) * rows,
+        "padded_rows": padded, "query_tiles": -(-min(rows, N) // 16),
+        "ring_bytes": ring, "qkv_bytes": qkv, "smem_bytes": smem,
+    }
 
 
 def _bf(w: torch.Tensor, dtype) -> torch.Tensor:
@@ -149,6 +190,7 @@ def _attention_cuda(x_tok, ln_scale, ln_bias, wqkv, bqkv, cls_q, cls_k, cls_v,
     n_packs = -(-N // rows_per_pack)
     dev = x_tok.device
     attn = torch.empty_like(x_tok)
+    x_ln = torch.empty_like(x_tok)
     part_m = torch.empty((Bp, n_packs, num_heads), dtype=torch.float32,
                          device=dev)
     part_l = torch.empty_like(part_m)
@@ -157,12 +199,15 @@ def _attention_cuda(x_tok, ln_scale, ln_bias, wqkv, bqkv, cls_q, cls_k, cls_v,
     cq, ck, cv = (t.reshape(Bp, D).contiguous() for t in (cls_q, cls_k, cls_v))
     lib = build.load("encoder_attention", _ATTN_SIG)
     stream = build.stream_ptr(dev)
+    rc = lib.vt_layernorm_rows(build.ptr(x_tok), build.ptr(ln_scale),
+                               build.ptr(ln_bias), build.ptr(x_ln), Bp * N, D,
+                               float(eps), stream)
+    build.check(lib, rc, "layernorm_rows")
     rc = lib.vt_group_attention(
-        build.ptr(x_tok), build.ptr(ln_scale), build.ptr(ln_bias),
-        build.ptr(wqkv), build.ptr(bqkv), build.ptr(cq), build.ptr(ck),
-        build.ptr(cv), build.ptr(attn), build.ptr(part_m), build.ptr(part_l),
-        build.ptr(part_acc), Bp, N, D, num_heads, L, rows_per_pack,
-        float(eps), stream,
+        build.ptr(x_ln), build.ptr(wqkv), build.ptr(bqkv), build.ptr(cq),
+        build.ptr(ck), build.ptr(cv), build.ptr(attn), build.ptr(part_m),
+        build.ptr(part_l), build.ptr(part_acc), Bp, N, D, num_heads, L,
+        rows_per_pack, stream,
     )
     build.check(lib, rc, "group_attention")
     y_tok = torch.empty_like(x_tok)
