@@ -18,7 +18,11 @@ result line):
              device memory, with GQA and on a 1,024-position cache, and
              timed beside an empty kernel of the same launch; the encoder
              attention sublayer (three launches: row statistics, group
-             attention, projection) also at B' = 2 and on ragged packs;
+             attention, projection) also at B' = 2 and on ragged packs; the
+             MLP sublayer (three launches: layer norm, fc1, fc2) also on
+             ragged row counts, with each launch timed alone; the grouped
+             attention (one kernel for both axes) also at group lengths
+             around its tile edges;
   3. main    the flagship path end to end through ``VauraSystem.generate``:
              frames [2, 4, 3, 16, 224, 224] -> MotionFormer -> CFG 6.0,
              top-k 128 decode of 221 tokens -> DAC -> audio [2, 1, 113152],
@@ -64,8 +68,8 @@ TOL_DECODE = 1e-2
 # activation at the same points but sum in other orders, so a value may
 # land one ulp apart -> two ulps at the top of the range
 TOL_SUBLAYER = 6.25e-2
-# grouped attention: the kernel rounds once (float32 probabilities and sums,
-# or unnormalised bf16 probabilities on the tensor cores); the plain version
+# grouped attention: the kernel rounds unnormalised probabilities to bf16 for
+# the tensor cores and its output once; the plain version
 # rounds the normalised probabilities to bf16 (2^-9 relative) before the
 # value product and its output again, so the two may land one ulp apart,
 # rarely two. Every shape is held to two bf16 ulps of ITS largest output
@@ -312,33 +316,103 @@ def check_encoder_attention(gen):
 
 
 def check_encoder_mlp(gen):
+    """The MLP sublayer at the flagship shape (timed: the call, each of its
+    launches alone, fc2 on hidden rows that are in L2 and on hidden rows that
+    are not, and the two products alone as ``torch.matmul``), then at B' = 2
+    and on ragged row counts."""
     import torch
 
     from vaura_tpu_torch.ops import encoder_fused as ef
 
-    Bp, N, D, Dh = 8, 1568, 768, 3072
+    D, Dh = 768, 3072
     dev, bf = "cuda", torch.bfloat16
     f32 = lambda *s: torch.randn(*s, generator=gen, device=dev)
-    args = (f32(Bp, N, D).to(bf), 1.0 + 0.1 * f32(D), 0.1 * f32(D),
-            (f32(Dh, D) * D ** -0.5).to(bf), 0.02 * f32(Dh),
-            (f32(D, Dh) * Dh ** -0.5).to(bf), 0.02 * f32(D))
-    got = ef.fused_mlp_sublayer(*args, eps=1e-6)
-    want = ef.fused_mlp_sublayer_plain(*args, eps=1e-6)
-    err = max_err(got, want)
-    mean_e = float((got.float() - want.float()).abs().mean())
-    log(f"[encoder_mlp] max_abs_err={err:.3e} mean_abs_err={mean_e:.3e}")
+
+    def inputs(Bp, N):
+        return (f32(Bp, N, D).to(bf), 1.0 + 0.1 * f32(D), 0.1 * f32(D),
+                (f32(Dh, D) * D ** -0.5).to(bf), 0.02 * f32(Dh),
+                (f32(D, Dh) * Dh ** -0.5).to(bf), 0.02 * f32(D))
+
+    def hold(args):
+        Bp, N, _ = args[0].shape
+        got = ef.fused_mlp_sublayer(*args, eps=1e-6)
+        want = ef.fused_mlp_sublayer_plain(*args, eps=1e-6)
+        torch.cuda.synchronize()
+        e = max_err(got, want)
+        mean_e = float((got.float() - want.float()).abs().mean())
+        plan = ef.mlp_plan(Bp * N, D, Dh)
+        log(f"[encoder_mlp] B'={Bp} N={N} max_abs_err={e:.3e} mean_abs_err="
+            f"{mean_e:.3e} blocks fc1 {plan['fc1_blocks']}, fc2 "
+            f"{plan['fc2_blocks']}")
+        return e
+
+    Bp, N = 8, 1568
+    args = inputs(Bp, N)
+    err = hold(args)
     M = Bp * N
+    plan = ef.mlp_plan(M, D, Dh)
+    log(f"[encoder_mlp] plan {plan}")
+    ms = cuda_ms(lambda: ef.fused_mlp_sublayer(*args, eps=1e-6), 10)
+    plain_ms = cuda_ms(lambda: ef.fused_mlp_sublayer_plain(*args, eps=1e-6), 3)
+
+    # each launch alone, on the scratch of a full call
+    scratch = (torch.empty_like(args[0]),
+               torch.empty(M, Dh, dtype=bf, device=dev),
+               torch.empty_like(args[0]))
+    ef._mlp_cuda(*args, eps=1e-6, scratch=scratch)
+    part_ms = {
+        name: cuda_ms(lambda: ef._mlp_cuda(*args, eps=1e-6, parts=bit,
+                                           scratch=scratch), 10)
+        for name, bit in ef.MLP_PARTS.items()}
+
+    # does the hidden activation's trip through device memory cost? fc2 of
+    # 4,224 rows (33 row tiles: its 132 blocks are one wave) whose hidden rows
+    # are in L2 (one tensor of 26 MB, read again and again) against one whose
+    # hidden rows are not (six such tensors in turn); x, y and the weights are
+    # the same tensors in both
+    rows = 33 * 128
+    part = (args[0].reshape(1, M, D)[:, :rows].contiguous(),) + args[1:]
+    hiddens = [torch.randn(rows, Dh, generator=gen, device=dev).to(bf)
+               for _ in range(6)]
+    x_ln_part, y_part = torch.empty_like(part[0]), torch.empty_like(part[0])
+
+    def fc2_over(which):
+        def run():
+            for h in which:
+                ef._mlp_cuda(*part, eps=1e-6, parts=ef.MLP_PARTS["fc2"],
+                             scratch=(x_ln_part, h, y_part))
+        return run
+
+    fc2_l2 = cuda_ms(fc2_over(hiddens[:1] * 6), 10) / 6
+    fc2_hbm = cuda_ms(fc2_over(hiddens), 10) / 6
+
+    # the two products alone, as torch.matmul on the same tensors: a
+    # yardstick for the GEMMs, not a library call of the sublayer
+    x_ln, hid, w1, w2 = scratch[0].reshape(M, D), scratch[1], args[3], args[5]
+    matmul_ms = (cuda_ms(lambda: torch.matmul(x_ln, w1.t()), 10)
+                 + cuda_ms(lambda: torch.matmul(hid, w2.t()), 10))
+    del hiddens
+    log(f"[encoder_mlp] ms per call {ms:.4f} ({plan['launches']} launches); "
+        f"alone: layer norm {part_ms['layernorm']:.4f}, fc1 "
+        f"{part_ms['fc1']:.4f}, fc2 {part_ms['fc2']:.4f}; fc2 of {rows} rows "
+        f"with its hidden rows in L2 {fc2_l2:.4f}, from device memory "
+        f"{fc2_hbm:.4f}; the two products as torch.matmul {matmul_ms:.4f}")
+
+    for Bp_r, N_r in ((2, 1568), (2, 1571), (3, 1571)):
+        err = max(err, hold(inputs(Bp_r, N_r)))
     bytes_ = 2 * M * D * 2 + 2 * D * Dh * 2 + (Dh + 3 * D) * 4
     flops = 4 * M * D * Dh
     return {
         "name": "encoder_mlp", "route": "cuda",
         "source": "vaura_tpu_torch/csrc/encoder_mlp.cu",
         "replaces": "vaura_tpu/ops/encoder_fused.py:366",
-        "max_abs_err": err, "tol": TOL_SUBLAYER,
-        "ms": cuda_ms(lambda: ef.fused_mlp_sublayer(*args, eps=1e-6), 10),
-        "plain_ms": cuda_ms(lambda: ef.fused_mlp_sublayer_plain(*args, eps=1e-6), 3),
+        "max_abs_err": err, "tol": TOL_SUBLAYER, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(bytes_ / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3,
         "bound_by": "operations", "library_ms": None,
+        "launches_per_call": plan["launches"], 
+        "ms_layernorm": part_ms["layernorm"], "ms_fc1": part_ms["fc1"],
+        "ms_fc2": part_ms["fc2"], "ms_fc2_4224_rows_hidden_in_l2": fc2_l2,
+        "ms_fc2_4224_rows_hidden_in_hbm": fc2_hbm, "matmul_ms": matmul_ms,
         "shape": f"M={M} D={D} Dh={Dh}",
     }
 
@@ -357,6 +431,7 @@ def check_grouped_cls_attention(gen):
     rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)
     err, tol, ms, plain_ms, library_ms, bound = 0.0, 0.0, 0.0, 0.0, 0.0, 0.0
     sum_b = sum_f = 0.0
+    axis_ms = {}
 
     def hold(tag, got, args):
         """The kernel's output against the plain version and against the
@@ -383,12 +458,16 @@ def check_grouped_cls_attention(gen):
         return (q, rnd(bh, G, L, hd).to(bf), rnd(bh, G, L, hd).to(bf),
                 rnd(bh, 1, hd).to(bf), rnd(bh, 1, hd).to(bf))
 
-    # group lengths around the switch between the kernel's two forms (row
-    # kernel below 32, tensor-core kernel from 32 to its longest group) and
-    # ragged packs and tiles: errors only
-    for G, L in ((5, 31), (7, 32), (5, 37), (3, 64), (2, ga.MAX_GROUP_LEN)):
+    # group lengths around the edges of the kernel's tiles (16 query rows,
+    # chunks of 16 and 64 keys, the longest group), each with a ragged last
+    # pack: errors only
+    for G, L in ((21, 8), (11, 15), (9, 16), (9, 17), (3, 63), (3, 64),
+                 (3, 65), (2, 196), (2, ga.MAX_GROUP_LEN)):
         args = inputs(6, G, L)
-        hold(f"G={G} L={L}", ga.grouped_cls_attention(*args), args)
+        plan = ga.grouped_plan(G * L, L)
+        hold(f"G={G} L={L} packs {plan['n_packs']} x {plan['rows_per_pack']} "
+             f"rows, last {plan['last_pack_rows']}",
+             ga.grouped_cls_attention(*args), args)
     try:  # a longer group is off contract: the wrapper raises
         ga.grouped_cls_attention(*inputs(2, 2, ga.MAX_GROUP_LEN + 1))
     except ValueError:
@@ -397,6 +476,7 @@ def check_grouped_cls_attention(gen):
         raise AssertionError("a group longer than MAX_GROUP_LEN did not raise")
     for axis, G, L in (("time", 196, 8), ("space", 8, 196)):
         args = q, k, v, ck, cv = inputs(BH, G, L)
+        log(f"[grouped_cls_attention] {axis} plan {ga.grouped_plan(G * L, L)}")
         got = ga.grouped_cls_attention(*args)
         torch.cuda.synchronize()
         exact = hold(f"{axis} G={G} L={L}", got, args)
@@ -437,6 +517,23 @@ def check_grouped_cls_attention(gen):
         plain_axis = cuda_ms(lambda: ga.grouped_cls_attention_plain(*args), 5)
         lib_axis = cuda_ms(
             lambda: F.scaled_dot_product_attention(q4, k4, v4), 20)
+        # what the caller (models/motionformer.py::DividedAttention) pays
+        # around the op for its group-major layout: q, k and v gathered out
+        # of the qkv projection's [B, 1 + f*n, 3, H, hd] and the output
+        # scattered back to [B, f*n, D]: four copies a call
+        B_, f_, n_ = BH // 12, 8, 196
+        qkv = rnd(B_, 1 + f_ * n_, 3, 12, hd).to(bf)
+        perm, inv = (((0, 3, 2, 1, 4), (0, 3, 2, 1, 4)) if axis == "time"
+                     else ((0, 3, 1, 2, 4), (0, 2, 3, 1, 4)))
+
+        def layout_copies():
+            for t in qkv.unbind(2):
+                t[:, 1:].reshape(B_, f_, n_, 12, hd).permute(perm).reshape(
+                    BH, G, L, hd)
+            got.reshape(B_, 12, G, L, hd).permute(inv).reshape(
+                B_, f_ * n_, 12 * hd)
+
+        copies_axis = cuda_ms(layout_copies, 20)
         bytes_ = (4 * BH * G * L * hd + 2 * BH * hd) * 2
         flops = 4 * BH * G * L * (L + 1) * hd
         t_b, t_f = bytes_ / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
@@ -444,9 +541,13 @@ def check_grouped_cls_attention(gen):
         log(f"[grouped_cls_attention] {axis} ms {ms_axis:.4f} plain "
             f"{plain_axis:.4f} library {lib_axis:.4f} bound "
             f"{max(t_b, t_f) * 1e3:.4f} ({bytes_ / 1e6:.1f} MB, "
-            f"{flops / 1e9:.2f} GFLOP)")
+            f"{flops / 1e9:.2f} GFLOP); the caller's four layout copies "
+            f"{copies_axis:.4f}")
         ms, plain_ms = ms + ms_axis, plain_ms + plain_axis
         library_ms, bound = library_ms + lib_axis, bound + max(t_b, t_f) * 1e3
+        axis_ms[axis] = {"ms": ms_axis, "plain_ms": plain_axis,
+                         "library_ms": lib_axis,
+                         "layout_copies_ms": copies_axis}
     return {
         "name": "grouped_cls_attention", "route": "cuda",
         "source": "vaura_tpu_torch/csrc/grouped_cls_attention.cu",
@@ -454,6 +555,7 @@ def check_grouped_cls_attention(gen):
         "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound, "bound_by": "bytes" if sum_b >= sum_f else "operations",
         "library_ms": library_ms, "library": "F.scaled_dot_product_attention",
+        "axes": axis_ms,
         "shape": f"BH={BH} hd={hd}, time (G=196, L=8) + space (G=8, L=196) "
                  "of one block",
     }
@@ -607,8 +709,12 @@ def phase_train(gen, report):
         problems.append(f"losses not finite: {losses}")
     if abs(losses[0] - math.log(1024)) > 1e-2:
         problems.append(f"first loss {losses[0]} is not ln 1024")
-    if not losses[2] < losses[0]:
-        problems.append(f"loss did not fall: {losses[:3]}")
+    # the steps' own losses carry three different sets of dropout masks
+    # (noise of about 2e-3 here, as large as three warm-up steps' gain), so
+    # learning is read where no mask enters: the eval loss after the steps
+    # against the first loss (ln 1024 by the zero-initialised head)
+    if not losses[3] < losses[0] - 1e-3:
+        problems.append(f"loss did not fall: {losses}")
     unchanged = [k for k in state.params
                  if after[k] == before[k] and not k.endswith("uncond_embedding")]
     moved = [k for k in after if after[k] != before[k]

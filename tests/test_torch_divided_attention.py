@@ -25,7 +25,12 @@ def _args(seed, BH, G, L, hd):
             r(BH, 1, hd), r(BH, 1, hd))
 
 
-@pytest.mark.parametrize("G,L", [(9, 4), (4, 17), (14, 8), (2, 96)])
+@pytest.mark.parametrize(
+    "G,L",
+    [(9, 4), (4, 17), (14, 8), (2, 96),
+     # around the edges of the CUDA kernel's tiles: 16 query rows, chunks of
+     # 16 and 64 keys, the flagship space axis, the longest group
+     (3, 15), (3, 16), (2, 63), (2, 64), (2, 65), (1, 196), (1, 256)])
 def test_op_matches_pallas_kernel_and_reference(G, L):
     args = _args(0, 3, G, L, 16)
     got = t_op.grouped_cls_attention(*map(torch.from_numpy, args)).numpy()
@@ -71,6 +76,45 @@ def test_cuda_wrapper_raises_off_contract():
             *[torch.from_numpy(a).bfloat16() for a in _args(5, 2, 3, 4, 64)])
     assert t_op.launches == before
     assert t_op.pack_rows(8) == 128 and t_op.pack_rows(196) == 196
+    assert t_op.MAX_GROUP_LEN == 256 and t_op.pack_rows(256) == 256
+
+
+@pytest.mark.parametrize(
+    "N,L,want",
+    [
+        # flagship time axis: 16 groups of 8 frames a pack, a ragged last pack
+        (1568, 8, dict(rows_per_pack=128, n_packs=13, last_pack_rows=32,
+                       query_tiles=8, warps=8, blocks_per_sm=2)),
+        # flagship space axis: one group of 196 locations a pack, 13 query
+        # tiles over 8 warps
+        (1568, 196, dict(rows_per_pack=196, n_packs=8, last_pack_rows=196,
+                         query_tiles=13, warps=8, blocks_per_sm=2)),
+        # groups that straddle the 16-row query tiles, a ragged last pack
+        (153, 17, dict(rows_per_pack=119, n_packs=2, last_pack_rows=34,
+                       query_tiles=8, warps=8)),
+        # the longest group: one block an SM
+        (512, 256, dict(rows_per_pack=256, n_packs=2, last_pack_rows=256,
+                        query_tiles=16, warps=8, blocks_per_sm=1)),
+        # fewer rows than a pack: fewer warps than 8
+        (40, 40, dict(rows_per_pack=120, n_packs=1, last_pack_rows=40,
+                      query_tiles=3, warps=3)),
+    ],
+)
+def test_grouped_plan_at_flagship_and_ragged_shapes(N, L, want):
+    plan = t_op.grouped_plan(N, L)
+    assert {k: plan[k] for k in want} == want
+    rows = plan["rows_per_pack"]
+    # q, k, v tiles of rows + 16 rows of 144 bytes, two CLS tiles of 16 rows
+    assert plan["smem_bytes"] == (3 * (rows + 16) + 32) * 144 <= 227 * 1024
+    assert plan["blocks_per_sm"] >= 1
+
+
+@pytest.mark.parametrize("N,L", [(100, 8),     # N not whole groups
+                                 (514, 257),   # a group too long
+                                 (0, 8), (64, 0)])
+def test_grouped_plan_refuses_what_the_kernel_refuses(N, L):
+    with pytest.raises(ValueError):
+        t_op.grouped_plan(N, L)
 
 
 @pytest.mark.parametrize("axis", ["time", "space"])

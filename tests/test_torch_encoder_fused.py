@@ -78,7 +78,7 @@ def test_attention_cls_partials_merge_across_packs():
     np.testing.assert_allclose(y_cls.numpy(), np.asarray(want_cls), **TOL)
 
 
-@pytest.mark.parametrize("N,D,mult", [(12, 128, 4), (40, 64, 2)])
+@pytest.mark.parametrize("N,D,mult", [(12, 128, 4), (40, 64, 2), (24, 192, 4)])
 def test_mlp_sublayer_matches_pallas(N, D, mult):
     rng = np.random.default_rng(N)
     f = lambda *s: rng.standard_normal(s).astype(np.float32)
@@ -114,10 +114,57 @@ def test_cuda_entry_points_refuse_configs_outside_the_kernel_contract():
             t(a["bqkv"]), t(a["x_cls"][:, 0]), t(a["x_cls"][:, 0]),
             t(a["x_cls"][:, 0]), t(a["wproj"].T), t(a["bproj"]), num_heads=4,
             L=2, eps=1e-6, rows_per_pack=256)
-    with pytest.raises(ValueError):  # D=128: the MLP kernel takes 768
+    with pytest.raises(ValueError):  # D=96: the GEMM takes multiples of 64
+        x = torch.zeros(1, 4, 96, dtype=torch.bfloat16)
+        w = torch.zeros(384, 96, dtype=torch.bfloat16)
+        port._mlp_cuda(x, None, None, w, None, w.t(), None, eps=1e-6)
+    before = port.mlp_launches
+    with pytest.raises(ValueError):  # a CPU tensor: no fallback, no count
         x = torch.zeros(1, 4, 128, dtype=torch.bfloat16)
         w = torch.zeros(512, 128, dtype=torch.bfloat16)
         port._mlp_cuda(x, None, None, w, None, w.t(), None, eps=1e-6)
+    with pytest.raises(ValueError):  # float32: the kernels take bfloat16
+        port._mlp_cuda(x.float(), None, None, w, None, w.t(), None, eps=1e-6)
+    assert port.mlp_launches == before
+
+
+@pytest.mark.parametrize(
+    "M,want",
+    [
+        # flagship: fc1 16 x 98 tiles in 12 waves of 132 SMs, fc2 4 x 98 in 3
+        (12544, dict(fc1_blocks=1568, fc2_blocks=392, fc1_waves=12,
+                     fc2_waves=3)),
+        # B' = 2
+        (3136, dict(fc1_blocks=16 * 25, fc2_blocks=4 * 25, fc1_waves=4,
+                    fc2_waves=1)),
+        # ragged rows (B' = 2, N = 1571): the last row tile is masked
+        (3142, dict(fc1_blocks=16 * 25, fc2_blocks=4 * 25)),
+        (4713, dict(fc1_blocks=16 * 37, fc2_blocks=4 * 37, fc1_waves=5,
+                    fc2_waves=2)),
+        # fewer rows than a tile
+        (5, dict(fc1_blocks=16, fc2_blocks=4, fc1_waves=1, fc2_waves=1)),
+    ],
+)
+def test_mlp_plan_at_flagship_and_ragged_shapes(M, want):
+    plan = port.mlp_plan(M, 768, 3072)
+    assert {k: plan[k] for k in want} == want
+    assert (plan["row_tile"], plan["col_tile"]) == (128, 192)
+    assert plan["launches"] == port.MLP_LAUNCHES_PER_CALL == 3
+    # four stages of (128 + 192) rows of 128 bytes; fc2 adds the residual tile
+    assert plan["fc1_smem_bytes"] == 4 * 320 * 128 + 1024
+    assert plan["fc2_smem_bytes"] == plan["fc1_smem_bytes"] + 128 * 192 * 2
+    assert plan["fc2_smem_bytes"] <= port.SMEM_LIMIT
+    # the normalised rows and the hidden rows, bf16
+    assert plan["scratch_bytes"] == 2 * M * (768 + 3072)
+
+
+def test_mlp_plan_other_widths_and_refusals():
+    plan = port.mlp_plan(1000, 128, 512)   # widths below one column tile
+    assert (plan["fc1_blocks"], plan["fc2_blocks"]) == (3 * 8, 1 * 8)
+    for bad in ((0, 768, 3072), (100, 96, 384), (100, 768, 3000),
+                (100, 0, 64), (100, 64, 0)):
+        with pytest.raises(ValueError):
+            port.mlp_plan(*bad)
 
 
 @pytest.mark.parametrize(

@@ -83,3 +83,22 @@ def test_every_kernel_source_is_built_and_counted():
     assert divided_attention.launches == 0 and decode_attention.launches == 0
     assert encoder_fused.attention_launches == 0
     assert encoder_fused.mlp_launches == 0
+
+
+def test_a_changed_header_rebuilds_every_library(tmp_path, monkeypatch):
+    """A library's file name carries a hash of its source, of every shared
+    header and of the flags: editing ``gemm.cuh`` or ``group_attention.cuh``
+    must not leave a stale build in use."""
+    from vaura_tpu_torch.kernels import build
+
+    headers = {p.name for p in build.CSRC.glob("*.cuh")}
+    assert {"common.cuh", "gemm.cuh", "group_attention.cuh"} <= headers
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    first = build._target("k")
+    assert build._target("k") == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    changed_header = build._target("k")
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n// edited\n')
+    assert len({first, changed_header, build._target("k")}) == 3

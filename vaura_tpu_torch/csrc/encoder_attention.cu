@@ -70,7 +70,13 @@
 //    so that y is written in 16-byte rows and the epilogue waits for no
 //    device memory. The per-head attention output still makes one round trip
 //    through device memory between (a) and (b).
+//
+// (n) and (b) are the layer norm and the GEMM of gemm.cuh, which the MLP
+// sublayer (encoder_mlp.cu) launches too; the attention of step 4 is
+// group_attention.cuh's, which grouped_cls_attention.cu runs as well.
 #include "common.cuh"
+#include "gemm.cuh"
+#include "group_attention.cuh"
 
 namespace {
 
@@ -79,9 +85,7 @@ constexpr int kRows = kAttnMaxKeys;    // rows of one pack, at most
 constexpr int kWG = kRows / 64;        // warpgroups of 64 rows
 constexpr int kThreads = kWG * 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kQKVCols = 3 * kHD;      // one head's q | k | v: one wgmma width
-constexpr int kTileA = 64 * kSlabRowBytes;        // one warpgroup's A tile
-constexpr int kTileW = kQKVCols * kSlabRowBytes;  // 192 weight rows
+static_assert(3 * kHD == kGemmCols, "one head's q | k | v is one wgmma width");
 constexpr int kPadRows = 16;     // a query or key tile may overhang the pack
 
 __host__ __device__ constexpr int round_up(int v, int m) {
@@ -107,136 +111,6 @@ struct GroupSmem {
   static constexpr int red = cls_e + 4 * kRows;              // float[8][64]
   static constexpr int total = red + 4 * (kThreads / kHD) * kHD + 1024;
 };
-
-// Layer norm of every row of x [M, D], once per row (not once per head):
-// float32 statistics in the E[x^2] - mean^2 form of the JAX package, the
-// normalised row rounded to bf16, as the plain version rounds it. One warp a
-// row; the second pass over the row finds it in L1.
-__global__ void __launch_bounds__(256)
-layernorm_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
-                      const float* __restrict__ ln_b, bf16* __restrict__ y, int M,
-                      int D, float eps) {
-  const int r = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
-  if (r >= M) return;
-  const uint4* row = reinterpret_cast<const uint4*>(x + static_cast<size_t>(r) * D);
-  uint4* out = reinterpret_cast<uint4*>(y + static_cast<size_t>(r) * D);
-  float s = 0.f, ss = 0.f;
-  for (int c = lane; c < D / 8; c += 32) {
-    const uint4 raw = row[c];
-    const __nv_bfloat162* in = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 v = __bfloat1622float2(in[e]);
-      s += v.x + v.y;
-      ss += v.x * v.x + v.y * v.y;
-    }
-  }
-  s = warp_sum(s);
-  ss = warp_sum(ss);
-  const float mean = s / D;
-  const float rstd = rsqrtf(ss / D - mean * mean + eps);
-  for (int c = lane; c < D / 8; c += 32) {
-    uint4 vec = row[c];
-    const __nv_bfloat162* in = reinterpret_cast<const __nv_bfloat162*>(&vec);
-    float sc[8], bi[8];
-    *reinterpret_cast<float4*>(sc) = __ldg(reinterpret_cast<const float4*>(ln_s + c * 8));
-    *reinterpret_cast<float4*>(sc + 4) = __ldg(reinterpret_cast<const float4*>(ln_s + c * 8 + 4));
-    *reinterpret_cast<float4*>(bi) = __ldg(reinterpret_cast<const float4*>(ln_b + c * 8));
-    *reinterpret_cast<float4*>(bi + 4) = __ldg(reinterpret_cast<const float4*>(ln_b + c * 8 + 4));
-    uint4 res;
-    uint32_t* o = reinterpret_cast<uint32_t*>(&res);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 v = __bfloat1622float2(in[e]);
-      o[e] = pack_bf16((v.x - mean) * rstd * sc[2 * e] + bi[2 * e],
-                       (v.y - mean) * rstd * sc[2 * e + 1] + bi[2 * e + 1]);
-    }
-    out[c] = res;
-  }
-}
-
-// One chunk of NT*8 keys for a warp's 16 query rows: S = Q K^T, online
-// softmax, O += P V. k_addr/v_addr: shared-memory addresses of the chunk's
-// first key row (row stride kMmaStride); the first n_valid keys of the chunk
-// are looked at, and of those the query row r (0: lane / 4, 1: eight rows
-// further down) takes the keys lo[r] <= key < hi[r], those of its own group.
-template <int NT>
-__device__ __forceinline__ void attention_chunk(const uint32_t (&qf)[4][4],
-                                                uint32_t k_addr, uint32_t v_addr,
-                                                int n_valid, const int (&lo)[2],
-                                                const int (&hi)[2],
-                                                float (&o)[8][4], float (&m)[2],
-                                                float (&l)[2]) {
-  const int lane = threadIdx.x & 31;
-  float s[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-  const uint32_t k_lane =
-      k_addr + (((lane & 7) + ((lane >> 4) << 3)) * kMmaStride + ((lane >> 3) & 1) * 8) * 2;
-#pragma unroll
-  for (int p = 0; p < NT / 2; ++p) {
-    if (p * 16 < n_valid) {
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t b[4];
-        ldmatrix_x4(b, k_lane + (p * 16 * kMmaStride + kk * 16) * 2);
-        mma_m16n8k16(s[2 * p], qf[kk], b[0], b[1]);
-        mma_m16n8k16(s[2 * p + 1], qf[kk], b[2], b[3]);
-      }
-    }
-  }
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = 8 * j + 2 * (lane & 3) + (e & 1);
-      if (col < lo[e >> 1] || col >= hi[e >> 1]) s[j][e] = -INFINITY;
-      mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-    }
-  float corr[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    const float mn = fmaxf(m[r], mx[r]);  // finite: the CLS chunk came first
-    corr[r] = __expf(m[r] - mn);
-    m[r] = mn;
-    l[r] *= corr[r];
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] *= corr[e >> 1];
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      s[j][e] = __expf(s[j][e] - m[e >> 1]);
-      l[e >> 1] += s[j][e];
-    }
-  const uint32_t v_lane =
-      v_addr + (((lane & 7) + ((lane >> 3) & 1) * 8) * kMmaStride + (lane >> 4) * 8) * 2;
-#pragma unroll
-  for (int kk = 0; kk < NT / 2; ++kk) {
-    if (kk * 16 < n_valid) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dp = 0; dp < 4; ++dp) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, v_lane + (kk * 16 * kMmaStride + dp * 16) * 2);
-        mma_m16n8k16(o[2 * dp], a, b[0], b[1]);
-        mma_m16n8k16(o[2 * dp + 1], a, b[2], b[3]);
-      }
-    }
-  }
-}
 
 __global__ void __launch_bounds__(kThreads, 1)
 group_attention_kernel(
@@ -367,57 +241,9 @@ group_attention_kernel(
   // 4. token queries, 16 consecutive rows of the pack a warp: against the
   //    CLS column, then against the keys of every group the 16 rows touch,
   //    each row masked to its own group
-  for (int t0 = warp * 16; t0 < nrows; t0 += kWarps * 16) {
-    const int k_lo = (t0 / L) * L;
-    const int k_hi = (min(t0 + 15, nrows - 1) / L + 1) * L;
-    int row[2], lo[2], hi[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      row[r] = t0 + (lane >> 2) + 8 * r;
-      lo[r] = (row[r] / L) * L - k_lo;
-      hi[r] = lo[r] + L;
-    }
-    uint32_t qf[4][4];
-    const uint32_t q_lane = smem_u32(q_sm) +
-        ((t0 + (lane & 15)) * kMmaStride + (lane >> 4) * 8) * 2;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) ldmatrix_x4(qf[kk], q_lane + kk * 32);
-    float o[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-    {
-      const int cls_lo[2] = {0, 0}, cls_hi[2] = {1, 1};
-      attention_chunk<2>(qf, smem_u32(ck_sm), smem_u32(cv_sm), 1, cls_lo, cls_hi,
-                         o, m, l);
-    }
-    for (int c0 = 0; c0 < k_hi - k_lo; c0 += 64) {
-      const int clo[2] = {lo[0] - c0, lo[1] - c0}, chi[2] = {hi[0] - c0, hi[1] - c0};
-      const uint32_t k_at = smem_u32(k_sm + (k_lo + c0) * kMmaStride);
-      const uint32_t v_at = smem_u32(v_sm + (k_lo + c0) * kMmaStride);
-      const int left = k_hi - k_lo - c0;
-      if (left <= 16)  // the time axis's two groups, or a long group's tail
-        attention_chunk<2>(qf, k_at, v_at, left, clo, chi, o, m, l);
-      else
-        attention_chunk<8>(qf, k_at, v_at, min(64, left), clo, chi, o, m, l);
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-      if (row[r] < nrows) {
-        bf16* dst = attn + (static_cast<size_t>(b) * N + r0 + row[r]) * D +
-                    h * kHD + 2 * (lane & 3);
-        const float inv = 1.f / l[r];
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          *reinterpret_cast<uint32_t*>(dst + 8 * j) =
-              pack_bf16(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
-      }
-    }
-  }
+  group_attention_rows<false>(
+      q_sm, k_sm, v_sm, ck_sm, cv_sm, nrows, L, warp, kWarps,
+      attn + (static_cast<size_t>(b) * N + r0) * D + h * kHD, D);
 
   // 5. CLS query partials over the pack's rows: scores, max, exponentials,
   //    then the value sum split over T / 64 parts of the rows
@@ -475,133 +301,14 @@ group_attention_kernel(
   }
 }
 
-// y[M, N] = resid + A[M, K] @ W[N, K]^T + bias: a 128 x 192 tile per block,
-// two warpgroups of 64 rows, K in slabs of 64 through a four-stage ring. The
-// tile of the residual is requested first and waits in shared memory for the
-// epilogue, which would otherwise stand behind a round trip to device memory.
-constexpr int kPM = 128, kPN = kQKVCols, kPStages = 4, kPThreads = 256;
-constexpr int kPStage = 2 * kTileA + kTileW;
-constexpr int kPCStride = kPN + 4;  // float32 staging rows, 16-byte aligned
-constexpr int kPResid = kPStages * kPStage;      // after the ring: bf16[128][192]
-constexpr int kPSmem = kPResid + kPM * kPN * 2 + 1024;
-static_assert(kPM * kPCStride * 4 <= kPStages * kPStage, "staging fits the ring");
-
-__global__ void __launch_bounds__(kPThreads, 1)
-proj_residual_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
-                     const float* __restrict__ bias,
-                     const bf16* __restrict__ resid, bf16* __restrict__ y,
-                     int M, int N, int K) {
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  const uint32_t ring = smem_u32(smem);
-  const int n0 = blockIdx.x * kPN, m0 = blockIdx.y * kPM;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, wg = warp >> 2;
-  const int n_slabs = K / kSlabK;
-
-  auto load = [&](int s, int stage) {
-    const uint32_t a_dst = ring + stage * kPStage, w_dst = a_dst + 2 * kTileA;
-    for (int v = tid; v < kPM * 8; v += kPThreads) {
-      const int r = v >> 3, c = v & 7;
-      const bool ok = m0 + r < M;
-      cp_async16(a_dst + (r >> 6) * kTileA + swz128(r & 63, c),
-                 A + static_cast<size_t>(ok ? m0 + r : 0) * K + s * kSlabK + c * 8, ok);
-    }
-    for (int v = tid; v < kPN * 8; v += kPThreads) {
-      const int r = v >> 3, c = v & 7;
-      const bool ok = n0 + r < N;
-      cp_async16(w_dst + swz128(r, c),
-                 W + static_cast<size_t>(ok ? n0 + r : 0) * K + s * kSlabK + c * 8, ok);
-    }
-  };
-
-  // the residual tile rides in the first group of copies
-  for (int v = tid; v < kPM * (kPN / 8); v += kPThreads) {
-    const int r = v / (kPN / 8), c = (v % (kPN / 8)) * 8;
-    const bool ok = m0 + r < M && n0 + c < N;
-    cp_async16(ring + kPResid + (r * kPN + c) * 2,
-               resid + (ok ? static_cast<size_t>(m0 + r) * N + n0 + c : 0), ok);
-  }
-  for (int s = 0; s < kPStages - 1; ++s) {
-    if (s < n_slabs) load(s, s);
-    cp_async_commit();
-  }
-  cp_async_wait<kPStages - 2>();
-  fence_proxy_async();
-  __syncthreads();
-
-  // Entering step s, slab s has landed and slabs s + 1, s + 2 are in flight.
-  // The step starts the product on slab s, makes sure the one on slab s - 1
-  // is done and slab s + 1 has landed, and requests slab s + 3 into the stage
-  // that product has left.
-  float acc[96];
-#pragma unroll
-  for (int i = 0; i < 96; ++i) acc[i] = 0.f;
-  for (int s = 0; s < n_slabs; ++s) {
-    const uint32_t st = ring + (s % kPStages) * kPStage;
-    wgmma_fence();
-    wgmma_slab(acc, st + wg * kTileA, st + 2 * kTileA);
-    wgmma_commit();
-    wgmma_wait<1>();
-    cp_async_wait<kPStages - 3>();
-    fence_proxy_async();
-    __syncthreads();
-    if (s + kPStages - 1 < n_slabs)
-      load(s + kPStages - 1, (s + kPStages - 1) % kPStages);
-    cp_async_commit();
-  }
-  wgmma_wait<0>();
-  wgmma_acc_fence(acc);
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // the sums through shared memory, so that y is written (and the residual
-  // read) as whole 16-byte vectors of a row
-  float* c_sm = reinterpret_cast<float*>(smem);
-  {
-    const int row = wg * 64 + (warp & 3) * 16 + (lane >> 2);
-#pragma unroll
-    for (int j = 0; j < 24; ++j) {
-      const int c = 8 * j + 2 * (lane & 3);
-      *reinterpret_cast<float2*>(c_sm + row * kPCStride + c) =
-          make_float2(acc[4 * j], acc[4 * j + 1]);
-      *reinterpret_cast<float2*>(c_sm + (row + 8) * kPCStride + c) =
-          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
-    }
-  }
-  __syncthreads();
-  for (int v = tid; v < kPM * (kPN / 8); v += kPThreads) {
-    const int r = v / (kPN / 8), c = (v % (kPN / 8)) * 8;
-    if (m0 + r >= M || n0 + c >= N) continue;
-    const uint4 rv = *reinterpret_cast<const uint4*>(smem + kPResid + (r * kPN + c) * 2);
-    const __nv_bfloat162* rin = reinterpret_cast<const __nv_bfloat162*>(&rv);
-    float cs[8], bi[8];
-    *reinterpret_cast<float4*>(cs) = *reinterpret_cast<const float4*>(c_sm + r * kPCStride + c);
-    *reinterpret_cast<float4*>(cs + 4) = *reinterpret_cast<const float4*>(c_sm + r * kPCStride + c + 4);
-    *reinterpret_cast<float4*>(bi) = __ldg(reinterpret_cast<const float4*>(bias + n0 + c));
-    *reinterpret_cast<float4*>(bi + 4) = __ldg(reinterpret_cast<const float4*>(bias + n0 + c + 4));
-    uint4 out;
-    uint32_t* o = reinterpret_cast<uint32_t*>(&out);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 rf = __bfloat1622float2(rin[e]);
-      o[e] = pack_bf16(rf.x + bi[2 * e] + cs[2 * e],
-                       rf.y + bi[2 * e + 1] + cs[2 * e + 1]);
-    }
-    *reinterpret_cast<uint4*>(y + static_cast<size_t>(m0 + r) * N + n0 + c) = out;
-  }
-}
-
 }  // namespace
 
 // y [M, D] = layer norm of x [M, D] (bf16), scale and bias [D] f32.
 extern "C" int vt_layernorm_rows(const void* x, const void* ln_s,
                                  const void* ln_b, void* y, int M, int D,
                                  float eps, void* stream) {
-  if (M <= 0 || D <= 0 || D % 8 != 0) return cudaErrorInvalidValue;
-  layernorm_rows_kernel<<<(M + 7) / 8, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
-      static_cast<const float*>(ln_b), static_cast<bf16*>(y), M, D, eps);
-  return cudaGetLastError();
+  return launch_layernorm_rows(x, ln_s, ln_b, y, M, D, eps,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // x_ln (from vt_layernorm_rows), attn [B', N, D]; wqkv [3D, D] (q|k|v rows);
@@ -635,14 +342,6 @@ extern "C" int vt_group_attention(const void* x_ln, const void* wqkv,
 extern "C" int vt_proj_residual(const void* attn, const void* w,
                                 const void* bias, const void* resid, void* y,
                                 int M, int N, int K, void* stream) {
-  if (N % 8 != 0 || K % kSlabK != 0 || M <= 0) return cudaErrorInvalidValue;
-  static const cudaError_t attr_err = allow_max_smem(proj_residual_kernel);
-  if (attr_err != cudaSuccess) return attr_err;
-  dim3 grid((N + kPN - 1) / kPN, (M + kPM - 1) / kPM);
-  proj_residual_kernel<<<grid, kPThreads, kPSmem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(attn), static_cast<const bf16*>(w),
-      static_cast<const float*>(bias), static_cast<const bf16*>(resid),
-      static_cast<bf16*>(y), M, N, K);
-  return cudaGetLastError();
+  return launch_gemm_bias<kEpiResidual>(attn, w, bias, resid, y, M, N, K,
+                                        static_cast<cudaStream_t>(stream));
 }

@@ -1,155 +1,63 @@
 // Fused MLP sublayer of the MotionFormer encoder:
 //   y = x + fc2(gelu_exact(fc1(layernorm(x))))
-// with the [N, 4D] hidden activation never stored in device memory.
+// x [M, D] bf16 (M = 12,544 token rows, D = 768, hidden Dh = 3,072 at the
+// flagship shapes); LN and the GELU output are rounded to bf16, products,
+// biases and the residual are float32, y is rounded once.
 //
 // Replaces the Pallas kernel vaura_tpu/ops/encoder_fused.py::
 // fused_mlp_sublayer (kernel _mlp_kernel, :348; call :396).
 //
-// Bound on the H100: operations. At the flagship shapes (M = 8*1568 token
-// rows, D=768, Dh=3072) the two products are 4*M*D*Dh = 118 GFLOP against
-// 2*M*D*2 = 38.5 MB of activations plus 9.4 MB of weights.
+// Bound on the H100: operations. The two products are 4*M*D*Dh = 118 GFLOP
+// (0.120 ms at 989 TFLOP/s) against 2*M*D*2 = 38.5 MB of activations plus
+// 9.4 MB of weights.
 //
-// Design:
-//  * one block of 8 warps per 32 token rows. The rows are layer-normed
-//    (float32 statistics, E[x^2]-mean^2 form) into shared memory as bf16.
-//  * the hidden dim is walked in 64-wide slabs: each warp computes one
-//    16x16 tile of gelu(ln @ W1[:, slab] + b1) (nvcuda::wmma bf16, float32
-//    accumulators, exact erff), the slab is staged in shared memory as
-//    bf16, then every warp adds slab @ W2[slab, :] into its 12 accumulator
-//    tiles of the [32, 768] output, which stay in registers for the whole
-//    walk.
-//  * weights are read as wmma fragments straight from global memory (L2
-//    resident: 9.4 MB); each block streams all of W1 and W2 once, so L2
-//    traffic is (M/32) * 9.4 MB. Larger row blocks, TMA-staged weight tiles
-//    and wgmma are the next steps.
-//  * the exact erf replaces the Abramowitz-Stegun form the TPU needed
-//    (encoder_fused.py:331-345).
-#include <mma.h>
-
+// Design: three launches, all from gemm.cuh.
+//   (n) layer norm of every row, once, rounded to bf16 (normalising inside a
+//       product costs the shared-memory pipe more than the launch does);
+//   (1) hidden = gelu(x_ln @ W1^T + b1): the pipelined wgmma GEMM (128 x 192
+//       tile a block, both operands by cp.async into a four-stage swizzled
+//       ring) with bias and the exact erf GELU in its epilogue (the TPU
+//       needed the Abramowitz-Stegun form, encoder_fused.py:331-345);
+//   (2) y = x + hidden @ W2^T + b2: the same GEMM at K = Dh with bias and the
+//       prefetched residual tile in its epilogue.
+// The hidden activation does pass through device memory, which the TPU
+// kernel avoided: 2 * M * Dh bytes written and read back (77 MB: 0.046 ms at
+// 3.35 TB/s, beside products of 0.35 ms). It costs nothing that can be
+// measured: on the NVIDIA H100 80GB HBM3 (700 W) fc2 of 4,224 rows takes
+// 0.049 ms with its hidden rows in L2 and 0.049 ms with them in device
+// memory (chip_smoke.py), and a form that walked the rows in such chunks, so
+// that (2) read from L2 what (1) had just written, took 0.375 ms a call
+// against 0.367 ms. What binds the GEMM at 128 x 192 tiles is the path from
+// L2 to the SMs (40 KB a k-slab a block: 1.5 GB a call).
+// Rows past M are masked by the GEMM.
+//
+// Earlier form (NVIDIA H100 80GB HBM3, 700 W: 2.308 ms a call, 51 TFLOP/s):
+// one launch, 32 rows a block with the hidden slab kept in shared memory,
+// every one of 392 blocks streaming all 9.4 MB of W1 and W2 as wmma
+// fragments straight from device memory inside the product loops (3.7 GB of
+// L2 traffic a call, nothing in flight), two block barriers per 64-wide
+// hidden slab.
 #include "common.cuh"
+#include "gemm.cuh"
 
-using namespace nvcuda;
-
-namespace {
-
-constexpr int kRows = 32;
-constexpr int kSlab = 64;
-constexpr int kWarps = 8;
-constexpr int kD = 768;                  // model width the kernel is built for
-constexpr int kOutTiles = kD / 16 / 4;   // 12 column tiles per warp
-
-struct MlpSmem {
-  size_t a, h, stage, total;
-  __host__ __device__ MlpSmem() {
-    size_t off = 0;
-    a = off;     off += sizeof(bf16) * kRows * (kD + 8);
-    h = off;     off += sizeof(bf16) * kRows * (kSlab + 8);
-    off = (off + 127) / 128 * 128;
-    stage = off; off += sizeof(float) * kWarps * 256;
-    total = off;
-  }
-};
-
-__global__ void __launch_bounds__(kWarps * 32)
-mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
-           const float* __restrict__ ln_b, const bf16* __restrict__ w1,
-           const float* __restrict__ b1, const bf16* __restrict__ w2,
-           const float* __restrict__ b2, bf16* __restrict__ y, int M, int Dh,
-           float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const MlpSmem lay;
-  bf16* a_sm = reinterpret_cast<bf16*>(smem + lay.a);
-  bf16* h_sm = reinterpret_cast<bf16*>(smem + lay.h);
-  float* stage = reinterpret_cast<float*>(smem + lay.stage);
-  constexpr int lda = kD + 8;
-  constexpr int ldh = kSlab + 8;
-
-  const int m0 = blockIdx.x * kRows;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* wst = stage + warp * 256;
-
-  for (int r = warp; r < kRows; r += kWarps)
-    warp_ln_row_to_smem(x + static_cast<size_t>(m0 + r) * kD, m0 + r < M,
-                        ln_s, ln_b, kD, eps, a_sm + r * lda);
-  __syncthreads();
-
-  // hidden tile of this warp: rows ht_r*16, slab columns ht_c*16
-  const int ht_r = warp % 2, ht_c = warp / 2;
-  // output tiles of this warp: rows (warp % 2)*16, columns oc0 + f*16
-  const int oc0 = (warp / 2) * kOutTiles * 16;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kOutTiles];
-#pragma unroll
-  for (int f = 0; f < kOutTiles; ++f) wmma::fill_fragment(acc[f], 0.f);
-
-  for (int s0 = 0; s0 < Dh; s0 += kSlab) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> hacc;
-    wmma::fill_fragment(hacc, 0.f);
-    const bf16* w1t = w1 + static_cast<size_t>(s0 + ht_c * 16) * kD;
-    for (int kk = 0; kk < kD; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fa, a_sm + ht_r * 16 * lda + kk, lda);
-      wmma::load_matrix_sync(fb, w1t + kk, kD);
-      wmma::mma_sync(hacc, fa, fb, hacc);
-    }
-    wmma::store_matrix_sync(wst, hacc, 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int i = lane; i < 256; i += 32) {
-      const int r = i / 16, c = i % 16;
-      const float v = wst[i] + b1[s0 + ht_c * 16 + c];
-      const float g = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-      h_sm[(ht_r * 16 + r) * ldh + ht_c * 16 + c] = __float2bfloat16(g);
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int kk = 0; kk < kSlab; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, h_sm + (warp % 2) * 16 * ldh + kk, ldh);
-#pragma unroll
-      for (int f = 0; f < kOutTiles; ++f) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(
-            fb, w2 + static_cast<size_t>(oc0 + f * 16) * Dh + s0 + kk, Dh);
-        wmma::mma_sync(acc[f], fa, fb, acc[f]);
-      }
-    }
-    __syncthreads();  // h_sm is rewritten by the next slab
-  }
-
-#pragma unroll
-  for (int f = 0; f < kOutTiles; ++f) {
-    wmma::store_matrix_sync(wst, acc[f], 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int i = lane; i < 256; i += 32) {
-      const int r = (warp % 2) * 16 + i / 16, c = oc0 + f * 16 + i % 16;
-      if (m0 + r < M) {
-        const size_t g = static_cast<size_t>(m0 + r) * kD + c;
-        y[g] = __float2bfloat16(to_f(x[g]) + b2[c] + wst[i]);
-      }
-    }
-    __syncwarp();
-  }
-}
-
-}  // namespace
-
-// x, y [M, 768] bf16; w1 [Dh, 768], w2 [768, Dh] (torch Linear layouts);
-// ln_s, ln_b, b2 [768] and b1 [Dh] float32; Dh a multiple of 64.
+// x, y [M, D] bf16; w1 [Dh, D], w2 [D, Dh] (torch Linear layouts); ln_s,
+// ln_b, b2 [D] and b1 [Dh] float32; D and Dh multiples of 64. Scratch: x_ln
+// [M, D] and hidden [M, Dh] bf16. parts: bit 0 the layer norm, bit 1 fc1,
+// bit 2 fc2 (7 for the sublayer; single bits to time one launch on scratch a
+// full call has filled).
 extern "C" int vt_encoder_mlp(const void* x, const void* ln_s, const void* ln_b,
                               const void* w1, const void* b1, const void* w2,
-                              const void* b2, void* y, int M, int D, int Dh,
-                              float eps, void* stream) {
-  if (D != kD || Dh % kSlab != 0 || M <= 0) return cudaErrorInvalidValue;
-  const size_t smem = MlpSmem().total;
-  static const cudaError_t attr_err = allow_max_smem(mlp_kernel);
-  if (attr_err != cudaSuccess) return attr_err;
-  mlp_kernel<<<(M + kRows - 1) / kRows, kWarps * 32, smem,
-               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
-      static_cast<const float*>(ln_b), static_cast<const bf16*>(w1),
-      static_cast<const float*>(b1), static_cast<const bf16*>(w2),
-      static_cast<const float*>(b2), static_cast<bf16*>(y), M, Dh, eps);
-  return cudaGetLastError();
+                              const void* b2, void* x_ln, void* hidden, void* y,
+                              int M, int D, int Dh, float eps, int parts,
+                              void* stream) {
+  if (M <= 0 || D <= 0 || D % kSlabK != 0 || Dh <= 0 || Dh % kSlabK != 0)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaSuccess;
+  if (parts & 1) err = launch_layernorm_rows(x, ln_s, ln_b, x_ln, M, D, eps, st);
+  if (err == cudaSuccess && (parts & 2))
+    err = launch_gemm_bias<kEpiGelu>(x_ln, w1, b1, nullptr, hidden, M, Dh, D, st);
+  if (err == cudaSuccess && (parts & 4))
+    err = launch_gemm_bias<kEpiResidual>(hidden, w2, b2, x, y, M, D, Dh, st);
+  return err;
 }

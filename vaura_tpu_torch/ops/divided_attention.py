@@ -14,8 +14,12 @@ package):
 
 ``q`` is pre-scaled by ``1/sqrt(hd)``. On CUDA tensors
 ``grouped_cls_attention`` launches the kernel of
-``csrc/grouped_cls_attention.cu`` (bf16, head dim 64, L <= 239; anything
-else raises); on CPU tensors it runs ``grouped_cls_attention_plain``.
+``csrc/grouped_cls_attention.cu`` (bf16, head dim 64, L <= 256; anything
+else raises): one kernel for both axes, a block a pack of whole groups, the
+attention on the tensor cores in registers (``csrc/group_attention.cuh``,
+which the fused encoder sublayer runs too); ``grouped_plan`` says how a shape
+is cut into packs and blocks. On CPU tensors it runs
+``grouped_cls_attention_plain``.
 
 Differentiable, as the JAX package's ``custom_vjp`` is: the forward saves
 its five inputs and the backward recomputes through the plain version on
@@ -35,18 +39,51 @@ from vaura_tpu_torch.kernels import build
 launches = 0
 
 KERNEL_HEAD_DIM = 64
-MAX_GROUP_LEN = 239  # longest group whose tiles fit the block's shared memory
+MAX_GROUP_LEN = 256  # longest group: one pack of 256 rows in shared memory
+MAX_WARPS = 8        # warps of one block, at most
+SM_SMEM = 228 * 1024  # shared memory of one SM; a block reserves 1 KB more
+SM_THREADS = 2048
+SM_REGISTERS = 65536
+KERNEL_REGISTERS = 128  # a thread's registers, at most (__launch_bounds__)
 
 
 def pack_rows(L: int) -> int:
-    """Rows per block of the row kernel (groups shorter than 32 keys): whole
-    groups, ``L * max(1, 128 // L)`` (time axis L=8 -> 128 rows, so that four
-    blocks' q/k/v fit an SM's shared memory together)."""
+    """Rows of one block's pack: whole groups, ``L * max(1, 128 // L)``
+    (time axis L=8 -> 128 rows, space axis L=196 -> 196), so that the q/k/v
+    tiles of two blocks fit an SM's shared memory together."""
     return L * max(1, 128 // L)
 
 
+def grouped_plan(N: int, L: int) -> dict:
+    """How the kernel cuts the ``N = G * L`` rows of one ``bh`` (the grid
+    is packs by BH): packs and the rows of the last one, the 16-row query
+    tiles of the longest pack, the warps of a block (one a tile, at most 8),
+    the block's dynamic shared memory (q, k and v tiles of pack rows + 16
+    rows of 144 bytes and the CLS key and value tiles of 16 rows), and the
+    blocks an SM holds by shared memory, threads and registers (the kernel
+    is compiled for two blocks of 8 warps: at most 128 registers a thread).
+    Mirrors ``vt_grouped_cls_attention`` in
+    ``csrc/grouped_cls_attention.cu``."""
+    if not 0 < L <= MAX_GROUP_LEN or N <= 0 or N % L:
+        raise ValueError(f"grouped_plan: N={N}, L={L}: the CUDA kernel takes "
+                         f"whole groups of at most {MAX_GROUP_LEN} rows")
+    rows = pack_rows(L)
+    tiles = -(-min(rows, N) // 16)
+    warps = min(MAX_WARPS, tiles)
+    n_packs = -(-N // rows)
+    smem = (3 * (rows + 16) + 2 * 16) * (KERNEL_HEAD_DIM + 8) * 2
+    return {
+        "rows_per_pack": rows, "n_packs": n_packs,
+        "last_pack_rows": N - (n_packs - 1) * rows, "query_tiles": tiles,
+        "warps": warps, "smem_bytes": smem,
+        "blocks_per_sm": min(SM_SMEM // (smem + 1024),
+                             SM_THREADS // (32 * warps),
+                             SM_REGISTERS // (KERNEL_REGISTERS * 32 * warps)),
+    }
+
+
 _SIG = {
-    "vt_grouped_cls_attention": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+    "vt_grouped_cls_attention": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
     + [ctypes.c_void_p],
 }
 
@@ -90,6 +127,7 @@ def grouped_cls_attention_cuda(q, k, v, cls_k, cls_v):
         raise ValueError(f"grouped_cls_attention: the CUDA kernel takes head "
                          f"dim {KERNEL_HEAD_DIM} and L <= {MAX_GROUP_LEN}, "
                          f"got hd={hd}, L={L}")
+    plan = grouped_plan(G * L, L)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     cls_k, cls_v = cls_k.contiguous(), cls_v.contiguous()
     out = torch.empty_like(q)
@@ -97,7 +135,7 @@ def grouped_cls_attention_cuda(q, k, v, cls_k, cls_v):
     rc = lib.vt_grouped_cls_attention(
         build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(cls_k),
         build.ptr(cls_v), build.ptr(out), BH, G * L, L,
-        pack_rows(L),  # rows of whole groups per block of the row kernel
+        plan["rows_per_pack"], plan["warps"],
         build.stream_ptr(q.device),
     )
     build.check(lib, rc, "grouped_cls_attention")

@@ -20,7 +20,11 @@ attention of every group length on the tensor cores with each query masked
 to its own group and the CLS column, then the CLS partials), and the
 projection GEMM with bias and residual (``wgmma`` from a four-stage
 ``cp.async`` ring). ``attention_plan`` says how a shape is cut into packs
-and blocks. The MLP sublayer launches the kernel of ``csrc/encoder_mlp.cu``.
+and blocks. The MLP sublayer (``csrc/encoder_mlp.cu``) launches the same
+layer norm, then fc1 as that GEMM with bias and the exact GELU in its
+epilogue and fc2 as that GEMM with bias and residual; the hidden activation
+lies in a scratch tensor between the two (``mlp_plan``). The layer norm and
+the GEMM are ``csrc/gemm.cuh``, the group attention ``csrc/group_attention.cuh``.
 On CPU tensors the ``*_plain`` functions compute the same arithmetic in
 plain PyTorch: bf16 operands, float32 products and
 softmax, the same roundings to the compute dtype. The CLS row's q/k/v, the
@@ -41,18 +45,23 @@ import torch
 
 from vaura_tpu_torch.kernels import build
 
-# launches of the CUDA kernels: one per sublayer call on CUDA tensors (the
-# attention sublayer's count covers its three launches: layer norm, group
-# attention and projection)
+# calls of the CUDA paths: one per sublayer call on CUDA tensors. A call of
+# the attention sublayer makes ATTENTION_LAUNCHES_PER_CALL launches (layer
+# norm, group attention, projection), a call of the MLP sublayer
+# MLP_LAUNCHES_PER_CALL (layer norm, fc1, fc2)
 attention_launches = 0
 mlp_launches = 0
 
 MAX_PACK_ROWS = 256  # rows of one pack in the group-attention kernel
 KERNEL_HEAD_DIM = 64
 ATTENTION_LAUNCHES_PER_CALL = 3
+MLP_LAUNCHES_PER_CALL = 3
 RING_STAGES = 3      # k-slabs in flight in the group-attention kernel
 SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may use on Hopper
-KERNEL_MLP_DIM = 768
+SM_COUNT = 132       # streaming multiprocessors of an H100 SXM
+# the GEMM of csrc/gemm.cuh: a 128 x 192 tile a block, K in slabs of 64
+# through a four-stage ring
+GEMM_ROW_TILE, GEMM_COL_TILE, GEMM_K_SLAB, GEMM_STAGES = 128, 192, 64, 4
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -61,7 +70,8 @@ _ATTN_SIG = {
     "vt_group_attention": [_P] * 10 + [_I] * 6 + [_P],
     "vt_proj_residual": [_P] * 5 + [_I] * 3 + [_P],
 }
-_MLP_SIG = {"vt_encoder_mlp": [_P] * 8 + [_I] * 3 + [_F, _P]}
+_MLP_SIG = {"vt_encoder_mlp": [_P] * 10 + [_I] * 3 + [_F, _I, _P]}
+MLP_PARTS = {"layernorm": 1, "fc1": 2, "fc2": 4}  # bits of ``parts``
 
 
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -314,27 +324,66 @@ def _mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, *, eps: float):
     return (x.float() + b2 + h.float() @ w2.float().t()).to(cdt)
 
 
-def _mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, *, eps: float):
+def mlp_plan(M: int, D: int, Dh: int) -> dict:
+    """How the MLP sublayer's three launches cut ``M`` rows of width ``D``
+    and hidden width ``Dh``: the layer norm, then fc1 (a grid of ``Dh / 192``
+    by ``M / 128`` blocks, a tile each) and fc2 (``D / 192`` by ``M / 128``)
+    over a hidden scratch of ``M x Dh``. Waves count a launch's blocks over
+    the card's 132 SMs, rounded up. Shared memory is the GEMM's ring of four
+    k-slabs (128 + 192 rows of 128 bytes), the residual tile for fc2, and the
+    alignment slack. Mirrors ``vt_encoder_mlp`` in ``csrc/encoder_mlp.cu``
+    and ``launch_gemm_bias`` in ``csrc/gemm.cuh``."""
+    if M <= 0 or D <= 0 or Dh <= 0 or D % GEMM_K_SLAB or Dh % GEMM_K_SLAB:
+        raise ValueError(f"mlp_plan: the CUDA kernels take M > 0 and D, hidden "
+                         f"multiples of {GEMM_K_SLAB}, got M={M}, D={D}, "
+                         f"hidden={Dh}")
+    tiles = -(-M // GEMM_ROW_TILE)
+    blocks1 = -(-Dh // GEMM_COL_TILE) * tiles
+    blocks2 = -(-D // GEMM_COL_TILE) * tiles
+    ring = GEMM_STAGES * (GEMM_ROW_TILE + GEMM_COL_TILE) * 2 * GEMM_K_SLAB
+    return {
+        "row_tile": GEMM_ROW_TILE, "col_tile": GEMM_COL_TILE,
+        "launches": MLP_LAUNCHES_PER_CALL,
+        "fc1_blocks": blocks1, "fc2_blocks": blocks2,
+        "fc1_waves": -(-blocks1 // SM_COUNT),
+        "fc2_waves": -(-blocks2 // SM_COUNT),
+        "fc1_smem_bytes": ring + 1024,
+        "fc2_smem_bytes": ring + GEMM_ROW_TILE * GEMM_COL_TILE * 2 + 1024,
+        "scratch_bytes": 2 * M * (D + Dh),
+    }
+
+
+def _mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, *, eps: float,
+              parts: int = 7, scratch=None):
+    """Launch the sublayer's kernels; raises on any input outside their
+    contract. ``parts`` and ``scratch`` (the ``(x_ln, hidden, y)`` of an
+    earlier full call) let a measurement run one kind of launch alone."""
     global mlp_launches
     Bp, N, D = x.shape
     Dh = w1.shape[0]
-    if D != KERNEL_MLP_DIM or Dh % 64:
-        raise ValueError(f"fused_mlp_sublayer: the CUDA kernel takes "
-                         f"D={KERNEL_MLP_DIM} and hidden % 64 == 0, got "
-                         f"D={D}, hidden={Dh}")
+    mlp_plan(Bp * N, D, Dh)  # raises on widths the kernels do not take
     if x.dtype != torch.bfloat16:
         raise ValueError(f"fused_mlp_sublayer: the CUDA kernel takes "
                          f"bfloat16, got {x.dtype}")
+    if not x.is_cuda:
+        raise ValueError("fused_mlp_sublayer: the CUDA kernel takes tensors "
+                         f"on the card, got {x.device}")
     x = x.contiguous()
-    y = torch.empty_like(x)
+    if scratch is None:
+        scratch = (torch.empty_like(x),
+                   torch.empty((Bp * N, Dh), dtype=x.dtype, device=x.device),
+                   torch.empty_like(x))
+    x_ln, hidden, y = scratch
     lib = build.load("encoder_mlp", _MLP_SIG)
     rc = lib.vt_encoder_mlp(
         build.ptr(x), build.ptr(ln_scale), build.ptr(ln_bias), build.ptr(w1),
-        build.ptr(b1), build.ptr(w2), build.ptr(b2), build.ptr(y), Bp * N, D,
-        Dh, float(eps), build.stream_ptr(x.device),
+        build.ptr(b1), build.ptr(w2), build.ptr(b2), build.ptr(x_ln),
+        build.ptr(hidden), build.ptr(y), Bp * N, D, Dh, float(eps), parts,
+        build.stream_ptr(x.device),
     )
     build.check(lib, rc, "encoder_mlp")
-    mlp_launches += 1
+    if parts == 7:
+        mlp_launches += 1
     return y
 
 

@@ -1,18 +1,20 @@
 """Where one block of a hand-written kernel spends its cycles on the card.
 
-    python3 -m vaura_tpu_torch.profile_kernels [encoder] [decode]
+    python3 -m vaura_tpu_torch.profile_kernels [encoder] [decode] [mlp] [grouped]
 
-``nvcc`` builds a copy of ``csrc/encoder_attention.cu`` or
-``csrc/decode_attention.cu`` with ``clock64()`` stamps written by thread 0
-of one block at the phase boundaries named in ``STAMPS`` (each an anchor
-line of the source, which must occur exactly once: ``tests/
-test_torch_profile_kernels.py`` holds that), runs the wrapper at the
-flagship shapes through the stamped library and prints the cycles between
-stamps and, for the encoder sublayer, the kernels' device time by name under
-``torch.profiler`` (of the stamped build: the stamps cost a few stores).
-Decode attention is stamped at four positions with ``pos`` on the host and
-in device memory, the layers' caches cycled so that tiles come from device
-memory; its time per call is ``chip_smoke.py``'s to measure. Needs a CUDA card; builds into ``--out``.
+``nvcc`` builds a copy of a kernel's library in which one file of ``csrc/``
+(the ``.cu`` itself, or the shared header that holds the kernel) carries
+``clock64()`` stamps written by one thread of one block at the phase
+boundaries named in ``STAMPS`` (each an anchor line of that file, which must
+occur exactly once: ``tests/test_torch_profile_kernels.py`` holds that), runs
+the wrapper at the flagship shapes through the stamped library and prints the
+cycles between stamps and, for the encoder sublayers, the kernels' device
+time by name under ``torch.profiler`` (of the stamped build: the stamps cost
+a few stores). Decode attention is stamped at four positions with ``pos`` on
+the host and in device memory, the layers' caches cycled so that tiles come
+from device memory; the MLP sublayer's GEMM once as fc1 and once as fc2; the
+grouped attention on both axes. Times per call are ``chip_smoke.py``'s to
+measure. Needs a CUDA card; builds into ``--out``.
 """
 
 from __future__ import annotations
@@ -27,10 +29,12 @@ from typing import Dict, List, Tuple
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 
-# source -> (condition that picks the stamping thread, [(phase that ENDS at
-# the anchor, anchor line)]); the first anchor starts the clock
-STAMPS: Dict[str, Tuple[str, List[Tuple[str, str]]]] = {
+# library -> (file of csrc/ that is stamped, condition that picks the stamping
+# thread, [(phase that ENDS at the anchor, anchor line)]); the first anchor
+# starts the clock
+STAMPS: Dict[str, Tuple[str, str, List[Tuple[str, str]]]] = {
     "encoder_attention": (
+        "encoder_attention.cu",
         "tid == 0 && blockIdx.x == 1 && blockIdx.y == 0 && blockIdx.z == 0",
         [
             ("start", "  // 1. the first two slabs are on their way while the CLS"),
@@ -44,6 +48,7 @@ STAMPS: Dict[str, Tuple[str, List[Tuple[str, str]]]] = {
         ],
     ),
     "decode_attention": (
+        "decode_attention.cu",
         "tid == 0 && blockIdx.x == 0 && blockIdx.y == 0",
         [
             ("start", "  // pos and the block's query heads (scaled, in float32) are requested"),
@@ -57,6 +62,31 @@ STAMPS: Dict[str, Tuple[str, List[Tuple[str, str]]]] = {
             ("(rank 0 stays)", "  // rank 0: merge the blocks that had a tile"),
         ],
     ),
+    # the GEMM of both products; a block in the middle of the grid
+    "encoder_mlp": (
+        "gemm.cuh",
+        "tid == 0 && blockIdx.x == gridDim.x - 1 && blockIdx.y == gridDim.y / 2",
+        [
+            ("start", "  // gemm 1. the residual tile rides in the first group of copies"),
+            ("residual tile and three slabs requested, first slab landed",
+             "  // gemm 2. Entering step s, slab s has landed"),
+            ("product (K / 64 slabs)", "  // gemm 3. the sums through shared memory"),
+            ("sums to shared memory", "  // gemm 4. bias and the epilogue's function"),
+            ("bias, GELU or residual, stores", "  // gemm 5. done"),
+        ],
+    ),
+    "grouped_cls_attention": (
+        "grouped_cls_attention.cu",
+        "tid == 0 && blockIdx.x == 1 && blockIdx.y == 0",
+        [
+            ("start", "  // 1. the pack's q, k and v rows are requested;"),
+            ("q, k, v requested (the warp stands while the memory system is "
+             "busy), CLS tiles", "  // 2. everything has landed"),
+            ("the last copies landed, block barrier",
+             "  // 3. attention, 16 consecutive rows a warp"),
+            ("attention of warp 0's tiles, stores", "  // 4. done"),
+        ],
+    ),
 }
 
 _PROLOGUE = (
@@ -67,16 +97,16 @@ _PROLOGUE = (
 
 
 def stamped_source(name: str) -> str:
-    """The source of ``csrc/<name>.cu`` with the stamps of ``STAMPS`` in."""
-    with open(os.path.join(CSRC, f"{name}.cu")) as f:
+    """The file of ``csrc/`` that ``STAMPS[name]`` names, with the stamps in."""
+    fname, who, stamps = STAMPS[name]
+    with open(os.path.join(CSRC, fname)) as f:
         src = f.read()
-    who, stamps = STAMPS[name]
     if src.count("namespace {\n") != 1:
-        raise ValueError(f"{name}: expected one anonymous namespace")
+        raise ValueError(f"{fname}: expected one anonymous namespace")
     src = src.replace("namespace {\n", _PROLOGUE + "namespace {\n")
     for k, (_, anchor) in enumerate(stamps):
         if src.count(anchor) != 1:
-            raise ValueError(f"{name}: anchor occurs {src.count(anchor)} "
+            raise ValueError(f"{fname}: anchor occurs {src.count(anchor)} "
                              f"times: {anchor!r}")
         indent = anchor[:len(anchor) - len(anchor.lstrip(" "))]
         src = src.replace(
@@ -85,14 +115,16 @@ def stamped_source(name: str) -> str:
 
 
 def build_stamped(name: str, signatures, out_dir: str) -> ctypes.CDLL:
+    """Copy ``csrc/`` into ``out_dir/<name>``, stamp the one file, build the
+    library ``name`` there and make the wrappers launch it."""
     from vaura_tpu_torch.kernels import build
 
-    os.makedirs(out_dir, exist_ok=True)
-    shutil.copy(os.path.join(CSRC, "common.cuh"), out_dir)
-    cu, so = (os.path.join(out_dir, f"{name}_stamped.{e}") for e in ("cu", "so"))
-    with open(cu, "w") as f:
+    src_dir = os.path.join(out_dir, name)
+    shutil.copytree(CSRC, src_dir, dirs_exist_ok=True)
+    with open(os.path.join(src_dir, STAMPS[name][0]), "w") as f:
         f.write(stamped_source(name))
-    done = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, f"-I{out_dir}",
+    cu, so = os.path.join(src_dir, f"{name}.cu"), os.path.join(src_dir, f"{name}.so")
+    done = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, f"-I{src_dir}",
                            "-o", so, cu], capture_output=True, text=True)
     if done.returncode:
         raise RuntimeError(done.stdout[-3000:] + done.stderr[-3000:])
@@ -110,7 +142,7 @@ def build_stamped(name: str, signatures, out_dir: str) -> ctypes.CDLL:
 def read_stamps(lib, name: str) -> str:
     buf = (ctypes.c_longlong * 32)()
     lib.vt_read_prof(buf)
-    stamps = STAMPS[name][1]
+    stamps = STAMPS[name][2]
     parts = [f"{stamps[k + 1][0]} {buf[k + 1] - buf[k]}"
              for k in range(len(stamps) - 1)]
     return "; ".join(parts) + f"; all {buf[len(stamps) - 1] - buf[0]}"
@@ -169,9 +201,63 @@ def profile_decode(gen, out_dir: str) -> None:
                   "rank 0 of one cluster: " + read_stamps(lib, "decode_attention"))
 
 
+def profile_mlp(gen, out_dir: str) -> None:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vaura_tpu_torch.ops import encoder_fused as ef
+
+    lib = build_stamped("encoder_mlp", ef._MLP_SIG, out_dir)
+    Bp, N, D, Dh = 8, 1568, 768, 3072
+    bf = torch.bfloat16
+    f32 = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    args = (f32(Bp, N, D).to(bf), 1.0 + 0.1 * f32(D), 0.1 * f32(D),
+            (f32(Dh, D) * D ** -0.5).to(bf), 0.02 * f32(Dh),
+            (f32(D, Dh) * Dh ** -0.5).to(bf), 0.02 * f32(D))
+    plan = ef.mlp_plan(Bp * N, D, Dh)
+    print(f"[encoder_mlp] {plan}")
+    scratch = (torch.empty_like(args[0]),
+               torch.empty(Bp * N, Dh, dtype=bf, device="cuda"),
+               torch.empty_like(args[0]))
+    ef._mlp_cuda(*args, eps=1e-6, scratch=scratch)
+    for part in ("fc1", "fc2"):  # both are the stamped kernel: one at a time
+        for _ in range(3):
+            ef._mlp_cuda(*args, eps=1e-6, parts=ef.MLP_PARTS[part], scratch=scratch)
+        torch.cuda.synchronize()
+        print(f"[encoder_mlp] {part}, cycles of one block: "
+              + read_stamps(lib, "encoder_mlp"))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            ef.fused_mlp_sublayer(*args, eps=1e-6)
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        if "_kernel" in e.key and "at::" not in e.key:
+            print(f"    {e.key[:72]:72s} {e.device_time_total / e.count:8.1f} us "
+                  f"x {e.count // 10} a call")
+
+
+def profile_grouped(gen, out_dir: str) -> None:
+    import torch
+
+    from vaura_tpu_torch.ops import divided_attention as ga
+
+    lib = build_stamped("grouped_cls_attention", ga._SIG, out_dir)
+    BH, hd = 96, 64
+    rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda").bfloat16()
+    for axis, G, L in (("time", 196, 8), ("space", 8, 196)):
+        args = (rnd(BH, G, L, hd) * hd ** -0.5, rnd(BH, G, L, hd),
+                rnd(BH, G, L, hd), rnd(BH, 1, hd), rnd(BH, 1, hd))
+        for _ in range(3):
+            ga.grouped_cls_attention_cuda(*args)
+        torch.cuda.synchronize()
+        print(f"[grouped_cls_attention] {axis} axis {ga.grouped_plan(G * L, L)}, "
+              "cycles of one block: " + read_stamps(lib, "grouped_cls_attention"))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("which", nargs="*", default=["encoder", "decode"])
+    ap.add_argument("which", nargs="*",
+                    default=["encoder", "decode", "mlp", "grouped"])
     ap.add_argument("--out", default=os.path.join("chiprun_out", "profile_kernels"))
     args = ap.parse_args()
     import torch
@@ -183,10 +269,10 @@ def main() -> int:
 
     print(f"{torch.cuda.get_device_name(0)} ({nvidia_smi()})")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    if "encoder" in args.which:
-        profile_encoder(gen, args.out)
-    if "decode" in args.which:
-        profile_decode(gen, args.out)
+    for which, fn in (("encoder", profile_encoder), ("decode", profile_decode),
+                      ("mlp", profile_mlp), ("grouped", profile_grouped)):
+        if which in args.which:
+            fn(gen, args.out)
     return 0
 
 
