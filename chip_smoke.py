@@ -16,26 +16,38 @@ result line):
              attention (one launch: the tiles of a cache are the blocks of a
              thread-block cluster) is held with ``pos`` on the host and in
              device memory, with GQA and on a 1,024-position cache, and
-             timed beside an empty kernel of the same launch; the encoder
-             attention sublayer (three launches: row statistics, group
-             attention, projection) also at B' = 2 and on ragged packs; the
-             MLP sublayer (three launches: layer norm, fc1, fc2) also on
-             ragged row counts, with each launch timed alone; the grouped
-             attention (one kernel for both axes) also at group lengths
-             around its tile edges;
+             timed beside an empty kernel of the same launch; its int8
+             instantiation (int8 cache, per-(position, head) scales) the
+             same way over positions 0..228, timed at B2 = 4 and at a
+             serving B2 = 256 beside the bf16 kernel on the same values; the
+             encoder attention sublayer (three launches: row statistics,
+             group attention, projection) also at B' = 2 and on ragged
+             packs; the MLP sublayer (three launches: layer norm, fc1, fc2)
+             also on ragged row counts, with each launch timed alone; the
+             grouped attention (one kernel for both axes) also at group
+             lengths around its tile edges;
   3. main    the flagship path end to end through ``VauraSystem.generate``:
              frames [2, 4, 3, 16, 224, 224] -> MotionFormer -> CFG 6.0,
              top-k 128 decode of 221 tokens -> DAC -> audio [2, 1, 113152],
              seeded random weights made on the card; every kernel's launch
              counter is zeroed just before and read just after;
-  4. train   the flagship training configuration (float32 parameters,
+  4. int8    the same with the int8 KV cache (the serving default): every
+             decode step through the int8 instantiation;
+  5. train   the flagship training configuration (float32 parameters,
              bf16 compute, unfrozen encoder, batch 2, audio through the DAC
              encoder): three ``train_step``s and one ``eval_step``, with
              every launch counter zeroed just before and read after each
              step, and the time of forward, backward and optimizer;
-  5. reference  the same modules at flagship widths, cut depth, on a small
+  6. long    5.12 s (441 tokens) from frames [2, 8, 3, 16, 224, 224]:
+             ``generate_long`` (stride 55: the carried prompts go through
+             ``prefill``), ``generate_long_kv`` (window 4 x 56: chunks
+             drop) and ``generate_long_kv_stream``, whose increments must
+             concatenate to the one-shot run of the same seed; counters per
+             run;
+  7. reference  the same modules at flagship widths, cut depth, on a small
              input: the card (kernels) against the CPU (plain versions),
-             for generation and for the training loss and its gradients.
+             for generation (bf16 and int8 caches, ``prefill``) and for the
+             training loss and its gradients.
 
 It prints the kernels JSON line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``. Details go to
@@ -240,6 +252,129 @@ def check_decode_attention(gen):
         "launches_per_call": 1,
         "shape": f"B2={B} H={H} hd={hd} S={S}, mean over pos 0..{S - 2}, pos "
                  "read from device memory",
+    }
+
+
+def check_decode_attention_int8(gen):
+    """The int8 instantiation of the decode-attention kernel (int8 K/V
+    tiles, per-(position, KV head) float32 scales, the current position's
+    K/V bf16) against its plain version at the flagship shapes over
+    positions 0..228 with ``pos`` on the host and in device memory, with GQA
+    and at S = 1,024; timed over the main path's positions at B2 = 4 (the
+    flagship batch 2 with CFG) and at a serving batch B2 = 256, beside the
+    bf16 kernel on the same values and the byte bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from vaura_tpu_torch.ops import decode_attention as da
+    from vaura_tpu_torch.ops.quantization import quantize_kv
+
+    H, hd, S, L = 16, 96, 230, 24
+    dev, bf = "cuda", torch.bfloat16
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev, dtype=bf)
+
+    def cache(*shape):
+        """Quantized K or V of bf16 values: (int8, scales, the bf16 values),
+        quantized a slice of the first axis at a time (the float32
+        temporaries of a whole serving cache would take tens of GB)."""
+        x = rnd(*shape)
+        parts = [quantize_kv(t) for t in x.unbind(0)]
+        return (torch.stack([p[0] for p in parts]),
+                torch.stack([p[1] for p in parts]), x)
+
+    def hold(tag, q, k, v, kcur, vcur, positions):
+        (kq, ks, _), (vq, vs, _) = k, v
+        pos_t = torch.arange(kq.shape[1] + 1, dtype=torch.int32, device=dev)
+        worst = 0.0
+        for pos in positions:
+            want = da.decode_attention_plain(q, kq, vq, kcur, vcur, pos, ks, vs)
+            got = da.decode_attention(q, kq, vq, kcur, vcur, pos, ks, vs)
+            got_t = da.decode_attention(q, kq, vq, kcur, vcur,
+                                        pos_t[pos:pos + 1], ks, vs)
+            torch.cuda.synchronize()
+            if not torch.equal(got, got_t):
+                raise AssertionError(f"{tag} pos={pos}: pos on the host and "
+                                     "in device memory give different outputs")
+            worst = max(worst, max_err(got, want))
+        log(f"[decode_attention_int8] {tag} positions {positions[0]}.."
+            f"{positions[-1]} ({len(positions)}): max_abs_err={worst:.3e}")
+        return worst
+
+    B = 4
+    q, kcur, vcur = rnd(B, H, hd), rnd(B, H, hd), rnd(B, H, hd)
+    err = hold("flagship", q, cache(B, S, H, hd), cache(B, S, H, hd), kcur,
+               vcur, list(range(S - 1)) + [S])
+    Hkv = H // 4
+    err = max(err, hold(f"GQA H_kv={Hkv}", q, cache(B, S, Hkv, hd),
+                        cache(B, S, Hkv, hd), rnd(B, Hkv, hd), rnd(B, Hkv, hd),
+                        [0, 1, 63, 64, 65, 128, 228, 229]))
+    err = max(err, hold("S=1024", q[:2], cache(2, 1024, H, hd),
+                        cache(2, 1024, H, hd), kcur[:2], vcur[:2],
+                        [0, 64, 511, 512, 513, 1000, 1024]))
+
+    positions = list(range(S - 1))
+    n = len(positions)
+    pos_t = torch.arange(S, dtype=torch.int32, device=dev)
+
+    def timings(B2, with_plain):
+        """ms per call over the main path's positions (layers cycled over L
+        caches so that a sweep streams from device memory): the int8 kernel,
+        the bf16 kernel on the same values, SDPA on them, and the bound."""
+        qb, k1, v1 = rnd(B2, H, hd), rnd(B2, H, hd), rnd(B2, H, hd)
+        k8, ks, kb = cache(L, B2, S, H, hd)
+        v8, vs, vb = cache(L, B2, S, H, hd)
+
+        def sweep(fn):
+            def run():
+                for p in positions:
+                    fn(p % L, p)
+            return run
+
+        int8 = lambda i, p: da.decode_attention_cuda(
+            qb, k8[i], v8[i], k1, v1, pos_t[p:p + 1], ks[i], vs[i])
+        bf16 = lambda i, p: da.decode_attention_cuda(
+            qb, kb[i], vb[i], k1, v1, pos_t[p:p + 1])
+        plain = lambda i, p: da.decode_attention_plain(
+            qb, k8[i], v8[i], k1, v1, p, ks[i], vs[i])
+        sdpa = lambda i, p: F.scaled_dot_product_attention(
+            qb[:, :, None], kb[i][:, :p + 1].transpose(1, 2),
+            vb[i][:, :p + 1].transpose(1, 2))
+        empty = lambda i, p: da.empty_launch(B2, H, H, S, hd, 0, True, dev,
+                                             int8=True)
+        out = {"ms": cuda_ms(sweep(int8), 20) / n,
+               "bf16_ms": cuda_ms(sweep(bf16), 20) / n,
+               "sdpa_bf16_ms": cuda_ms(sweep(sdpa), 20) / n,
+               "empty_launch_ms": cuda_ms(sweep(empty), 20) / n}
+        if with_plain:
+            out["plain_ms"] = cuda_ms(sweep(plain), 3) / n
+        io = (2 * B2 * H * hd + 2 * B2 * H * hd) * 2  # q, k/v_cur in, out
+        out["bound_ms"] = sum(
+            (io + 2 * B2 * p * H * (hd + 4)) / HBM_BYTES_PER_S
+            for p in positions) / n * 1e3
+        out["bf16_bound_ms"] = sum(
+            (io + 2 * B2 * p * H * hd * 2) / HBM_BYTES_PER_S
+            for p in positions) / n * 1e3
+        del k8, v8, kb, vb, ks, vs
+        torch.cuda.empty_cache()
+        return out
+
+    small, serving = timings(B, True), timings(256, False)
+    for tag, t in (("B2=4", small), ("B2=256", serving)):
+        log(f"[decode_attention_int8] {tag} ms per call: int8 {t['ms']:.5f}, "
+            f"bf16 kernel {t['bf16_ms']:.5f}, SDPA on the bf16 values "
+            f"{t['sdpa_bf16_ms']:.5f}, an empty launch {t['empty_launch_ms']:.5f}; "
+            f"bound int8 {t['bound_ms']:.5f}, bf16 {t['bf16_bound_ms']:.5f}")
+    return {
+        "name": "decode_attention_int8", "route": "cuda",
+        "source": "vaura_tpu_torch/csrc/decode_attention.cu",
+        # no Pallas kernel: the JAX package's int8 cache is einsums
+        "replaces": "vaura_tpu/models/sampler.py:296",
+        "max_abs_err": err, "tol": TOL_DECODE, "ms": small["ms"],
+        "plain_ms": small["plain_ms"], "bound_ms": small["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "b2_4": small, "b2_256": serving,
+        "shape": f"B2=4 (and 256) H={H} hd={hd} S={S} int8 cache, mean over "
+                 f"pos 0..{S - 2}, pos read from device memory",
     }
 
 
@@ -567,7 +702,8 @@ def _counters():
     from vaura_tpu_torch.ops import divided_attention as ga
     from vaura_tpu_torch.ops import encoder_fused as ef
 
-    return {"decode_attention": da.launches,
+    return {"decode_attention": da.launches - da.int8_launches,
+            "decode_attention_int8": da.int8_launches,
             "encoder_attention": ef.attention_launches,
             "encoder_mlp": ef.mlp_launches,
             "grouped_cls_attention": ga.launches}
@@ -579,7 +715,7 @@ def _zero_counters():
     from vaura_tpu_torch.ops import encoder_fused as ef
 
     da.launches = ef.attention_launches = ef.mlp_launches = ga.launches = 0
-    da.device_pos_launches = 0
+    da.device_pos_launches = da.int8_launches = 0
 
 
 def phase_main(gen, report):
@@ -605,6 +741,7 @@ def phase_main(gen, report):
     from vaura_tpu_torch.ops import decode_attention as da
     device_pos = da.device_pos_launches
     expected["grouped_cls_attention"] = 0  # inference takes the fused blocks
+    expected["decode_attention_int8"] = 0
     codes, audio = out["codes"], out["audio"]
     report["main"] = {
         "wall_s": wall, "stage_ms": out["stage_ms"], "launches": launches,
@@ -639,6 +776,199 @@ def phase_main(gen, report):
     if problems:
         raise AssertionError("; ".join(problems))
     return launches
+
+
+def _check_generation(tag, out, codes_shape, problems):
+    """Codes of ``codes_shape`` in [0, 1024] and finite audio of as many
+    samples as codes times the hop."""
+    import torch
+
+    codes, audio = out["codes"], out["audio"]
+    log(f"[{tag}] codes {tuple(codes.shape)} in [{int(codes.min())}, "
+        f"{int(codes.max())}], audio {tuple(audio.shape)} rms "
+        f"{float(audio.float().pow(2).mean().sqrt()):.4f}")
+    if tuple(codes.shape) != codes_shape:
+        problems.append(f"{tag}: codes shape {tuple(codes.shape)}")
+    if int(codes.min()) < 0 or int(codes.max()) > 1024:
+        problems.append(f"{tag}: codes outside [0, 1024]")
+    if tuple(audio.shape) != (codes_shape[0], 1, codes_shape[2] * 512):
+        problems.append(f"{tag}: audio shape {tuple(audio.shape)}")
+    if not bool(torch.isfinite(audio).all()):
+        problems.append(f"{tag}: audio not finite")
+
+
+def phase_int8(gen, report):
+    """The flagship generation with the int8 KV cache (bf16 weights, the
+    JAX package's serving default): every decode step of every layer through
+    the kernel's int8 instantiation, ``pos`` from device memory."""
+    import torch
+
+    from vaura_tpu_torch.flagship import GENERATE_KW, flagship_system, random_frames
+    from vaura_tpu_torch.ops import decode_attention as da
+
+    system = flagship_system("cuda", gen,
+                             sampler_overrides={"quantize_cache": True})
+    frames = random_frames(2, gen, "cuda")
+    n_steps = system.prepare_generation(GENERATE_KW["max_new_tokens"])[2] - 1
+    depth = system.encoder.cfg.depth
+    expected = {"decode_attention": 0,
+                "decode_attention_int8": system.sampler_config.num_layers * n_steps,
+                "encoder_attention": 2 * depth, "encoder_mlp": depth,
+                "grouped_cls_attention": 0}
+    torch.cuda.synchronize()
+    _zero_counters()
+    t0 = time.time()
+    out = system.generate(frames, seed=0, **GENERATE_KW)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches, device_pos = _counters(), da.device_pos_launches
+    report["int8"] = {"wall_s": wall, "stage_ms": out["stage_ms"],
+                      "launches": launches, "expected_launches": expected,
+                      "decode_attention_device_pos_launches": device_pos}
+    log(f"[int8] wall {wall:.2f} s, stages (ms): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in out["stage_ms"].items()))
+    log(f"[int8] launches {launches} expected {expected}; with pos in device "
+        f"memory: {device_pos}")
+    problems = []
+    _check_generation("int8", out, (2, 9, 221), problems)
+    if launches != expected:
+        problems.append(f"launches {launches}, expected {expected}")
+    if device_pos != expected["decode_attention_int8"]:
+        problems.append(f"{device_pos} decode launches took pos from device "
+                        "memory, expected all")
+    del system
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return launches
+
+
+def phase_long(gen, report):
+    """5.12 s (441 tokens) from frames [2, 8, 3, 16, 224, 224] at flagship
+    width: ``generate_long`` at a stride of 55 tokens (chunks of 221 whose
+    166-token prompts go through ``prefill``), ``generate_long_kv`` with a
+    window of 4 x 56 steps (chunks drop), and ``generate_long_kv_stream``
+    under the seed of that run, whose increments must concatenate to it
+    (the DAC in float32 for that comparison). Counters zeroed before and
+    read after each run."""
+    import torch
+
+    from vaura_tpu_torch.flagship import (
+        GENERATE_KW,
+        LONG_KV_KW,
+        LONG_SAMPLER,
+        flagship_system,
+        random_frames,
+    )
+    from vaura_tpu_torch.ops import decode_attention as da
+
+    torch.cuda.empty_cache()
+    system = flagship_system("cuda", gen, sampler_overrides=LONG_SAMPLER)
+    frames = random_frames(2, gen, "cuda", segments=8)
+    total, stride, max_tokens = 441, 55, 221
+    L, depth = system.sampler_config.num_layers, system.encoder.cfg.depth
+    sampling = {k: GENERATE_KW[k] for k in ("cfg_scale", "top_k",
+                                            "tokens_per_frame")}
+    problems, res = [], {}
+
+    # decode steps of generate_long: a chunk of n tokens has S = n + 9
+    # steps; the first starts at step 1, the others at the step of the
+    # prompt's first timestep to generate (+ 1 for the BOS row)
+    sizes = system.long_chunk_schedule(total, stride, max_tokens)
+    steps, prompt = 0, 0
+    for n_new in sizes:
+        S = system.prepare_generation(n_new + prompt)[2]
+        steps += S - (1 if prompt == 0 else prompt + 1)
+        prompt = max(0, n_new + prompt - stride)
+    encoder_launches = {"encoder_attention": 2 * depth, "encoder_mlp": depth,
+                        "grouped_cls_attention": 0,
+                        "decode_attention_int8": 0}
+
+    def drive(tag, fn, expect_decode, **kw):
+        torch.cuda.synchronize()
+        _zero_counters()
+        t0 = time.time()
+        out = fn(frames, **sampling, **kw)
+        if not isinstance(out, dict):
+            out = list(out)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = _counters()
+        want = dict(encoder_launches, decode_attention=expect_decode)
+        res[tag] = {"wall_s": wall, "launches": launches,
+                    "expected_launches": want,
+                    "device_pos_launches": da.device_pos_launches}
+        if isinstance(out, dict):
+            res[tag]["stage_ms"] = out["stage_ms"]
+        log(f"[long] {tag}: wall {wall:.2f} s, launches {launches}")
+        if launches != want:
+            problems.append(f"{tag}: launches {launches}, expected {want}")
+        if da.device_pos_launches != expect_decode:
+            problems.append(f"{tag}: {da.device_pos_launches} decode launches "
+                            "took pos from device memory")
+        return out
+
+    # one prefill of a chunk (B2 = 4 with CFG, 230 positions), warm: its
+    # time between two events and on the host's clock
+    toks = torch.randint(0, 1024, (4, 9, 230), generator=gen, device="cuda")
+    cond = torch.randn(4, 230, system.sampler_config.cond_dim, generator=gen,
+                       device="cuda", dtype=torch.bfloat16)
+    system.sampler.prefill(toks, cond)
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    t0 = time.time()
+    ev[0].record()
+    system.sampler.prefill(toks, cond)
+    ev[1].record()
+    torch.cuda.synchronize()
+    res["prefill"] = {"ms": ev[0].elapsed_time(ev[1]),
+                      "wall_ms": (time.time() - t0) * 1e3}
+    log(f"[long] one prefill of 230 positions at B2=4: {res['prefill']}")
+    del toks, cond
+
+    out = drive("generate_long", system.generate_long, L * steps, seed=0,
+                total_tokens=total, stride_tokens=stride,
+                model_max_tokens=max_tokens)
+    _check_generation("long generate_long", out, (2, 9, total), problems)
+    del out
+
+    S_kv = system.prepare_generation(total)[2]
+    kv = dict(LONG_KV_KW, total_tokens=total, seed=1)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        one = drive("generate_long_kv", system.generate_long_kv,
+                    L * (S_kv - 1), **kv)
+        chunks = drive("generate_long_kv_stream",
+                       system.generate_long_kv_stream, L * (S_kv - 1), **kv)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    _check_generation("long generate_long_kv", one, (2, 9, total), problems)
+    codes = torch.cat([c["codes"] for c in chunks], dim=-1)
+    audio = torch.cat([c["audio"] for c in chunks], dim=-1)
+    want = one["audio"].reshape(audio.shape[0], -1)
+    starts_ok, n = True, 0
+    for c in chunks:
+        starts_ok &= c["token_start"] * 512 == n
+        n += c["audio"].shape[-1]
+    same_codes = torch.equal(codes, one["codes"])
+    rel = (float((audio - want).pow(2).mean().sqrt() / want.pow(2).mean().sqrt())
+           if audio.shape == want.shape else float("inf"))
+    res["stream"] = {"increments": len(chunks), "codes_equal": same_codes,
+                     "audio_rel_rms": rel, "token_starts_line_up": starts_ok,
+                     "audio_max_abs": max_err(audio, want)
+                     if audio.shape == want.shape else None}
+    log(f"[long] stream: {len(chunks)} increments, codes equal {same_codes}, "
+        f"audio rel rms {rel:.3e} (tol {TOL_REF_AUDIO}), token_start lines up "
+        f"{starts_ok}")
+    if not (same_codes and rel <= TOL_REF_AUDIO and starts_ok
+            and len(chunks) >= 2):
+        problems.append(f"stream against one-shot: {res['stream']}")
+    report["long"] = res
+    del system, one, chunks
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("; ".join(problems))
 
 
 def phase_train(gen, report):
@@ -687,7 +1017,8 @@ def phase_train(gen, report):
             f"ms (forward {ms['forward']:.1f}, backward {ms['backward']:.1f}, "
             f"optimizer {ms['optimizer']:.1f}) launches {seen}")
         want = {"grouped_cls_attention": 2 * depth, "encoder_attention": 0,
-                "encoder_mlp": 0, "decode_attention": 0}
+                "encoder_mlp": 0, "decode_attention": 0,
+                "decode_attention_int8": 0}
         if seen != want:
             problems.append(f"step {i}: launches {seen}, expected {want}")
         for k, n in seen.items():
@@ -799,6 +1130,45 @@ def _reference_train(gen, res):
         raise AssertionError(f"card and CPU disagree in training: {res}")
 
 
+def _reference_int8(gen, res):
+    """The int8 cache at flagship widths and cut depth, card against CPU:
+    ``prefill`` over 80 positions of a prompt (the card runs its plain
+    PyTorch attention, as the JAX package runs einsums), then decode steps
+    at positions 70..79 over the int8 cache it made (the card through the
+    kernel's int8 instantiation, the CPU through the plain version)."""
+    import torch
+
+    from vaura_tpu_torch.flagship import flagship_system
+
+    kw = dict(sampler_layers=2, encoder_depth=1,
+              sampler_overrides={"quantize_cache": True})
+    card = flagship_system("cuda", gen, **kw)
+    cpu = flagship_system("cpu", **kw)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    cfg = card.sampler_config
+    T, P, B2 = 80, 70, 2
+    toks = torch.randint(0, cfg.d_codebook, (B2, cfg.num_codebooks, T),
+                         generator=gen, device="cuda")
+    cond = torch.randn(B2, T, cfg.cond_dim, generator=gen, device="cuda",
+                       dtype=cfg.dtype)
+    rel = lambda a, b: max_err(a.cpu(), b) / float(b.float().abs().max())
+    la, ca = card.sampler.prefill(toks, cond)
+    lb, cb = cpu.sampler.prefill(toks.cpu(), cond.cpu())
+    res["prefill_logits"] = rel(la, lb)
+    worst = 0.0
+    for pos in range(P, T):
+        a = card.sampler.decode_step(toks[:, :, pos:pos + 1],
+                                     cond[:, pos:pos + 1], ca, pos)
+        b = cpu.sampler.decode_step(toks[:, :, pos:pos + 1].cpu(),
+                                    cond[:, pos:pos + 1].cpu(), cb, pos)
+        worst = max(worst, rel(a, b))
+    res["int8_logits"] = worst
+    log(f"[reference] prefill logits rel err {res['prefill_logits']:.3e}, "
+        f"int8-cache decode logits rel err {worst:.3e} (tol {TOL_REF_REL})")
+    if not (res["prefill_logits"] <= TOL_REF_REL and worst <= TOL_REF_REL):
+        raise AssertionError(f"card and CPU disagree on the int8 cache: {res}")
+
+
 def phase_reference(gen, report):
     """Flagship widths, 2 sampler layers and 1 encoder block, one segment:
     the card (kernels) against the CPU (plain versions), same weights."""
@@ -863,6 +1233,7 @@ def phase_reference(gen, report):
         raise AssertionError(f"card and CPU disagree: {res}")
     del card, cpu
     _reference_train(gen, res)
+    _reference_int8(gen, res)
 
 
 # ---------------------------------------------------------------------------
@@ -903,8 +1274,9 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     run("build", phase_build, report)
     kernels = []
-    checks = (check_decode_attention, check_encoder_attention,
-              check_encoder_mlp, check_grouped_cls_attention)
+    checks = (check_decode_attention, check_decode_attention_int8,
+              check_encoder_attention, check_encoder_mlp,
+              check_grouped_cls_attention)
     for check in checks:
         entry = run(check.__name__, check, gen)
         if entry is None:
@@ -916,15 +1288,21 @@ def main() -> int:
         if not entry["max_abs_err"] <= entry["tol"]:
             failed.append(f"{entry['name']} tolerance")
     launches = run("main", phase_main, gen, report) or {}
+    int8_launches = run("int8", phase_int8, gen, report) or {}
     train_launches = run("train", phase_train, gen, report) or {}
+    run("long", phase_long, gen, report)
     run("reference", phase_reference, gen, report)
 
     # each kernel's count on the main path that runs it: generation for the
-    # decode and fused encoder kernels, the three training steps for the
-    # grouped attention
+    # decode and fused encoder kernels, generation with the int8 cache for
+    # the int8 decode kernel, the three training steps for the grouped
+    # attention
     for entry in kernels:
-        entry["launches"] = (launches.get(entry["name"], 0)
-                             + train_launches.get(entry["name"], 0))
+        name = entry["name"]
+        entry["launches"] = (
+            launches.get(name, 0) + train_launches.get(name, 0)
+            + (int8_launches.get(name, 0) if name == "decode_attention_int8"
+               else 0))
     report["kernels"] = kernels
     report["failed"] = failed
     os.makedirs(OUT_DIR, exist_ok=True)

@@ -176,3 +176,34 @@ def test_shared_memory_plan_fits_a_block():
     assert smem_bytes(128, 4, 8) < SMEM_LIMIT
     # shared memory grows with the heads a block serves, up to refusal
     assert smem_bytes(128, 64, 8) > SMEM_LIMIT
+
+
+@pytest.mark.parametrize("hd", [32, 64, 96, 128])
+def test_int8_tile_rows_avoid_bank_conflicts(hd):
+    """Two lanes read a row, each every other 16-byte vector, eight lanes
+    (four rows) per shared-memory phase: row strides that are odd multiples
+    of 32 bytes put the eight 16-byte reads in distinct banks."""
+    from vaura_tpu_torch.ops.decode_attention import tile_row_bytes
+
+    for int8 in (False, True):
+        rb = tile_row_bytes(hd, int8)
+        assert rb % 16 == 0 and (rb // 32) % 2 == 1 and rb % 32 == 0
+        assert rb >= hd * (1 if int8 else 2)
+        slots = {(r * rb + h * 16) % 128 for r in range(4) for h in range(2)}
+        assert len(slots) == 8
+
+
+def test_int8_shared_memory_plan():
+    """An int8 tile is 64 rows of hd bytes (padded to an odd multiple of 32)
+    plus the current position's bf16 row; the float part is the bf16
+    kernel's. The launch plan does not depend on the cache's type."""
+    from vaura_tpu_torch.ops.decode_attention import SMEM_LIMIT, smem_bytes
+
+    floats = 4 * (96 + 4 * 98 + 98 + 2 + 4 * 98)
+    assert smem_bytes(96, 1, 4, int8=True) == 2 * (64 * 96 + 192) + 16 + floats
+    assert smem_bytes(64, 1, 4, int8=True) == (
+        2 * (64 * 96 + 128) + 16 + 4 * (64 + 4 * 66 + 66 + 2 + 4 * 66))
+    for hd in (32, 64, 96, 128):
+        assert smem_bytes(hd, 4, 8, int8=True) < smem_bytes(hd, 4, 8)
+    assert smem_bytes(128, 4, 8, int8=True) < SMEM_LIMIT
+    assert smem_bytes(128, 64, 8, int8=True) > SMEM_LIMIT

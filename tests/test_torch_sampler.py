@@ -103,17 +103,6 @@ def test_token_embedding_matches_jax(samplers):
     np.testing.assert_allclose(t.numpy(), np.asarray(j), **TOL)
 
 
-def test_int8_cache_and_prefill_are_not_ported():
-    import dataclasses
-
-    cfg = dataclasses.replace(port_sampler_config(), quantize_cache=True)
-    ts = TSampler(cfg, device=CPU)
-    with pytest.raises(NotImplementedError):
-        ts.init_cache(1, 8)
-    with pytest.raises(NotImplementedError):
-        ts.prefill(None, None)
-
-
 def test_top_k_mask_keeps_ties_at_the_threshold():
     logits = torch.tensor([[3.0, 1.0, 2.0, 2.0, 0.5]])
     masked = top_k_mask(logits, 2)  # 2nd largest is 2.0, tied: both kept

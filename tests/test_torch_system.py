@@ -87,14 +87,6 @@ def test_encoder_chunks_and_dac_chunks_change_nothing(systems):
                                tsys.decode_audio(codes), rtol=0, atol=1e-5)
 
 
-def test_long_prompts_need_prefill_which_is_not_ported(systems):
-    _, _, tsys, frames, _ = systems
-    prompt = torch.zeros((2, 3, 17), dtype=torch.long)
-    with pytest.raises(NotImplementedError):
-        tsys.generate(torch.from_numpy(frames), audio_prompt_codes=prompt,
-                      max_new_tokens=MAX_NEW, decode_to_audio=False)
-
-
 def test_mlp_bridge_matches_jax():
     from vaura_tpu.models.bridges import MLPBridge as JBridge
     from vaura_tpu_torch.models.bridges import MLPBridge as TBridge

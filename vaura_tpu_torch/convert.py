@@ -16,7 +16,10 @@ Layouts:
     converter maps torch ``[in, out, W]`` to it with ``transpose(2, 0, 1)``,
     ``vaura_tpu/models/convert.py:64``) -> ``[in, out, W]`` by the inverse
     ``transpose(1, 2, 0)``.
-Weight norm is already folded on the JAX side.
+Weight norm is already folded on the JAX side. The int8 weights of a
+``quantize_sampler_params`` tree (``kernel_q [in, out]`` int8, ``scale
+[out]``) become ``kernel_q [out, in]`` int8 and ``scale`` buffers, for a
+sampler built with ``quantize_weights=True``.
 
 Every mapping is linear (a transpose, a slice or a copy), so a JAX GRADIENT
 tree or an UPDATED parameter tree goes through ``from_jax_params`` just as
@@ -40,6 +43,13 @@ def _t(a) -> torch.Tensor:
 
 def _dense(p: Tree, out: Dict[str, torch.Tensor], prefix: str,
            index=None) -> None:
+    if "kernel_q" in p:  # int8 weights of ``quantize_sampler_params``
+        q, sc = np.asarray(p["kernel_q"]), np.asarray(p["scale"])
+        q, sc = (q, sc) if index is None else (q[index], sc[index])
+        out[f"{prefix}.kernel_q"] = torch.from_numpy(
+            np.ascontiguousarray(q.T).astype(np.int8))
+        out[f"{prefix}.scale"] = _t(sc)
+        return
     k = np.asarray(p["kernel"])
     k = k if index is None else k[index]
     out[f"{prefix}.weight"] = _t(k.T)

@@ -63,6 +63,24 @@
 //    arithmetic, so it costs nothing.
 //  * float32 scores, softmax and accumulators; the output is rounded to
 //    bf16 once.
+//
+// The int8 cache (vt_decode_attention_int8, the second instantiation of the
+// same kernel): k/v [B, S, Hkv, hd] int8 with one float32 scale per
+// (position, KV head), k_scale/v_scale [B, S, Hkv] (the JAX package's
+// layout, vaura_tpu/models/sampler.py:296-391, whose einsums this replaces:
+// the JAX package has no Pallas kernel for it). A cache row is hd bytes (96
+// at hd = 96: still one legal bulk copy, since its size and its 1,536-byte
+// stride are 16-byte multiples) and the current position's k/v stay bf16,
+// unquantized, in the tile's last row. The scales are not bulk-copied (a
+// tile's 64 scales lie at the KV-head stride, 64 bytes apart): the lane that
+// reads a row also loads its two scales from device memory, issued before
+// the tile's wait so that their round trip runs beside the bulk copies. The
+// kernel widens the int8 values in registers and folds k_scale into the
+// score and v_scale into the probability that weighs the row's values (the
+// softmax's sum takes the probability without it), as the einsums do. Half
+// the cache bytes of bf16; at the serving batches where the cache is the
+// step's largest read (B2 = 256: 4.3 GB a step in bf16) that halves the
+// decode step's device time.
 #include "common.cuh"
 
 namespace {
@@ -132,12 +150,17 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, int byt
 }
 
 // Dynamic shared memory: the K and V tiles (kTile rows and the current
-// position's row), the mbarrier, then floats.
-template <int HD>
+// position's row), the mbarrier, then floats. Rows of a tile lie an odd
+// multiple of 32 bytes apart, so that two lanes a row, each taking every
+// other 16-byte vector, read without bank conflicts: bf16 rows are padded by
+// 32 bytes, int8 rows (hd bytes) by 32 where hd / 32 is even. In an int8
+// tile the current position's row is bf16 (2 * hd bytes) after the 64 rows.
+template <int HD, bool Q8>
 struct DecodeSmem {
-  static constexpr int kRowBytes = HD * 2 + 32;
+  static constexpr int kRowBytes = Q8 ? HD + ((HD / 32) % 2 ? 0 : 32) : HD * 2 + 32;
+  static constexpr int kTileBytes = Q8 ? kTile * kRowBytes + HD * 2 : (kTile + 1) * kRowBytes;
   static constexpr int kPW = HD + 2;  // a partial: acc[HD], max, sum
-  static constexpr int tiles = 2 * (kTile + 1) * kRowBytes;  // bytes
+  static constexpr int tiles = 2 * kTileBytes;  // bytes
   static constexpr int bar = tiles;   // 8 bytes: the tiles; 8: rank 0's inbox
   static constexpr int floats_at = tiles + 16;
   // rep query heads per KV head, a cluster of cs blocks
@@ -150,21 +173,62 @@ struct DecodeSmem {
   }
 };
 
+// q . k of one row of the tile for one query head: a lane takes every other
+// 16-byte vector of the row (the other lane of its pair the rest), q in
+// float32 from shared memory.
 template <int HD>
+__device__ __forceinline__ float dot_bf16_row(const unsigned char* kr, const float* qr,
+                                              int odd) {
+  float a = 0.f;
+#pragma unroll
+  for (int cc = 0; cc < HD / 16; ++cc) {
+    const int c = 2 * cc + odd;
+    const uint4 kv = *reinterpret_cast<const uint4*>(kr + c * 16);
+    const __nv_bfloat162* kp = reinterpret_cast<const __nv_bfloat162*>(&kv);
+    const float4 q0 = *reinterpret_cast<const float4*>(qr + c * 8);
+    const float4 q1 = *reinterpret_cast<const float4*>(qr + c * 8 + 4);
+    const float2 k0 = __bfloat1622float2(kp[0]), k1 = __bfloat1622float2(kp[1]);
+    const float2 k2 = __bfloat1622float2(kp[2]), k3 = __bfloat1622float2(kp[3]);
+    a += q0.x * k0.x + q0.y * k0.y + q0.z * k1.x + q0.w * k1.y +
+         q1.x * k2.x + q1.y * k2.y + q1.z * k3.x + q1.w * k3.y;
+  }
+  return a;
+}
+template <int HD>
+__device__ __forceinline__ float dot_int8_row(const unsigned char* kr, const float* qr,
+                                              int odd) {
+  float a = 0.f;
+#pragma unroll
+  for (int cc = 0; cc < HD / 32; ++cc) {
+    const int c = 2 * cc + odd;
+    const uint4 kv = *reinterpret_cast<const uint4*>(kr + c * 16);
+    const char4* kp = reinterpret_cast<const char4*>(&kv);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 qj = *reinterpret_cast<const float4*>(qr + c * 16 + 4 * j);
+      a += qj.x * static_cast<float>(kp[j].x) + qj.y * static_cast<float>(kp[j].y) +
+           qj.z * static_cast<float>(kp[j].z) + qj.w * static_cast<float>(kp[j].w);
+    }
+  }
+  return a;
+}
+
+template <int HD, bool Q8>
 __global__ void __launch_bounds__(kThreads)
-decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
-              const bf16* __restrict__ vc, const bf16* __restrict__ kcur,
+decode_kernel(const bf16* __restrict__ q, const void* __restrict__ kc,
+              const void* __restrict__ vc, const float* __restrict__ ksc,
+              const float* __restrict__ vsc, const bf16* __restrict__ kcur,
               const bf16* __restrict__ vcur, bf16* __restrict__ out, int H,
               int Hkv, int S, int pos_host, const int* __restrict__ pos_dev,
               float scale) {
-  using Lay = DecodeSmem<HD>;
-  constexpr int V = HD / 8;          // 16-byte vectors of a row
+  using Lay = DecodeSmem<HD, Q8>;
+  constexpr int EB = Q8 ? 1 : 2;     // bytes of a cached element
   constexpr int RB = Lay::kRowBytes;
   constexpr int EPL = HD / 32;       // output dims a lane owns
   constexpr int PW = Lay::kPW;
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* k_sm = smem;
-  unsigned char* v_sm = smem + (kTile + 1) * RB;
+  unsigned char* v_sm = smem + Lay::kTileBytes;
   const uint32_t bar = smem_u32(smem + Lay::bar);
   const int rep = H / Hkv;
   float* q_sm = reinterpret_cast<float*>(smem + Lay::floats_at);
@@ -194,23 +258,26 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
   __syncthreads();
   pos = max(0, min(pos, S));
   const size_t row = static_cast<size_t>(Hkv) * HD;  // stride of a position
-  const bf16* kb = kc + static_cast<size_t>(b) * S * row + static_cast<size_t>(hk) * HD;
-  const bf16* vb = vc + static_cast<size_t>(b) * S * row + static_cast<size_t>(hk) * HD;
+  const size_t first_row = (static_cast<size_t>(b) * S * row + static_cast<size_t>(hk) * HD) * EB;
+  const unsigned char* kb = static_cast<const unsigned char*>(kc) + first_row;
+  const unsigned char* vb = static_cast<const unsigned char*>(vc) + first_row;
   const size_t cur = (static_cast<size_t>(b) * Hkv + hk) * HD;
+  // the scales of (b, position t, hk) lie at scale_b + t * Hkv
+  const size_t scale_b = static_cast<size_t>(b) * S * Hkv + hk;
 
   // Thread (half, i) requests row t0 + i of K (half 0) or V (half 1), if the
   // cache holds it below pos; thread (half, 0) also the current position's,
   // once. Every thread arrives with the bytes it requests.
   const int half = tid >> 6, i64 = tid & (kTile - 1);
   unsigned char* my_sm = half ? v_sm : k_sm;
-  const bf16* my_cache = half ? vb : kb;
+  const unsigned char* my_cache = half ? vb : kb;
   auto load_tile = [&](int t0, bool with_cur) {
     const bool mine = t0 + i64 < pos;
     const bool cur_row = with_cur && i64 == 0;
-    mbar_arrive_expect(bar, (mine + cur_row) * HD * 2);
+    mbar_arrive_expect(bar, mine * HD * EB + cur_row * HD * 2);
     if (mine)
-      bulk_copy(smem_u32(my_sm + i64 * RB), my_cache + static_cast<size_t>(t0 + i64) * row,
-                HD * 2, bar);
+      bulk_copy(smem_u32(my_sm + i64 * RB),
+                my_cache + static_cast<size_t>(t0 + i64) * row * EB, HD * EB, bar);
     if (cur_row)
       bulk_copy(smem_u32(my_sm + kTile * RB), (half ? vcur : kcur) + cur, HD * 2, bar);
   };
@@ -224,47 +291,51 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
   bool have_run = false;
   for (int t0 = first; t0 <= pos; t0 += cs * kTile) {
     const bool last = t0 + cs * kTile > pos;
+    const int vrow = t0 + warp * 16 + (lane >> 1);   // this lane's row of the sequence
+    // int8: the row's scales (1 for the current position's bf16 row), in
+    // flight beside the tile's bulk copies
+    float k_s = 1.f, v_s = 1.f;
+    if constexpr (Q8) {
+      if (vrow < pos) {
+        k_s = ksc[scale_b + static_cast<size_t>(vrow) * Hkv];
+        v_s = vsc[scale_b + static_cast<size_t>(vrow) * Hkv];
+      }
+    }
     mbar_wait(bar, phase);
     phase ^= 1;
     if (last) cluster_wait();  // rank 0 has started: its inbox may be written
     // a warp's 16 rows: two lanes a row, each every other 16-byte vector
-    const int vrow = t0 + warp * 16 + (lane >> 1);   // row of the sequence
     const bool valid = vrow <= pos;
     const int src = vrow == pos ? kTile : warp * 16 + (lane >> 1);
     for (int r = 0; r < rep; ++r) {
-      float a = 0.f;
-      {
-        const unsigned char* kr = k_sm + src * RB;
-        const float* qr = q_sm + r * HD;
-#pragma unroll
-        for (int cc = 0; cc < V / 2; ++cc) {
-          const int c = 2 * cc + (lane & 1);
-          const uint4 kv = *reinterpret_cast<const uint4*>(kr + c * 16);
-          const __nv_bfloat162* kp = reinterpret_cast<const __nv_bfloat162*>(&kv);
-          const float4 q0 = *reinterpret_cast<const float4*>(qr + c * 8);
-          const float4 q1 = *reinterpret_cast<const float4*>(qr + c * 8 + 4);
-          const float2 k0 = __bfloat1622float2(kp[0]), k1 = __bfloat1622float2(kp[1]);
-          const float2 k2 = __bfloat1622float2(kp[2]), k3 = __bfloat1622float2(kp[3]);
-          a += q0.x * k0.x + q0.y * k0.y + q0.z * k1.x + q0.w * k1.y +
-               q1.x * k2.x + q1.y * k2.y + q1.z * k3.x + q1.w * k3.y;
-        }
-      }
+      const unsigned char* kr = k_sm + src * RB;
+      const float* qr = q_sm + r * HD;
+      float a = (!Q8 || src == kTile) ? dot_bf16_row<HD>(kr, qr, lane & 1)
+                                      : dot_int8_row<HD>(kr, qr, lane & 1);
       a += __shfl_xor_sync(0xffffffffu, a, 1);
-      const float sc = valid ? a : -INFINITY;
+      const float sc = valid ? a * k_s : -INFINITY;
       float m = warp_max(sc);  // -inf: none of the warp's rows is at or below pos
       const float p = valid ? __expf(sc - m) : 0.f;
       float l = warp_sum((lane & 1) ? 0.f : p);
+      const float pv = p * v_s;  // the weight of the row's stored values
       float acc[EPL];
 #pragma unroll
       for (int e = 0; e < EPL; ++e) acc[e] = 0.f;
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
-        const float pj = __shfl_sync(0xffffffffu, p, 2 * j);
+        const float pj = __shfl_sync(0xffffffffu, pv, 2 * j);
         const int sj = __shfl_sync(0xffffffffu, src, 2 * j);
         if (pj > 0.f) {
-          const bf16* vr = reinterpret_cast<const bf16*>(v_sm + sj * RB);
+          if (!Q8 || sj == kTile) {
+            const bf16* vr = reinterpret_cast<const bf16*>(v_sm + sj * RB);
 #pragma unroll
-          for (int e = 0; e < EPL; ++e) acc[e] += pj * to_f(vr[e * 32 + lane]);
+            for (int e = 0; e < EPL; ++e) acc[e] += pj * to_f(vr[e * 32 + lane]);
+          } else {
+            const signed char* vr = reinterpret_cast<const signed char*>(v_sm + sj * RB);
+#pragma unroll
+            for (int e = 0; e < EPL; ++e)
+              acc[e] += pj * static_cast<float>(vr[e * 32 + lane]);
+          }
         }
       }
       float* wp = wpart + (warp * rep + r) * PW;
@@ -367,49 +438,55 @@ cudaError_t launch_cluster(Kernel kernel, int cs, int blocks_y, size_t smem,
   return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
-template <int HD>
-cudaError_t launch(const bf16* q, const bf16* kc, const bf16* vc,
-                   const bf16* kcur, const bf16* vcur, bf16* out, int B, int H,
-                   int Hkv, int S, int pos, const int* pos_dev, bool empty,
-                   cudaStream_t stream) {
-  static const cudaError_t attr_err = allow_max_smem(decode_kernel<HD>);
+template <int HD, bool Q8>
+cudaError_t launch(const bf16* q, const void* kc, const void* vc, const float* ksc,
+                   const float* vsc, const bf16* kcur, const bf16* vcur, bf16* out,
+                   int B, int H, int Hkv, int S, int pos, const int* pos_dev,
+                   bool empty, cudaStream_t stream) {
+  static const cudaError_t attr_err = allow_max_smem(decode_kernel<HD, Q8>);
   if (attr_err != cudaSuccess) return attr_err;
   static const cudaError_t empty_attr_err = allow_max_smem(empty_kernel);
   if (empty_attr_err != cudaSuccess) return empty_attr_err;
   const int tiles = (pos_dev ? S : pos) / kTile + 1;  // pos + 1 rows
   const int cs = max(1, min(tiles, kMaxCluster));
-  const size_t smem = DecodeSmem<HD>::bytes(H / Hkv, cs);
+  const size_t smem = DecodeSmem<HD, Q8>::bytes(H / Hkv, cs);
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
   const cudaError_t err = empty
       ? launch_cluster(empty_kernel, cs, B * Hkv, smem, stream)
-      : launch_cluster(decode_kernel<HD>, cs, B * Hkv, smem, stream, q, kc, vc,
-                       kcur, vcur, out, H, Hkv, S, pos, pos_dev,
+      : launch_cluster(decode_kernel<HD, Q8>, cs, B * Hkv, smem, stream, q, kc, vc,
+                       ksc, vsc, kcur, vcur, out, H, Hkv, S, pos, pos_dev,
                        1.0f / sqrtf(static_cast<float>(HD)));
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+template <bool Q8>
 int dispatch(const void* q, const void* k_cache, const void* v_cache,
-             const void* k_cur, const void* v_cur, void* out, int B, int H,
-             int Hkv, int S, int hd, int pos, const void* pos_dev, bool empty,
-             void* stream) {
+             const void* k_scale, const void* v_scale, const void* k_cur,
+             const void* v_cur, void* out, int B, int H, int Hkv, int S, int hd,
+             int pos, const void* pos_dev, bool empty, void* stream) {
   if (Hkv <= 0 || H % Hkv != 0 || B <= 0 || B * Hkv > 65535 || S < 0 ||
       (!pos_dev && (pos < 0 || pos > S)))
     return cudaErrorInvalidValue;
   auto q_ = static_cast<const bf16*>(q);
-  auto kc = static_cast<const bf16*>(k_cache);
-  auto vc = static_cast<const bf16*>(v_cache);
+  auto ks = static_cast<const float*>(k_scale);
+  auto vs = static_cast<const float*>(v_scale);
   auto kr = static_cast<const bf16*>(k_cur);
   auto vr = static_cast<const bf16*>(v_cur);
   auto op = static_cast<bf16*>(out);
   auto pd = static_cast<const int*>(pos_dev);
   auto st = static_cast<cudaStream_t>(stream);
+#define VT_DECODE_CASE(D)                                                               \
+  case D:                                                                               \
+    return launch<D, Q8>(q_, k_cache, v_cache, ks, vs, kr, vr, op, B, H, Hkv, S, pos,   \
+                         pd, empty, st);
   switch (hd) {
-    case 32: return launch<32>(q_, kc, vc, kr, vr, op, B, H, Hkv, S, pos, pd, empty, st);
-    case 64: return launch<64>(q_, kc, vc, kr, vr, op, B, H, Hkv, S, pos, pd, empty, st);
-    case 96: return launch<96>(q_, kc, vc, kr, vr, op, B, H, Hkv, S, pos, pd, empty, st);
-    case 128: return launch<128>(q_, kc, vc, kr, vr, op, B, H, Hkv, S, pos, pd, empty, st);
+    VT_DECODE_CASE(32)
+    VT_DECODE_CASE(64)
+    VT_DECODE_CASE(96)
+    VT_DECODE_CASE(128)
     default: return cudaErrorInvalidValue;
   }
+#undef VT_DECODE_CASE
 }
 
 }  // namespace
@@ -421,17 +498,32 @@ extern "C" int vt_decode_attention(const void* q, const void* k_cache,
                                    const void* v_cur, void* out, int B, int H,
                                    int Hkv, int S, int hd, int pos,
                                    const void* pos_dev, void* stream) {
-  return dispatch(q, k_cache, v_cache, k_cur, v_cur, out, B, H, Hkv, S, hd, pos,
-                  pos_dev, false, stream);
+  return dispatch<false>(q, k_cache, v_cache, nullptr, nullptr, k_cur, v_cur, out, B,
+                         H, Hkv, S, hd, pos, pos_dev, false, stream);
 }
 
-// An empty kernel with the launch configuration vt_decode_attention would
-// use for these sizes: the floor of one launch.
+// The int8 cache: k/v [B, S, Hkv, hd] int8, k_scale/v_scale [B, S, Hkv]
+// float32; q, k_cur, v_cur and out bf16 as above.
+extern "C" int vt_decode_attention_int8(const void* q, const void* k_cache,
+                                        const void* v_cache, const void* k_scale,
+                                        const void* v_scale, const void* k_cur,
+                                        const void* v_cur, void* out, int B, int H,
+                                        int Hkv, int S, int hd, int pos,
+                                        const void* pos_dev, void* stream) {
+  return dispatch<true>(q, k_cache, v_cache, k_scale, v_scale, k_cur, v_cur, out, B,
+                        H, Hkv, S, hd, pos, pos_dev, false, stream);
+}
+
+// An empty kernel with the launch configuration vt_decode_attention (or, with
+// int8 != 0, vt_decode_attention_int8) would use for these sizes: the floor
+// of one launch.
 extern "C" int vt_decode_attention_empty(int B, int H, int Hkv, int S, int hd,
-                                         int pos, int pos_on_device,
+                                         int pos, int pos_on_device, int int8,
                                          void* stream) {
   static const int dummy = 0;
-  return dispatch(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, B, H,
-                  Hkv, S, hd, pos, pos_on_device ? &dummy : nullptr, true,
-                  stream);
+  const void* pd = pos_on_device ? &dummy : nullptr;
+  return int8 ? dispatch<true>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                               nullptr, nullptr, B, H, Hkv, S, hd, pos, pd, true, stream)
+              : dispatch<false>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                nullptr, nullptr, B, H, Hkv, S, hd, pos, pd, true, stream);
 }

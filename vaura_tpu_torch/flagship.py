@@ -10,7 +10,19 @@ random weights made on the target device.
 
 The generation settings of the flagship run (``GENERATE_KW``) are CFG 6.0,
 top-k 128, 221 new tokens at 7 tokens per video frame, from frames
-``[B, 4, 3, 16, 224, 224]``.
+``[B, 4, 3, 16, 224, 224]``. The serving modes change the sampler's
+configuration: ``quantize_cache`` (the int8 KV cache with bf16 weights, the
+JAX package's serving default) and ``quantize_weights`` (int8 matmul
+weights, here the quantization of the seeded bf16 weights).
+
+The long-horizon configuration (``bench.py``'s long-mode defaults): 10.24 s
+(``LONG_TOKENS``, 880) from frames ``[B, 16, 3, 16, 224, 224]``
+(``LONG_SEGMENTS``), ``generate_long`` at a stride of 0.64 s
+(``LONG_STRIDE_TOKENS``, 55; chunks of at most 221 tokens), or
+``generate_long_kv`` with a window of 4 chunks of 56 steps (``LONG_KV_KW``),
+whose RoPE table must cover the horizon: ``LONG_SAMPLER`` raises
+``block_size_audio`` to 1024, as ``scripts/generate.py`` does for
+``long_mode: stream_kv``.
 
 A system made for generation stores its matmul weights in bf16 and records
 no graph. ``training=True`` makes the training configuration: float32
@@ -33,13 +45,20 @@ import torch
 
 from vaura_tpu_torch.models.dac.model import config_for_sample_rate
 from vaura_tpu_torch.models.motionformer import MotionFormerConfig
-from vaura_tpu_torch.models.sampler import SamplerConfig
+from vaura_tpu_torch.models.sampler import Sampler, SamplerConfig
 from vaura_tpu_torch.models.vaura import VauraSystem
+from vaura_tpu_torch.ops.quantization import quantize_sampler_params
 from vaura_tpu_torch.utils import DeviceLike, seeded_init_
 
 GENERATE_KW = dict(cfg_scale=6.0, top_k=128, max_new_tokens=221,
                    tokens_per_frame=7)
 FRAMES_SHAPE = (4, 3, 16, 224, 224)  # per clip: segments, C, T, H, W
+TOKENS_PER_SECOND = 86  # codec frames a second
+LONG_TOKENS = int(10.24 * TOKENS_PER_SECOND)
+LONG_STRIDE_TOKENS = int(0.64 * TOKENS_PER_SECOND)
+LONG_SEGMENTS = 16  # 10.24 s of 0.64 s video segments
+LONG_KV_KW = dict(window_chunks=4, chunk_steps=56, sink_chunks=0)
+LONG_SAMPLER = {"block_size_audio": 1024}
 AUDIO_SAMPLES = 221 * 512
 # the optimizer of ``configs/vaura_defaults.yaml``
 TRAIN_KW = dict(learning_rate=1e-3, weight_decay=0.0, betas=(0.9, 0.95),
@@ -70,10 +89,24 @@ def flagship_system(device: DeviceLike = None,
         s_cfg = dataclasses.replace(s_cfg, num_layers=sampler_layers)
     if encoder_depth:
         e_cfg = dataclasses.replace(e_cfg, depth=encoder_depth)
+    quantize_weights = s_cfg.quantize_weights
+    if quantize_weights:
+        if training:
+            raise ValueError("int8 weights are for inference")
+        s_cfg = dataclasses.replace(s_cfg, quantize_weights=False)
     system = VauraSystem(s_cfg, config_for_sample_rate(44100), e_cfg,
                          freeze_feature_extractor=False, device=device)
     if generator is not None:
         seeded_init_(system, generator)
+    if quantize_weights:
+        # the same seeded weights, then quantized (without a generator the
+        # int8 sampler's buffers wait for load_state_dicts)
+        q_cfg = dataclasses.replace(s_cfg, quantize_weights=True)
+        sampler = Sampler(q_cfg, system.device)
+        if generator is not None:
+            sampler.load_state_dict(
+                quantize_sampler_params(system.sampler.state_dict()))
+        system.sampler, system.sampler_config = sampler, q_cfg
     if training:
         torch.nn.init.zeros_(system.sampler.lm_head.weight)
     else:
@@ -107,7 +140,9 @@ def random_train_batch(batch: int, generator: torch.Generator,
 
 
 def random_frames(batch: int, generator: torch.Generator,
-                  device: DeviceLike = None) -> torch.Tensor:
-    """Seeded bf16 frames ``[batch, 4, 3, 16, 224, 224]``."""
-    return torch.randn(batch, *FRAMES_SHAPE, generator=generator,
+                  device: DeviceLike = None,
+                  segments: int = FRAMES_SHAPE[0]) -> torch.Tensor:
+    """Seeded bf16 frames ``[batch, segments, 3, 16, 224, 224]`` (4
+    segments: 2.56 s)."""
+    return torch.randn(batch, segments, *FRAMES_SHAPE[1:], generator=generator,
                        device=device, dtype=torch.bfloat16)

@@ -50,6 +50,23 @@ class DacConfig:
     def hop_length(self) -> int:
         return int(math.prod(self.encoder_rates))
 
+    @property
+    def decoder_receptive_field_frames(self) -> int:
+        """Half the decoder's receptive field in latent frames: the context a
+        windowed decode needs on each side for its interior samples to equal
+        a full decode's (the streaming generators' emit margin). Per level of
+        stride ``s`` at cumulative upsampling ``f``: the transposed conv
+        spreads an input at most ``1.5 s - 1`` positions, the three dilated
+        residual convs ``3 * (1 + 3 + 9)``, both in ``1/f`` frames; plus the
+        input and output convs (JAX ``dac/model.py:74-97``)."""
+        half = 3.0
+        f = 1
+        for s in self.decoder_rates:
+            f *= s
+            half += (1.5 * s - 1.0) / f
+            half += 39.0 / f
+        return math.ceil(half + 3.0 / f)
+
 
 def config_for_sample_rate(model_sr: int) -> DacConfig:
     """The published DAC models, keyed by ``model_sr``."""

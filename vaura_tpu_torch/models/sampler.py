@@ -18,11 +18,18 @@ feed-forward dropout, attention dropout, stochastic depth, the CFG
 ``token_drop``) draws its mask from the explicit ``generator``.
 
 The KV cache is one preallocated ``[L, B, S, H_kv, hd]`` buffer per key and
-value. A layer never writes it: it reads positions ``< pos`` through
+value: bf16, or int8 with float32 ``k_scale``/``v_scale [L, B, S, H_kv]``
+(``quantize_cache``; ``ops/quantization.py::quantize_kv``). A layer never
+writes it: it reads the rows below the current one through
 ``ops.decode_attention`` and returns the current position's K/V, which
-``decode_step`` commits in place after the step (the JAX package's
-contract, ``sampler.py:228-238``; in place here, where JAX returns an
-updated copy).
+``decode_step`` commits in place after the step, quantized for an int8
+cache (the JAX package's contract, ``sampler.py:228-238,864-883``; in place
+here, where JAX returns an updated copy). ``prefill`` fills a fresh cache
+from a causal forward over a prompt.
+
+``quantize_weights`` stores the decoder blocks' and the LM head's matmul
+weights as int8 with per-output-channel scales (``kernel_q``/``scale``,
+``ops/quantization.py::quant_dense``), as the JAX package's ``PDense``.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from torch.utils.checkpoint import checkpoint
 
 from vaura_tpu_torch.ops.decode_attention import decode_attention
 from vaura_tpu_torch.ops.dropout import drop_path, dropout
+from vaura_tpu_torch.ops.quantization import quant_dense, quantize_kv
 from vaura_tpu_torch.ops.rope import apply_rotary_emb, precompute_freqs_cis
 
 
@@ -75,7 +83,8 @@ class SamplerConfig:
     # activations (torch.utils.checkpoint per block): memory and time
     # change, numbers do not.
     remat: bool = False
-    quantize_cache: bool = False  # int8 cache: not ported yet
+    quantize_weights: bool = False  # int8 weight-only matmuls (inference)
+    quantize_cache: bool = False  # int8 KV cache with per-(position, head) scales
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32  # storage of the matmul weights
 
@@ -118,15 +127,26 @@ class SamplerConfig:
 
 class PDense(nn.Module):
     """Bias-free dense: weight ``[out, in]`` stored in ``param_dtype``, cast
-    to the compute dtype at use."""
+    to the compute dtype at use; with ``cfg.quantize_weights`` (and
+    ``quantizable``) the int8 ``kernel_q [out, in]`` and float32 ``scale
+    [out]`` buffers instead."""
 
-    def __init__(self, i: int, o: int, cfg: SamplerConfig, device=None):
+    def __init__(self, i: int, o: int, cfg: SamplerConfig, device=None,
+                 quantizable: bool = True):
         super().__init__()
         self.dtype = cfg.dtype
-        self.weight = nn.Parameter(torch.empty(o, i, dtype=cfg.param_dtype,
-                                               device=device))
+        self.quantized = quantizable and cfg.quantize_weights
+        if self.quantized:
+            self.register_buffer("kernel_q", torch.zeros(
+                o, i, dtype=torch.int8, device=device))
+            self.register_buffer("scale", torch.ones(o, device=device))
+        else:
+            self.weight = nn.Parameter(torch.empty(o, i, dtype=cfg.param_dtype,
+                                                   device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quantized:
+            return quant_dense(x.to(self.dtype), self.kernel_q, self.scale)
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
 
 
@@ -178,6 +198,14 @@ class Attention(nn.Module):
         """``x [B, S, d_model]``, ``mask [S, S]`` bool (True = attend).
         Float32 scores, ``-1e30`` at masked pairs, probabilities cast to the
         value dtype, dropout on the probabilities and on the output."""
+        return self.forward_kv(x, freqs_cis, mask, train, generator)[0]
+
+    def forward_kv(self, x: torch.Tensor, freqs_cis: torch.Tensor,
+                   mask: torch.Tensor, train: bool = False,
+                   generator: Optional[torch.Generator] = None
+                   ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+        """``forward`` that also returns every position's K/V ``[B, S, H_kv,
+        hd]`` (after RoPE), what ``prefill`` puts into the cache."""
         cfg = self.cfg
         B, S, _ = x.shape
         H, Hkv, hd = cfg.nhead, cfg.n_kv_heads, cfg.head_dim
@@ -185,6 +213,7 @@ class Attention(nn.Module):
         q = apply_rotary_emb(q.reshape(B, S, H, hd), freqs_cis)
         k = apply_rotary_emb(k.reshape(B, S, Hkv, hd), freqs_cis)
         v = v.reshape(B, S, Hkv, hd)
+        kv = (k, v)
         if H != Hkv:
             k = k.repeat_interleave(H // Hkv, dim=2)
             v = v.repeat_interleave(H // Hkv, dim=2)
@@ -196,17 +225,18 @@ class Attention(nn.Module):
         probs = dropout(probs, cfg.attn_dropout_p, train, generator)
         out = torch.einsum("bhst,bthd->bshd", probs.to(v.dtype), v)
         out = self.wo(out.reshape(B, S, H * hd).to(cfg.dtype))
-        return dropout(out, cfg.dropout, train, generator)
+        return dropout(out, cfg.dropout, train, generator), kv
 
     def decode(self, x: torch.Tensor, freqs_cis: torch.Tensor,
-               k_cache: torch.Tensor, v_cache: torch.Tensor,
-               pos: Union[int, torch.Tensor]
+               cache_layer: Tuple[torch.Tensor, ...],
+               row: Union[int, torch.Tensor]
                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-        """``x [B, 1, d_model]`` at position ``pos`` (an ``int`` or a
-        one-element int32 tensor on ``x``'s device, whose RoPE row is
-        ``freqs_cis``); ``k/v_cache`` one
-        layer ``[B, S, H_kv, hd]``, read below ``pos`` only. Returns the
-        output and this position's ``(k, v) [B, H_kv, hd]``."""
+        """``x [B, 1, d_model]`` whose RoPE row is ``freqs_cis``;
+        ``cache_layer`` one layer's ``(k, v)`` ``[B, S, H_kv, hd]`` (and, for
+        an int8 cache, ``(k_scale, v_scale) [B, S, H_kv]``), read below
+        ``row`` only (an ``int`` or a one-element int32 tensor on ``x``'s
+        device). Returns the output and this position's ``(k, v) [B, H_kv,
+        hd]``."""
         cfg = self.cfg
         B = x.shape[0]
         H, Hkv, hd = cfg.nhead, cfg.n_kv_heads, cfg.head_dim
@@ -214,8 +244,9 @@ class Attention(nn.Module):
         q = apply_rotary_emb(q.reshape(B, 1, H, hd), freqs_cis)[:, 0]
         k = apply_rotary_emb(k.reshape(B, 1, Hkv, hd), freqs_cis)[:, 0]
         v = v.reshape(B, Hkv, hd).contiguous()
+        k_cache, v_cache, *scales = cache_layer
         out = decode_attention(q.contiguous(), k_cache, v_cache,
-                               k.contiguous(), v, pos)
+                               k.contiguous(), v, row, *scales)
         return self.wo(out.reshape(B, 1, H * hd).to(cfg.dtype)), (k, v)
 
 
@@ -238,9 +269,15 @@ class TransformerBlock(nn.Module):
                                   train, generator))
         return h + dp(self.feed_forward(self.ffn_norm(h), train, generator))
 
-    def decode(self, x, freqs_cis, k_cache, v_cache, pos):
+    def prefill(self, x, freqs_cis, mask):
+        a, kv = self.attention.forward_kv(self.attention_norm(x), freqs_cis,
+                                          mask)
+        h = x + a
+        return h + self.feed_forward(self.ffn_norm(h)), kv
+
+    def decode(self, x, freqs_cis, cache_layer, row):
         a, kv = self.attention.decode(self.attention_norm(x), freqs_cis,
-                                      k_cache, v_cache, pos)
+                                      cache_layer, row)
         h = x + a
         return h + self.feed_forward(self.ffn_norm(h)), kv
 
@@ -283,8 +320,11 @@ class AVCLIPEmbedder(nn.Module):
     def __init__(self, cfg: SamplerConfig, device=None):
         super().__init__()
         self.cfg = cfg
-        self.fc1 = PDense(cfg.cond_in_dim, cfg.cond_dim, cfg, device)
-        self.fc2 = PDense(cfg.cond_dim, cfg.cond_dim, cfg, device)
+        # plain denses in the JAX package too: int8 weights leave them be
+        self.fc1 = PDense(cfg.cond_in_dim, cfg.cond_dim, cfg, device,
+                          quantizable=False)
+        self.fc2 = PDense(cfg.cond_dim, cfg.cond_dim, cfg, device,
+                          quantizable=False)
         self.uncond_embedding = nn.Parameter(
             torch.empty(cfg.cond_token_num, cfg.cond_in_dim, device=device))
 
@@ -432,12 +472,19 @@ class Sampler(nn.Module):
 
     def init_cache(self, batch: int, max_seq: int,
                    dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
+        """A zero cache of ``max_seq`` rows: bf16 (or ``dtype``) ``k``/``v``,
+        or with ``quantize_cache`` int8 ``k``/``v`` and float32
+        ``k_scale``/``v_scale`` (``dtype`` is then not read); and the rows'
+        ``positions``."""
         cfg = self.cfg
-        if cfg.quantize_cache:
-            raise NotImplementedError(
-                "the int8 KV cache (ops/quantization.py) is not ported yet")
         shape = (cfg.num_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
         dev = self.freqs_cis.device
+        if cfg.quantize_cache:
+            return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                    "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                    "k_scale": torch.zeros(shape[:-1], device=dev),
+                    "v_scale": torch.zeros(shape[:-1], device=dev),
+                    "positions": self._positions(max_seq, dev)}
         dtype = dtype or cfg.dtype
         return {"k": torch.zeros(shape, dtype=dtype, device=dev),
                 "v": torch.zeros(shape, dtype=dtype, device=dev),
@@ -446,36 +493,73 @@ class Sampler(nn.Module):
     @staticmethod
     def _positions(max_seq: int, device) -> torch.Tensor:
         """``0 .. max_seq - 1`` as int32 on the cache's device, made once
-        per cache: ``positions[pos:pos + 1]`` is the position as a device
-        scalar for decode attention, a view that costs no launch."""
+        per cache: ``positions[row:row + 1]`` is the row as a device scalar
+        for decode attention, a view that costs no launch."""
         return torch.arange(max_seq, dtype=torch.int32, device=device)
 
-    def prefill(self, *args, **kwargs):
-        raise NotImplementedError("prefill for long prompts is not ported yet")
+    def _store(self, k: torch.Tensor, v: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """K/V as the cache stores them: quantized for an int8 cache."""
+        if self.cfg.quantize_cache:
+            kq, ks = quantize_kv(k)
+            vq, vs = quantize_kv(v)
+            return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+        return {"k": k.to(self.cfg.dtype), "v": v.to(self.cfg.dtype)}
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, cond_seq: torch.Tensor
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Causal forward over the padded prompt ``tokens [B, K, S]`` with
+        the per-position conditioning ``cond_seq [B, S, cond_dim]``: returns
+        the logits ``[B, K, S, vocab]`` and a fresh cache of ``S`` rows
+        holding every position's K/V (int8 with ``quantize_cache``), with
+        its ``positions``. Positions past the prompt hold K/V of whatever
+        the padding was; decode attention never reads a row at or past its
+        own, and the decode steps rewrite them first (JAX
+        ``sampler.py:773-804``)."""
+        cfg = self.cfg
+        S = tokens.shape[2]
+        tok_emb = self.tok_embeddings(tokens)
+        h = torch.cat([cond_seq.to(tok_emb.dtype), tok_emb], dim=-1)
+        freqs = self.freqs_cis[:S]
+        mask = torch.ones(S, S, dtype=torch.bool, device=h.device).tril()
+        ks, vs = [], []
+        for layer in self.layers:
+            h, (k, v) = layer.prefill(h, freqs, mask)
+            ks.append(k)
+            vs.append(v)
+        cache = self._store(torch.stack(ks), torch.stack(vs))
+        cache["positions"] = self._positions(S, h.device)
+        return self._logits(h), cache
 
     @torch.no_grad()
     def decode_step(self, tokens_t: torch.Tensor, cond_t: torch.Tensor,
-                    cache: Dict[str, torch.Tensor], pos: int) -> torch.Tensor:
+                    cache: Dict[str, torch.Tensor], pos: int,
+                    row: Optional[int] = None) -> torch.Tensor:
         """One step at position ``pos``: ``tokens_t [B, K, 1]``,
         ``cond_t [B, 1, cond_dim]``. Returns next-token logits
-        ``[B, K, vocab]`` and commits this position's K/V into ``cache`` in
-        place after all layers have read it. Decode attention takes the
-        position from device memory (a one-element view of the cache's
-        ``positions``, added to a cache that lacks it); RoPE and the cache
-        write index with the host ``int``."""
+        ``[B, K, vocab]`` and commits this position's K/V into cache row
+        ``row`` (default ``pos``) in place after all layers have read the
+        rows below it: ``pos`` picks the RoPE row, ``row`` the cache row,
+        which differ in the rolling cache of ``generate_long_kv``. Decode
+        attention takes the row from device memory (a one-element view of
+        the cache's ``positions``, added to a cache that lacks it); RoPE and
+        the cache write index with the host ``int``."""
         pos = int(pos)
+        row = pos if row is None else int(row)
         if "positions" not in cache:
             cache["positions"] = self._positions(cache["k"].shape[2],
                                                  cache["k"].device)
-        pos_t = cache["positions"][pos:pos + 1]
+        row_t = cache["positions"][row:row + 1]
         tok_emb = self.tok_embeddings(tokens_t)
         h = torch.cat([cond_t.to(tok_emb.dtype), tok_emb], dim=-1)
         freqs = self.freqs_cis[pos:pos + 1]
+        names = ("k", "v", "k_scale", "v_scale") if self.cfg.quantize_cache \
+            else ("k", "v")
         ks, vs = [], []
-        for layer, k_l, v_l in zip(self.layers, cache["k"], cache["v"]):
-            h, (k, v) = layer.decode(h, freqs, k_l, v_l, pos_t)
+        for layer, *cache_layer in zip(self.layers, *(cache[n] for n in names)):
+            h, (k, v) = layer.decode(h, freqs, tuple(cache_layer), row_t)
             ks.append(k)
             vs.append(v)
-        cache["k"][:, :, pos] = torch.stack(ks).to(cache["k"].dtype)
-        cache["v"][:, :, pos] = torch.stack(vs).to(cache["v"].dtype)
+        for name, t in self._store(torch.stack(ks), torch.stack(vs)).items():
+            cache[name][:, :, row] = t
         return self._logits(h)[:, :, 0, :]

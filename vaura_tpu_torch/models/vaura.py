@@ -10,21 +10,34 @@ the unfused, differentiable blocks) -> bridge -> teacher-forced sampler ->
 logits reverted to the codes' timesteps (NaN at the slots no step
 predicts) -> masked per-codebook cross entropy.
 
+Long horizons: ``generate_long`` (chunks of at most ``model_max_tokens``
+that carry the last ``chunk - stride`` tokens as the next chunk's prompt,
+ingested by ``Sampler.prefill``) and ``generate_long_kv`` (one continuous
+decode over a rolling cache that keeps sink chunks and a trailing window of
+chunks); ``generate_long_stream`` and ``generate_long_kv_stream`` yield
+their codes and waveform in increments.
+
 Counterpart of ``vaura_tpu/models/vaura.py`` (``visual_features``,
 ``train_forward``, ``encode_audio``, ``load_dac_embeddings_into_sampler``,
 ``prepare_generation``, ``build_cond_seq_for_generation``, the generation
-step, ``generate_tokens``, ``generate``, ``decode_audio``). JAX runs the
-decode loop as a compiled ``lax.scan``; here it is a Python loop over steps
-whose position is a host integer, so nothing waits for the device inside
-it. The loop keeps ONE preallocated cache ``[L, 2B, S, H_kv, hd]``: the
-decode-attention kernel reads only positions ``< pos``, which is what
-``decode_buckets`` achieved with chunk buffers on the TPU.
+step, ``generate_tokens``, ``generate_tokens_streaming``, ``generate``,
+``generate_long``, ``long_chunk_schedule``, ``generate_long_kv``, the two
+streaming generators, ``decode_audio``). JAX runs the decode loop as a
+compiled ``lax.scan``; here it is a Python loop over steps whose position
+is a host integer, so nothing waits for the device inside it. The loop
+keeps ONE preallocated cache ``[L, 2B, S, H_kv, hd]``: the decode-attention
+kernel reads only the rows below the current one, which is what
+``decode_buckets`` achieved with chunk buffers on the TPU. The rolling cache
+of ``generate_long_kv`` is one buffer too (see ``_stream_kv_segments``).
+Sampling draws from the caller's ``torch.Generator``, one generator for the
+whole call where JAX splits its key per chunk.
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import math
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -268,18 +281,20 @@ class VauraSystem(nn.Module):
                         valid_mask: torch.Tensor,
                         generator: Optional[torch.Generator], *,
                         use_sampling: bool, temp: float, top_k: int,
-                        top_p: float, cfg_scale: float) -> None:
-        """Step ``s``: feed the token at ``s-1``, advance the cache, blend
-        CFG, sample, force the special token on invalid codebook slots and
-        write ``gen_seq[:, :, s]`` where it is still UNKNOWN (prompt tokens
-        win). Updates ``gen_seq`` and ``cache`` in place."""
+                        top_p: float, cfg_scale: float,
+                        row: Optional[int] = None) -> None:
+        """Step ``s``: feed the token at ``s-1``, advance the cache (its row
+        ``row``, by default ``s-1``), blend CFG, sample, force the special
+        token on invalid codebook slots and write ``gen_seq[:, :, s]`` where
+        it is still UNKNOWN (prompt tokens win). Updates ``gen_seq`` and
+        ``cache`` in place."""
         B = gen_seq.shape[0]
         use_cfg = cfg_scale > 1.0
         tok_in = gen_seq[:, :, s - 1:s]
         if use_cfg:
             tok_in = tok_in.repeat(2, 1, 1)
         logits = self.sampler.decode_step(tok_in, cond_seq[:, s - 1:s], cache,
-                                          s - 1)
+                                          s - 1, row)
         if use_cfg:
             logits = cfg_blend(logits[:B], logits[B:], cfg_scale)
         next_tok = sample_tokens(logits, generator=generator,
@@ -307,9 +322,12 @@ class VauraSystem(nn.Module):
         cfg_scale: float = 1.0,
         cache_dtype: Optional[torch.dtype] = None,
         decode_buckets: int = 1,
+        initial_cache: Optional[Dict[str, torch.Tensor]] = None,
     ) -> torch.Tensor:
         """Run steps ``start_step .. S-1`` and return the completed
-        ``[B, K, S]`` sequence.
+        ``[B, K, S]`` sequence. ``initial_cache`` (``Sampler.prefill``'s) is
+        the cache to continue, in place; by default a zero cache of ``S``
+        rows.
 
         ``decode_buckets`` is accepted for call compatibility with the JAX
         package and has no effect: the decode-attention kernel reads only
@@ -318,7 +336,8 @@ class VauraSystem(nn.Module):
         results differ from JAX's chunked cache only in how the float32
         sums are grouped."""
         del decode_buckets
-        cache = self.sampler.init_cache(cond_seq.shape[0], S, dtype=cache_dtype)
+        cache = (initial_cache if initial_cache is not None else
+                 self.sampler.init_cache(cond_seq.shape[0], S, dtype=cache_dtype))
         gen_seq = gen_seq_init.clone()
         vm = torch.as_tensor(valid_mask, device=gen_seq.device)
         for s in range(start_step, S):
@@ -343,6 +362,7 @@ class VauraSystem(nn.Module):
         top_p: float = 0.0,
         cfg_scale: float = 1.0,
         tokens_per_frame: Optional[int] = None,
+        remove_prompts: bool = False,
         vis_feats: Optional[torch.Tensor] = None,
         decode_to_audio: bool = True,
         dac_chunk_size: Optional[int] = None,
@@ -353,15 +373,18 @@ class VauraSystem(nn.Module):
         """Frames (or features) -> ``{"codes" [B, K, max_new_tokens],
         "audio" [B, 1, samples], "stage_ms"}``. Sampling draws from
         ``generator`` (a new one seeded with ``seed`` on the system's device
-        when none is given). ``decode_buckets`` has no effect (see
-        ``generate_tokens``). ``stage_ms`` holds the milliseconds of the
-        encoder, decode loop and DAC stages."""
+        when none is given). A prompt whose first generated step lies past
+        sequence step 16 is ingested by one ``Sampler.prefill`` and the
+        decode loop starts at that step; a shorter one runs through the
+        decode steps, which keep its tokens. ``remove_prompts`` drops the
+        prompt's timesteps from the codes. ``decode_buckets`` has no effect
+        (see ``generate_tokens``). ``stage_ms`` holds the milliseconds of
+        the encoder, decode loop and DAC stages."""
         K = self.num_codebooks
         dev = self.device
         clock = StageClock(dev)
         clock.mark("start")
-        if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(seed)
+        generator = self._generator(generator, seed)
         pattern, valid_mask, S = self.prepare_generation(max_new_tokens)
 
         if vis_feats is None and self.encoder is not None and frames is not None:
@@ -380,19 +403,28 @@ class VauraSystem(nn.Module):
             start_offset = int(audio_prompt_codes.shape[-1])
             if start_offset >= max_new_tokens:
                 raise ValueError("the prompt must be shorter than max_new_tokens")
-            first = pattern.get_first_step_with_timesteps(start_offset)
-            if first is not None and first > 16:
-                raise NotImplementedError(
-                    "prompts that reach past sequence step 16 need prefill, "
-                    "which is not ported yet")
             gen_codes[:, :, :start_offset] = audio_prompt_codes.to(dev).long()
         gen_seq, _, _ = pattern.build_pattern_sequence(gen_codes,
                                                        self.special_token_id)
         use_cfg = cfg_scale > 1.0
         cond_seq = self.build_cond_seq_for_generation(vis_feats, S,
                                                       tokens_per_frame, cfg=use_cfg)
+        # a long prompt (a long-horizon chunk carries about 3/4 of one): one
+        # causal forward writes its K/V, and the loop starts at the first
+        # step that holds a timestep to generate. Rows from there on hold
+        # K/V of the UNKNOWN placeholders (read as token 0); every step
+        # reads only rows below its own, which the loop has rewritten
+        start_step, initial_cache = 1, None
+        if start_offset > 0:
+            first = pattern.get_first_step_with_timesteps(start_offset)
+            if first is not None and first > 16:
+                tok_in = gen_seq.repeat(2, 1, 1) if use_cfg else gen_seq
+                _, initial_cache = self.sampler.prefill(tok_in.clamp_min(0),
+                                                        cond_seq)
+                start_step = first
         gen_seq = self.generate_tokens(
             cond_seq, gen_seq, generator, S=S, valid_mask=valid_mask,
+            start_step=start_step, initial_cache=initial_cache,
             use_sampling=use_sampling, temp=temp, top_k=top_k, top_p=top_p,
             cfg_scale=cfg_scale, decode_buckets=decode_buckets)
 
@@ -404,6 +436,11 @@ class VauraSystem(nn.Module):
                 "sequence/mask mismatch")
         out_codes, _, _ = pattern.revert_pattern_sequence(gen_seq, UNKNOWN_TOKEN)
         out_codes = out_codes[..., :max_new_tokens]
+        if check:
+            assert int(out_codes.min()) >= 0 and int(
+                out_codes.max()) <= self.special_token_id
+        if remove_prompts:
+            out_codes = out_codes[..., start_offset:]
         clock.mark("decode_loop")
         result: Dict[str, object] = {"codes": out_codes}
         if decode_to_audio:
@@ -411,3 +448,482 @@ class VauraSystem(nn.Module):
             clock.mark("dac")
         result["stage_ms"] = clock.ms()
         return result
+
+    # ------------------------------------------------------------------ #
+    # long horizons
+    # ------------------------------------------------------------------ #
+    def _generator(self, generator: Optional[torch.Generator],
+                   seed: int) -> torch.Generator:
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(seed)
+        return generator
+
+    @torch.no_grad()
+    def _long_encode_segments(self, frames: Optional[torch.Tensor],
+                              vis_feats_segments: Optional[torch.Tensor],
+                              chunk_size: Optional[int] = None
+                              ) -> torch.Tensor:
+        """The visual encoder ONCE over all segments of a long clip, frames
+        ``[B, S_total, C, T, H, W]`` -> features ``[B, S_total, t, D]``;
+        chunks then index these instead of encoding overlapping windows.
+        ``chunk_size`` runs the encoder over sequential batch slices. Given
+        ``vis_feats_segments`` are returned as they are. As in the JAX
+        package (``vaura.py:935-976``), the bridge is not applied here."""
+        if vis_feats_segments is not None:
+            return vis_feats_segments.to(self.device)
+        if self.encoder is None or frames is None:
+            raise ValueError("long generation needs frames and an encoder, "
+                             "or vis_feats_segments")
+        frames = frames.to(self.device)
+        B = frames.shape[0]
+        if chunk_size and B > chunk_size:
+            c = _largest_divisor(B, chunk_size)
+            return torch.cat([self.encoder(frames[i:i + c])
+                              for i in range(0, B, c)])
+        return self.encoder(frames)
+
+    @staticmethod
+    def long_chunk_schedule(total_tokens: int, stride_tokens: int,
+                            model_max_tokens: int) -> list:
+        """The NEW tokens each chunk of ``generate_long`` produces, computed
+        before any model work (the streaming path's last chunk, a client's
+        increment sizes). ``sum == total_tokens``."""
+        sizes = []
+        prompt_len = current = 0
+        while current + prompt_len < total_tokens:
+            n = min(total_tokens - current, model_max_tokens)
+            sizes.append(n - prompt_len)
+            prompt_len = max(0, n - stride_tokens)
+            current += stride_tokens
+        assert sum(sizes) == total_tokens
+        return sizes
+
+    def _long_chunk_tokens(self, generator: torch.Generator,
+                           vis_feats_segments: torch.Tensor, *,
+                           total_tokens: int, stride_tokens: int,
+                           model_max_tokens: int, vfps: float,
+                           frames_per_segment: int, tokens_per_frame: int,
+                           decode_buckets: int, sampling: dict):
+        """Generator over the chunks of ``generate_long``: yields each
+        chunk's NEW tokens ``[B, K, n_new]`` (the carried prompt stripped).
+        A chunk generates at most ``model_max_tokens`` over the video
+        segments its time span covers (modulo the video's length) and keeps
+        its last ``chunk - stride`` tokens as the next chunk's prompt
+        (reference ``scripts/generate.py:327-370``); the sizes are
+        ``long_chunk_schedule``'s."""
+        frame_rate = 86  # codec tokens per second
+        B, S_total, t_seg, D = vis_feats_segments.shape
+        sampling = dict(sampling)
+        check = bool(sampling.pop("check", False))
+        prompt: Optional[torch.Tensor] = None
+        sizes = self.long_chunk_schedule(total_tokens, stride_tokens,
+                                         model_max_tokens)
+        for i, n_new in enumerate(sizes):
+            time_offset = i * stride_tokens / frame_rate
+            n_chunk = n_new + (0 if prompt is None else prompt.shape[-1])
+            first_frame = math.ceil(time_offset * vfps)
+            n_frames = math.ceil(n_chunk / frame_rate * vfps)
+            seg_lo = first_frame // frames_per_segment
+            seg_hi = (first_frame + n_frames) // frames_per_segment
+            segs = np.arange(seg_lo, max(seg_hi, seg_lo + 1)) % S_total
+            sel = vis_feats_segments[:, torch.as_tensor(segs)].reshape(
+                B, len(segs) * t_seg, D)
+            codes = self.generate(
+                None, generator=generator, vis_feats=sel,
+                audio_prompt_codes=prompt, max_new_tokens=n_chunk,
+                tokens_per_frame=tokens_per_frame, decode_to_audio=False,
+                decode_buckets=decode_buckets, **sampling)["codes"]
+            if check:
+                assert int(codes.min()) >= 0
+                assert int(codes.max()) <= self.special_token_id
+                if prompt is not None:
+                    assert torch.equal(codes[..., :prompt.shape[-1]], prompt)
+            new = codes if prompt is None else codes[:, :, prompt.shape[-1]:]
+            assert new.shape[-1] == n_new  # schedule <-> generate contract
+            yield new
+            prompt = codes[:, :, stride_tokens:]
+
+    @torch.no_grad()
+    def generate_long(
+        self,
+        frames: Optional[torch.Tensor] = None,   # [B, S_total, C, T, H, W]
+        *,
+        generator: Optional[torch.Generator] = None,
+        seed: int = 0,
+        total_tokens: int,
+        stride_tokens: int,
+        model_max_tokens: int = 221,
+        vfps: float = 25.0,
+        frames_per_segment: int = 16,
+        tokens_per_frame: int = 7,
+        vis_feats_segments: Optional[torch.Tensor] = None,  # [B, S_total, t, D]
+        decode_to_audio: bool = True,
+        dac_chunk_size: Optional[int] = None,
+        encoder_chunk_size: Optional[int] = None,
+        decode_buckets: int = 2,
+        **sampling,
+    ) -> Dict[str, object]:
+        """Long generation in chunks with the prompt carried over (see
+        ``_long_chunk_tokens``): ``{"codes" [B, K, total_tokens], "audio",
+        "stage_ms"}``. The encoder runs once over all segments. Every chunk
+        after the first ingests its prompt with ``Sampler.prefill``.
+        ``sampling``: ``generate``'s sampling keywords and ``check``."""
+        clock = StageClock(self.device)
+        clock.mark("start")
+        generator = self._generator(generator, seed)
+        feats = self._long_encode_segments(frames, vis_feats_segments,
+                                           encoder_chunk_size)
+        clock.mark("encoder")
+        codes = torch.cat(list(self._long_chunk_tokens(
+            generator, feats, total_tokens=total_tokens,
+            stride_tokens=stride_tokens, model_max_tokens=model_max_tokens,
+            vfps=vfps, frames_per_segment=frames_per_segment,
+            tokens_per_frame=tokens_per_frame, decode_buckets=decode_buckets,
+            sampling=sampling)), dim=-1)[..., :total_tokens]
+        clock.mark("decode_loop")
+        result: Dict[str, object] = {"codes": codes}
+        if decode_to_audio:
+            result["audio"] = self.decode_audio(codes, chunk_size=dac_chunk_size)
+            clock.mark("dac")
+        result["stage_ms"] = clock.ms()
+        return result
+
+    def _longkv_setup(self, frames, vis_feats_segments, *, total_tokens: int,
+                      tokens_per_frame: int,
+                      encoder_chunk_size: Optional[int], cfg_scale: float):
+        """What both rolling-cache paths start from: the features of all
+        segments, laid out over the whole horizon (segments wrap modulo the
+        video's length), the conditioning and the UNKNOWN sequence to fill.
+        Returns ``(pattern, valid_mask, S, cond_seq, gen_seq)``."""
+        K = self.num_codebooks
+        pattern, valid_mask, S = self.prepare_generation(total_tokens)
+        if self.sampler_config.block_size < S:
+            raise ValueError(
+                f"generate_long_kv: horizon needs {S} RoPE positions but "
+                f"sampler block_size is {self.sampler_config.block_size} "
+                "— raise SamplerConfig.block_size_audio")
+        feats = self._long_encode_segments(frames, vis_feats_segments,
+                                           encoder_chunk_size)
+        B, S_total, t_seg, D = feats.shape
+        n_feat = -(-S // tokens_per_frame)
+        n_seg = -(-n_feat // t_seg)
+        segs = torch.as_tensor(np.arange(n_seg) % S_total)
+        vis_all = feats[:, segs].reshape(B, n_seg * t_seg, D)
+        cond_seq = self.build_cond_seq_for_generation(
+            vis_all, S, tokens_per_frame, cfg=cfg_scale > 1.0)
+        gen_codes = torch.full((B, K, total_tokens), UNKNOWN_TOKEN,
+                               dtype=torch.long, device=self.device)
+        gen_seq, _, _ = pattern.build_pattern_sequence(gen_codes,
+                                                       self.special_token_id)
+        return pattern, valid_mask, S, cond_seq, gen_seq
+
+    @staticmethod
+    def rolling_cache_plan(S: int, chunk_steps: int, window_chunks: int,
+                           sink_chunks: int):
+        """The chunks of ``_stream_kv_segments``: ``(eff, bounds, kept)``
+        with ``eff[j]`` the step that ends segment ``j``, chunk ``j`` the
+        positions ``bounds[j] .. bounds[j + 1] - 1`` (the ones segment ``j``
+        writes), and ``kept[j]`` the chunks segment ``j`` attends: the
+        ``sink_chunks`` first and the last ``window_chunks`` others up to
+        ``j``, in order. A chunk that leaves the window never returns."""
+        C = int(chunk_steps)
+        if C % 8 or window_chunks < 1:
+            raise ValueError("chunk_steps must be a multiple of 8 and "
+                             "window_chunks at least 1")
+        eff = list(range(C, S, C)) + [S]
+        bounds = [0] + [h - 1 for h in eff[:-1]] + [S]
+        kept_per_seg, kept = [], []
+        for j in range(len(eff)):
+            kept = kept + [j]
+            sink = [i for i in kept if i < sink_chunks]
+            roll = [i for i in kept if i >= sink_chunks][-window_chunks:]
+            kept = sink + roll
+            kept_per_seg.append(kept)
+        return eff, bounds, kept_per_seg
+
+    @torch.no_grad()
+    def _stream_kv_segments(
+        self,
+        cond_seq: torch.Tensor,
+        gen_seq_init: torch.Tensor,
+        generator: Optional[torch.Generator],
+        *,
+        S: int,
+        valid_mask: np.ndarray,
+        window_chunks: int = 4,
+        chunk_steps: int = 56,
+        sink_chunks: int = 0,
+        cache_dtype: Optional[torch.dtype] = None,
+        use_sampling: bool = True,
+        temp: float = 1.0,
+        top_k: int = 256,
+        top_p: float = 0.0,
+        cfg_scale: float = 1.0,
+    ):
+        """Generator behind ``generate_tokens_streaming``: yields ``(hi,
+        gen_seq)`` after each segment, positions ``[0, hi)`` of ``gen_seq``
+        final (it is the one buffer the loop fills: consume it before
+        resuming).
+
+        The segments and the chunks each attends are
+        ``rolling_cache_plan``'s, as in the JAX package (JAX
+        ``vaura.py:555-711``), which carries a tuple of chunk buffers and
+        drops a chunk by not carrying it. Here the kept chunks lie packed,
+        in order, in ONE buffer of as many rows as the most any segment
+        keeps: when a chunk leaves the window, the chunks after it move
+        down by its size in one copy (at most ``window_chunks *
+        chunk_steps`` rows a segment), and the new chunk takes the rows
+        after them. A step then attends every buffer row below its own, the
+        one bound the decode-attention kernel knows. Positions stay GLOBAL:
+        a step's RoPE row and conditioning are those of its position,
+        ``row`` (its buffer row) is what ``decode_step`` writes and bounds
+        attention with; RoPE scores depend only on position differences, so
+        K/V keep their rows' values when they move."""
+        eff, bounds, kept_per_seg = self.rolling_cache_plan(
+            S, chunk_steps, window_chunks, sink_chunks)
+        size = lambda i: bounds[i + 1] - bounds[i]
+        rows = max(sum(size(i) for i in kept) for kept in kept_per_seg)
+        cache = self.sampler.init_cache(cond_seq.shape[0], rows,
+                                        dtype=cache_dtype)
+        buffers = [t for n, t in cache.items() if n != "positions"]
+        gen_seq = gen_seq_init.clone()
+        vm = torch.as_tensor(valid_mask, device=gen_seq.device)
+        offset: Dict[int, int] = {}  # chunk -> its first buffer row
+        lo = 1
+        for j, hi in enumerate(eff):
+            carried, packed = kept_per_seg[j][:-1], {}
+            for i in carried:
+                packed[i] = sum(size(c) for c in packed)
+            moved = [i for i in carried if offset[i] != packed[i]]
+            if moved:  # the chunks after the dropped one, contiguous
+                src, dst = offset[moved[0]], packed[moved[0]]
+                n = sum(size(i) for i in moved)
+                for t in buffers:
+                    t[:, :, dst:dst + n] = t[:, :, src:src + n].clone()
+            offset = dict(packed)
+            offset[j] = sum(size(i) for i in carried)
+            for s in range(lo, hi):
+                self.generation_step(
+                    cache, gen_seq, cond_seq, s, vm, generator,
+                    use_sampling=use_sampling, temp=temp, top_k=top_k,
+                    top_p=top_p, cfg_scale=cfg_scale,
+                    row=offset[j] + (s - 1) - bounds[j])
+            lo = hi
+            yield hi, gen_seq
+
+    @torch.no_grad()
+    def generate_tokens_streaming(
+        self,
+        cond_seq: torch.Tensor,
+        gen_seq_init: torch.Tensor,
+        generator: Optional[torch.Generator],
+        *,
+        S: int,
+        valid_mask: np.ndarray,
+        window_chunks: int = 4,
+        chunk_steps: int = 56,
+        sink_chunks: int = 0,
+        cache_dtype: Optional[torch.dtype] = None,
+        use_sampling: bool = True,
+        temp: float = 1.0,
+        top_k: int = 256,
+        top_p: float = 0.0,
+        cfg_scale: float = 1.0,
+    ) -> torch.Tensor:
+        """One continuous decode over all ``S`` steps with the rolling cache
+        of ``_stream_kv_segments``: a step attends the ``sink_chunks``
+        first chunks and the last ``window_chunks`` chunks of
+        ``chunk_steps`` steps (its own included). With ``window_chunks *
+        chunk_steps >= S`` no chunk drops and the tokens are
+        ``generate_tokens``'s. Returns the completed ``[B, K, S]``
+        sequence."""
+        out = gen_seq_init
+        for _, out in self._stream_kv_segments(
+                cond_seq, gen_seq_init, generator, S=S,
+                valid_mask=valid_mask, window_chunks=window_chunks,
+                chunk_steps=chunk_steps, sink_chunks=sink_chunks,
+                cache_dtype=cache_dtype, use_sampling=use_sampling,
+                temp=temp, top_k=top_k, top_p=top_p, cfg_scale=cfg_scale):
+            pass
+        return out
+
+    @torch.no_grad()
+    def generate_long_kv(
+        self,
+        frames: Optional[torch.Tensor] = None,   # [B, S_total, C, T, H, W]
+        *,
+        generator: Optional[torch.Generator] = None,
+        seed: int = 0,
+        total_tokens: int,
+        vfps: float = 25.0,
+        frames_per_segment: int = 16,
+        tokens_per_frame: int = 7,
+        vis_feats_segments: Optional[torch.Tensor] = None,  # [B, S_total, t, D]
+        window_chunks: int = 4,
+        chunk_steps: int = 56,
+        sink_chunks: int = 0,
+        decode_to_audio: bool = True,
+        dac_chunk_size: Optional[int] = None,
+        encoder_chunk_size: Optional[int] = None,
+        check: bool = False,
+        **sampling,
+    ) -> Dict[str, object]:
+        """Long generation as ONE decode over the whole horizon with the
+        rolling cache of ``generate_tokens_streaming``: no prompt is
+        ingested twice. ``{"codes" [B, K, total_tokens], "audio",
+        "stage_ms"}``. The RoPE table must cover the horizon
+        (``block_size >= S``, else ``ValueError``). With ``window_chunks *
+        chunk_steps >= S`` the tokens are ``generate(max_new_tokens=
+        total_tokens)``'s; with a smaller window every position's K/V keep
+        the history they were computed with (JAX ``vaura.py:1151-1233``)."""
+        clock = StageClock(self.device)
+        clock.mark("start")
+        generator = self._generator(generator, seed)
+        pattern, valid_mask, S, cond_seq, gen_seq = self._longkv_setup(
+            frames, vis_feats_segments, total_tokens=total_tokens,
+            tokens_per_frame=tokens_per_frame,
+            encoder_chunk_size=encoder_chunk_size,
+            cfg_scale=float(sampling.get("cfg_scale", 1.0)))
+        clock.mark("encoder")
+        gen_seq = self.generate_tokens_streaming(
+            cond_seq, gen_seq, generator, S=S, valid_mask=valid_mask,
+            window_chunks=window_chunks, chunk_steps=chunk_steps,
+            sink_chunks=sink_chunks, **sampling)
+        codes, _, _ = pattern.revert_pattern_sequence(gen_seq, UNKNOWN_TOKEN)
+        codes = codes[..., :total_tokens]
+        if check:
+            assert int(codes.min()) >= 0
+            assert int(codes.max()) <= self.special_token_id
+        clock.mark("decode_loop")
+        result: Dict[str, object] = {"codes": codes}
+        if decode_to_audio:
+            result["audio"] = self.decode_audio(codes, chunk_size=dac_chunk_size)
+            clock.mark("dac")
+        result["stage_ms"] = clock.ms()
+        return result
+
+    def _emit(self, codes: torch.Tensor, emitted: int, n_known: int,
+              final: bool, margin: int):
+        """The waveform increment once ``n_known`` timesteps of ``codes``
+        are final: samples of timesteps ``emitted .. emit_to`` (up to
+        ``margin`` short of ``n_known`` until the final call), cut from a
+        DAC decode of a window with ``margin`` timesteps of context on each
+        side, whose interior equals the full decode's. Returns ``(audio
+        [B, samples], emit_to)``."""
+        hop = self.dac.cfg.hop_length
+        emit_to = n_known if final else max(emitted, n_known - margin)
+        if emit_to <= emitted:  # the margin still holds back all that is known
+            return codes.new_zeros((codes.shape[0], 0), dtype=torch.float32), emitted
+        win_lo = max(0, emitted - margin)
+        wav = self.decode_audio(codes[..., win_lo:n_known])
+        audio = wav[..., (emitted - win_lo) * hop:(emit_to - win_lo) * hop]
+        return audio.reshape(wav.shape[0], -1), emit_to
+
+    @torch.no_grad()
+    def generate_long_kv_stream(
+        self,
+        frames: Optional[torch.Tensor] = None,   # [B, S_total, C, T, H, W]
+        *,
+        generator: Optional[torch.Generator] = None,
+        seed: int = 0,
+        total_tokens: int,
+        vfps: float = 25.0,
+        frames_per_segment: int = 16,
+        tokens_per_frame: int = 7,
+        vis_feats_segments: Optional[torch.Tensor] = None,
+        window_chunks: int = 4,
+        chunk_steps: int = 56,
+        sink_chunks: int = 0,
+        emit_margin_tokens: Optional[int] = None,
+        encoder_chunk_size: Optional[int] = None,
+        **sampling,
+    ):
+        """``generate_long_kv`` as a generator of one dict per segment that
+        made timesteps final: ``{"codes" [B, K, n_new], "audio" [B,
+        n_emit * hop], "token_start"}``, ``token_start`` the timestep of
+        ``audio[..., 0]``. Codes are ``generate_long_kv``'s under the same
+        generator, and the audio increments concatenate to its waveform
+        (``emit_margin_tokens``, by default the decoder's receptive field,
+        of context on each side of a windowed decode). A timestep is final
+        once every codebook's slot of it lies below the segment's end, so
+        emission trails the decode by the pattern's largest delay and the
+        margin (JAX ``vaura.py:1235-1349``)."""
+        generator = self._generator(generator, seed)
+        pattern, valid_mask, S, cond_seq, gen_seq = self._longkv_setup(
+            frames, vis_feats_segments, total_tokens=total_tokens,
+            tokens_per_frame=tokens_per_frame,
+            encoder_chunk_size=encoder_chunk_size,
+            cfg_scale=float(sampling.get("cfg_scale", 1.0)))
+        if emit_margin_tokens is None:
+            emit_margin_tokens = self.dac.cfg.decoder_receptive_field_frames
+        # timestep t is final once the steps up to known_bar[t] have run
+        last_step = np.zeros(total_tokens, dtype=np.int64)
+        for s, coords in enumerate(pattern.layout):
+            for t, _ in coords:
+                if t < total_tokens:
+                    last_step[t] = max(last_step[t], s)
+        known_bar = np.maximum.accumulate(last_step) + 1
+        emitted = n_prev = 0
+        for hi, seq in self._stream_kv_segments(
+                cond_seq, gen_seq, generator, S=S, valid_mask=valid_mask,
+                window_chunks=window_chunks, chunk_steps=chunk_steps,
+                sink_chunks=sink_chunks, **sampling):
+            final = hi >= S
+            n_known = (total_tokens if final else
+                       min(int(np.searchsorted(known_bar, hi, side="right")),
+                           total_tokens))
+            if n_known <= n_prev and not final:
+                continue  # the segment made no timestep final
+            codes, _, _ = pattern.revert_pattern_sequence(seq, UNKNOWN_TOKEN)
+            codes = codes[..., :total_tokens]
+            audio, emit_to = self._emit(codes, emitted, n_known, final,
+                                        emit_margin_tokens)
+            yield {"codes": codes[..., n_prev:n_known], "audio": audio,
+                   "token_start": emitted}
+            emitted, n_prev = emit_to, n_known
+
+    @torch.no_grad()
+    def generate_long_stream(
+        self,
+        frames: Optional[torch.Tensor] = None,   # [B, S_total, C, T, H, W]
+        *,
+        generator: Optional[torch.Generator] = None,
+        seed: int = 0,
+        total_tokens: int,
+        stride_tokens: int,
+        model_max_tokens: int = 221,
+        vfps: float = 25.0,
+        frames_per_segment: int = 16,
+        tokens_per_frame: int = 7,
+        vis_feats_segments: Optional[torch.Tensor] = None,
+        emit_margin_tokens: Optional[int] = None,
+        encoder_chunk_size: Optional[int] = None,
+        decode_buckets: int = 2,
+        **sampling,
+    ):
+        """``generate_long`` as a generator of one dict per chunk, as soon
+        as its tokens exist: ``{"codes" [B, K, n_new], "audio" [B,
+        n_emit * hop], "token_start"}``. Codes are ``generate_long``'s
+        under the same generator and the audio increments concatenate to
+        its waveform (see ``generate_long_kv_stream``); the last chunk
+        flushes the margin held back (JAX ``vaura.py:1351-1443``)."""
+        generator = self._generator(generator, seed)
+        feats = self._long_encode_segments(frames, vis_feats_segments,
+                                           encoder_chunk_size)
+        if emit_margin_tokens is None:
+            emit_margin_tokens = self.dac.cfg.decoder_receptive_field_frames
+        n_chunks = len(self.long_chunk_schedule(total_tokens, stride_tokens,
+                                                model_max_tokens))
+        codes: Optional[torch.Tensor] = None
+        emitted = 0
+        for i, new in enumerate(self._long_chunk_tokens(
+                generator, feats, total_tokens=total_tokens,
+                stride_tokens=stride_tokens, model_max_tokens=model_max_tokens,
+                vfps=vfps, frames_per_segment=frames_per_segment,
+                tokens_per_frame=tokens_per_frame,
+                decode_buckets=decode_buckets, sampling=sampling)):
+            codes = new if codes is None else torch.cat([codes, new], dim=-1)
+            audio, emit_to = self._emit(codes, emitted, codes.shape[-1],
+                                        i == n_chunks - 1, emit_margin_tokens)
+            yield {"codes": new, "audio": audio, "token_start": emitted}
+            emitted = emit_to

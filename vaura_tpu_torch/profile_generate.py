@@ -1,13 +1,19 @@
 """Where the time of one flagship generation goes on the card.
 
     python3 -m vaura_tpu_torch.profile_generate [--batch 2] [--out chiprun_out]
+        [--quantize-cache] [--quantize-weights] [--long {reprefill,stream_kv}]
 
 Runs the flagship path (``flagship.py``: frames -> codes -> audio, CFG 6.0,
 top-k 128, 221 tokens) once to warm up and once timed with CUDA events per
 stage, then once more under ``torch.profiler`` and reports, per stage, the
 wall time, the device time summed over kernels, the device busy share and
-the launches, plus the kernels that take the most device time. Writes
-``profile_generate.json`` into ``--out``. Needs a CUDA card.
+the launches, plus the kernels that take the most device time.
+``--quantize-cache`` runs it with the int8 KV cache (the JAX package's
+serving default), ``--quantize-weights`` with int8 sampler weights. ``--long``
+runs ``flagship.py``'s long-horizon configuration instead (``bench.py``'s
+long-mode defaults: 10.24 s from 16 segments of frames, ``generate_long`` at
+a 0.64 s stride or ``generate_long_kv`` with a window of 4 x 56 steps). Writes
+``profile_generate[_<mode>].json`` into ``--out``. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -27,37 +33,42 @@ def nvidia_smi() -> str:
     return smi.stdout.strip()
 
 
-def stage_report(events, stages) -> dict:
+def stage_report(prof, stages) -> dict:
     """Per ``record_function`` range named in ``stages``: its profiled wall
     time, the device time summed over the kernels started inside it, the
-    device busy share, the launches and the kernels that take most time."""
+    device busy share, the launches and the kernels that take most time.
+    Reads the profiler's raw events (a long generation records millions;
+    ``prof.events()`` would build a Python object tree of them all)."""
+    events = prof.profiler.kineto_results.events()
     # the longest range of each name: autograd's worker threads repeat the
     # name of the range they were started under
     ranges = {}
+    kernels = []  # (start, end, name) of device-side events
     for e in events:
-        if e.name in stages:
-            a, b = e.time_range.start, e.time_range.end
-            if e.name not in ranges or b - a > ranges[e.name][1] - ranges[e.name][0]:
-                ranges[e.name] = (a, b)
-    # device-side events, without the stages' own annotation ranges
-    kernels = [e for e in events
-               if e.device_type.name == "CUDA" and e.name not in stages]
+        name = e.name()
+        if e.device_type().name == "CUDA":
+            if name not in stages:  # not the stages' own annotation ranges
+                kernels.append((e.start_ns(), e.end_ns(), name))
+        elif name in stages:
+            a, b = e.start_ns(), e.end_ns()
+            if name not in ranges or b - a > ranges[name][1] - ranges[name][0]:
+                ranges[name] = (a, b)
     out = {}
     for name, (a, b) in ranges.items():
-        inside = [k for k in kernels if a <= k.time_range.start < b]
-        busy_us = sum(k.time_range.end - k.time_range.start for k in inside)
+        inside = [k for k in kernels if a <= k[0] < b]
+        busy_ns = sum(k1 - k0 for k0, k1, _ in inside)
         by_name = {}
-        for k in inside:
-            d = by_name.setdefault(k.name, [0, 0.0])
+        for k0, k1, kname in inside:
+            d = by_name.setdefault(kname, [0, 0])
             d[0] += 1
-            d[1] += k.time_range.end - k.time_range.start
+            d[1] += k1 - k0
         top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
         out[name] = {
-            "profiled_wall_ms": (b - a) / 1e3,
-            "device_busy_ms": busy_us / 1e3,
-            "busy_share": busy_us / max(b - a, 1),
+            "profiled_wall_ms": (b - a) / 1e6,
+            "device_busy_ms": busy_ns / 1e6,
+            "busy_share": busy_ns / max(b - a, 1),
             "launches": len(inside),
-            "top_kernels": [{"name": n[:90], "launches": c, "ms": t / 1e3}
+            "top_kernels": [{"name": n[:90], "launches": c, "ms": t / 1e6}
                             for n, (c, t) in top],
         }
     return out
@@ -76,47 +87,108 @@ def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from vaura_tpu_torch.flagship import GENERATE_KW, flagship_system, random_frames
+    from vaura_tpu_torch.flagship import (
+        GENERATE_KW,
+        LONG_KV_KW,
+        LONG_SAMPLER,
+        LONG_SEGMENTS,
+        LONG_STRIDE_TOKENS,
+        LONG_TOKENS,
+        TOKENS_PER_SECOND,
+        flagship_system,
+        random_frames,
+    )
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--out", default="chiprun_out")
+    ap.add_argument("--quantize-cache", action="store_true")
+    ap.add_argument("--quantize-weights", action="store_true")
+    ap.add_argument("--long", choices=["reprefill", "stream_kv"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_generate needs a CUDA card")
 
+    overrides = {"quantize_cache": args.quantize_cache,
+                 "quantize_weights": args.quantize_weights}
+    if args.long:
+        overrides.update(LONG_SAMPLER)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    system = flagship_system("cuda", gen)
-    frames = random_frames(args.batch, gen, "cuda")
-    system.generate(frames, seed=0, **GENERATE_KW)  # build kernels, warm up
+    system = flagship_system("cuda", gen, sampler_overrides=overrides)
+    if args.long:
+        frames = random_frames(args.batch, gen, "cuda", segments=LONG_SEGMENTS)
+        kw = {k: GENERATE_KW[k] for k in ("cfg_scale", "top_k",
+                                          "tokens_per_frame")}
+        kw["total_tokens"] = LONG_TOKENS
+        if args.long == "reprefill":
+            kw["stride_tokens"] = LONG_STRIDE_TOKENS
+            fn = system.generate_long
+        else:
+            kw.update(LONG_KV_KW)
+            fn = system.generate_long_kv
+
+        def run():
+            return fn(frames, seed=0, **kw)
+
+        def encode():
+            return system._long_encode_segments(frames, None)
+
+        def decode_loop(feats):
+            return fn(vis_feats_segments=feats, seed=0, decode_to_audio=False,
+                      **kw)
+    else:
+        frames = random_frames(args.batch, gen, "cuda")
+
+        def run():
+            return system.generate(frames, seed=0, **GENERATE_KW)
+
+        def encode():
+            return system.visual_features(frames)
+
+        def decode_loop(feats):
+            return system.generate(vis_feats=feats, seed=0,
+                                   decode_to_audio=False, **GENERATE_KW)
+
+    run()  # build kernels, warm up
     torch.cuda.synchronize()
     t0 = time.time()
-    timed = system.generate(frames, seed=0, **GENERATE_KW)
+    timed = run()
+    torch.cuda.synchronize()
     wall_s = time.time() - t0
     stage_ms = timed["stage_ms"]
+    codes_shape = list(timed["codes"].shape)
+    audio_s = args.batch * codes_shape[-1] / TOKENS_PER_SECOND
 
     # the same call split by stage, under the profiler
     stages = ("encoder", "decode_loop", "dac")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         with record_function("encoder"):
-            feats = system.visual_features(frames)
+            feats = encode()
             torch.cuda.synchronize()
         with record_function("decode_loop"):
-            out = system.generate(vis_feats=feats, seed=0, decode_to_audio=False,
-                                  **GENERATE_KW)
+            out = decode_loop(feats)
             torch.cuda.synchronize()
         with record_function("dac"):
             system.decode_audio(out["codes"])
             torch.cuda.synchronize()
 
+    mode = ("int8_cache" if args.quantize_cache else "") + (
+        "_int8_weights" if args.quantize_weights else "")
+    if args.long:
+        mode = f"{mode}_long_{args.long}"
+    mode = mode.strip("_")
     report = {"device": torch.cuda.get_device_name(0), "batch": args.batch,
-              "nvidia_smi": nvidia_smi(), "wall_s": wall_s,
-              "stage_ms": stage_ms, "stages": stage_report(prof.events(), stages)}
+              "nvidia_smi": nvidia_smi(), "mode": mode or "bf16",
+              "codes_shape": codes_shape, "audio_seconds": audio_s,
+              "wall_s": wall_s, "audio_s_per_s": audio_s / wall_s,
+              "stage_ms": stage_ms, "stages": stage_report(prof, stages)}
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "profile_generate.json"), "w") as f:
+    name = f"profile_generate_{mode}.json" if mode else "profile_generate.json"
+    with open(os.path.join(args.out, name), "w") as f:
         json.dump(report, f, indent=1)
-    print(f"{report['device']} ({report['nvidia_smi']}), batch {args.batch}: "
-          f"wall {wall_s:.3f} s, stages (ms) {stage_ms}")
+    print(f"{report['device']} ({report['nvidia_smi']}), {report['mode']}, "
+          f"batch {args.batch}, codes {codes_shape}: wall {wall_s:.3f} s "
+          f"({report['audio_s_per_s']:.3f} audio-s/s), stages (ms) {stage_ms}")
     print_stages(report["stages"])
     return 0
 

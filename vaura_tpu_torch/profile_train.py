@@ -98,7 +98,7 @@ def main() -> int:
     report = {"device": torch.cuda.get_device_name(0), "batch": args.batch,
               "remat": args.remat, "nvidia_smi": nvidia_smi(),
               "step_ms": timed, "peak_mem_gib": peak_gib,
-              "stages": stage_report(prof.events(), STAGES)}
+              "stages": stage_report(prof, STAGES)}
     os.makedirs(args.out, exist_ok=True)
     name = "profile_train_remat.json" if args.remat else "profile_train.json"
     with open(os.path.join(args.out, name), "w") as f:
