@@ -47,10 +47,21 @@ result line):
   7. reference  the same modules at flagship widths, cut depth, on a small
              input: the card (kernels) against the CPU (plain versions),
              for generation (bf16 and int8 caches, ``prefill``) and for the
-             training loss and its gradients.
+             training loss and its gradients;
+  8. action  the generate action as a user runs it (``vaura_tpu_torch.main``
+             from the repo's configs, the dummy datamodule, one batch):
+             ``configs/generate_vgg.yaml`` at its batch of 16 with the bf16
+             cache and with ``quantize=true``, and
+             ``configs/generate_vgg_sparse.yaml`` (5.12 s) with
+             ``long_mode=stream_kv`` at batch 2; every clip written as a
+             finite WAV of the expected length with codes in [0, 1024), the
+             decode kernel (its int8 instantiation under ``quantize``) and
+             both encoder kernels launched; WAVs under
+             ``chiprun_out/action/``.
 
-It prints the kernels JSON line, the card's name and power limit, and as its
-last line ``{"ok": true, "device": {...}}``. Details go to
+It prints the action runs' wall times and audio-s/s (``action: {...}``),
+the kernels JSON line, the card's name and power limit, and as its last
+line ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``. It needs one CUDA card and exits non-zero
 without one.
 """
@@ -1236,6 +1247,111 @@ def phase_reference(gen, report):
     _reference_int8(gen, res)
 
 
+# the generate action's runs: (tag, config, extra CLI arguments, batch,
+# tokens); every run takes the dummy datamodule, one batch, and writes its
+# WAV and codes files under chiprun_out/action/<tag>
+ACTION_RUNS = (
+    ("vgg_bf16", "configs/generate_vgg.yaml", [], 16, int(2.56 * 86)),
+    ("vgg_int8", "configs/generate_vgg.yaml", ["quantize=true"], 16,
+     int(2.56 * 86)),
+    ("sparse_stream_kv", "configs/generate_vgg_sparse.yaml",
+     ["long_mode=stream_kv", "dataloader.batch_size=2",
+      "dataloader.video_length=5.12", "dataloader.num_clips=8"], 2,
+     int(5.12 * 86)),
+)
+
+
+def phase_action(gen, report):
+    """The generate action as a user runs it, ``vaura_tpu_torch.main`` from
+    the repo's configs (the flagship model of ``configs/vaura_defaults.yaml``
+    with seeded random weights, the dummy datamodule): ``generate_vgg.yaml``
+    at its own batch of 16 with the bf16 cache and with ``quantize=true``,
+    and ``generate_vgg_sparse.yaml`` (5.12 s) with ``long_mode=stream_kv`` at
+    batch 2. Counters zeroed before and read after each run; each run must
+    generate its whole batch, write finite WAVs of the expected length and
+    codes in [0, 1024), and launch its decode kernel and both encoder
+    kernels."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from vaura_tpu_torch.main import main
+    from vaura_tpu_torch.ops.audio import read_wav
+    from vaura_tpu_torch.ops.patterns import DelayedPatternProvider
+
+    root = os.path.join(OUT_DIR, "action")
+    shutil.rmtree(root, ignore_errors=True)
+    res, problems, total = {}, [], {}
+    for tag, config, extra, batch, tokens in ACTION_RUNS:
+        out_dir = os.path.join(root, tag)
+        argv = [f"config={os.path.join(ROOT, config)}",
+                "dataloader.dataset_type=dummy", "dataloader.num_workers=0",
+                "max_batches=1", "return_sampled_indices=true",
+                f"output_dir={out_dir}", *extra]
+        steps = DelayedPatternProvider(9).get_pattern(tokens)._build_seq_tables(
+            tokens)[1].shape[1] - 1
+        decode = "decode_attention_int8" if "quantize=true" in extra else \
+            "decode_attention"
+        want = {"decode_attention": 0, "decode_attention_int8": 0,
+                "encoder_attention": 24, "encoder_mlp": 12,
+                "grouped_cls_attention": 0}
+        want[decode] = 24 * steps
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        _zero_counters()
+        t0 = time.time()
+        result = main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = _counters()
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        audio_s = batch * tokens / 86
+        stage_ms = result.get("stage_ms", {})
+        res[tag] = {"config": config, "extra": extra, "batch": batch,
+                    "tokens": tokens, "wall_s": wall,
+                    "audio_s_per_s": audio_s / wall, "stage_ms": stage_ms,
+                    "decode_loop_share": stage_ms.get("decode_loop", 0.0)
+                    / 1e3 / wall,
+                    "num_generated": result["num_generated"],
+                    "launches": launches, "expected_launches": want}
+        log(f"[action] {tag}: {config} {' '.join(extra)}: "
+            f"{result['num_generated']} clips, wall {wall:.2f} s, "
+            f"{audio_s / wall:.3f} audio-s/s, stages (ms) "
+            + ", ".join(f"{k} {v:.1f}" for k, v in stage_ms.items())
+            + f", launches {launches}")
+        if result["num_generated"] != batch:
+            problems.append(f"{tag}: {result['num_generated']} clips of "
+                            f"{batch}")
+        if launches != want:
+            problems.append(f"{tag}: launches {launches}, expected {want}")
+        for i in range(batch):
+            wav_path = os.path.join(out_dir, f"{i}.wav")
+            codes_path = os.path.join(out_dir, f"{i}.codes.npy")
+            if not (os.path.exists(wav_path) and os.path.exists(codes_path)):
+                problems.append(f"{tag}: clip {i} not written")
+                continue
+            wav, sr = read_wav(wav_path)
+            codes = np.load(codes_path)
+            if (sr != 44100 or wav.shape != (1, tokens * 512)
+                    or not np.isfinite(wav).all() or float(wav.std()) == 0.0):
+                problems.append(f"{tag}: clip {i} wav {wav.shape} at {sr} Hz, "
+                                f"std {float(wav.std())}")
+            if codes.shape != (9, tokens) or codes.min() < 0 or codes.max() >= 1024:
+                problems.append(f"{tag}: clip {i} codes {codes.shape} in "
+                                f"[{codes.min()}, {codes.max()}]")
+    res["launches"] = total
+    report["action"] = res
+    print("action: " + json.dumps({t: {k: res[t][k] for k in (
+        "batch", "tokens", "wall_s", "audio_s_per_s", "decode_loop_share")}
+        for t, *_ in ACTION_RUNS}), flush=True)
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return total
+
+
 # ---------------------------------------------------------------------------
 def main() -> int:
     try:
@@ -1292,17 +1408,18 @@ def main() -> int:
     train_launches = run("train", phase_train, gen, report) or {}
     run("long", phase_long, gen, report)
     run("reference", phase_reference, gen, report)
+    action_launches = run("action", phase_action, gen, report) or {}
 
-    # each kernel's count on the main path that runs it: generation for the
+    # each kernel's count on the main paths that run it: generation for the
     # decode and fused encoder kernels, generation with the int8 cache for
     # the int8 decode kernel, the three training steps for the grouped
-    # attention
+    # attention, and the generate action's three runs
     for entry in kernels:
         name = entry["name"]
         entry["launches"] = (
             launches.get(name, 0) + train_launches.get(name, 0)
             + (int8_launches.get(name, 0) if name == "decode_attention_int8"
-               else 0))
+               else 0) + action_launches.get(name, 0))
     report["kernels"] = kernels
     report["failed"] = failed
     os.makedirs(OUT_DIR, exist_ok=True)

@@ -102,3 +102,29 @@ def test_a_changed_header_rebuilds_every_library(tmp_path, monkeypatch):
     changed_header = build._target("k")
     (tmp_path / "k.cu").write_text('#include "h.cuh"\n// edited\n')
     assert len({first, changed_header, build._target("k")}) == 3
+
+
+def test_port_imports_no_yaml():
+    """The port reads its configs with its own YAML subset reader
+    (``config/yaml_subset.py``): PyYAML is not a dependency of it."""
+    bad = [f"{f.relative_to(ROOT)}:{line} imports yaml"
+           for f in _port_files() for mod, line in _imported_roots(f)
+           if mod == "yaml"]
+    assert not bad, "\n".join(bad)
+
+
+def test_generate_entry_point_loads_nothing_of_jax_or_yaml():
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            "import vaura_tpu_torch.main, vaura_tpu_torch.scripts.generate\n"
+            "import vaura_tpu_torch.data.vggsound, vaura_tpu_torch.models.convert\n"
+            "from vaura_tpu_torch.config import registry\n"
+            "registry.ensure_aliases()\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN + ('yaml',)!r}]\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True)
+    assert r.returncode == 0, r.stderr

@@ -1,0 +1,197 @@
+"""The port's reference-checkpoint path against ``vaura_tpu``'s: the
+converters (a Lightning ``.ckpt`` at the tiny ``dummy.yaml`` widths, and the
+published DAC 44 kHz and AVCLIP stage-I key schemas of
+``tests/fixtures/*.keys.json`` at full scale) must give exactly, in float32,
+what the JAX converters followed by ``from_jax_params`` give; the experiment
+resolution must pick the same checkpoint (not the decoy with the worse
+``val_loss``) and the same hparams."""
+
+import json
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+import yaml
+from torch_reference_util import (
+    BEST,
+    DECOY,
+    EXPERIMENT_NAME,
+    REF_HPARAMS,
+    write_reference_experiment,
+)
+
+from vaura_tpu.models import convert as J
+from vaura_tpu.utils import reference_ckpt as JR
+from vaura_tpu_torch.convert import from_jax_params
+from vaura_tpu_torch.models import convert as T
+from vaura_tpu_torch.utils import reference_ckpt as TR
+
+FIXTURES = Path(__file__).resolve().parent / "fixtures"
+
+
+@pytest.fixture(scope="module")
+def experiment(tmp_path_factory):
+    return write_reference_experiment(tmp_path_factory.mktemp("ref_exp"))
+
+
+def assert_same_state_dicts(got, want):
+    assert got.keys() == want.keys(), (sorted(set(got) ^ set(want))[:8])
+    for k in want:
+        assert got[k].dtype == want[k].dtype == torch.float32, k
+        assert got[k].shape == want[k].shape, k
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_convert_vaura_checkpoint_matches_jax(experiment):
+    path = experiment / "checkpoints" / BEST
+    got = T.convert_vaura_checkpoint(str(path))
+    want = from_jax_params(J.convert_vaura_checkpoint(str(path)))
+    assert set(got) == set(want) == {"sampler", "dac", "encoder"}
+    for name in want:
+        assert_same_state_dicts(got[name], want[name])
+
+
+def test_converted_checkpoint_loads_into_the_system_of_its_hparams(experiment):
+    from vaura_tpu_torch.models.factory import build_system
+
+    model_cfg, sds, _ = TR.load_reference_experiment(experiment)
+    system = build_system(model_cfg, device="cpu")
+    system.load_state_dicts(sds)
+    assert torch.equal(system.sampler.lm_head.weight, sds["sampler"]["lm_head.weight"])
+
+
+def test_load_reference_experiment_matches_jax(experiment):
+    j_cfg, _, j_ckpt = JR.load_reference_experiment(experiment)
+    t_cfg, _, t_ckpt = TR.load_reference_experiment(experiment)
+    assert t_ckpt == j_ckpt == experiment / "checkpoints" / BEST
+    assert t_cfg == j_cfg
+    assert t_cfg["sampler_config"] == REF_HPARAMS["sampler_config"]
+    assert t_cfg["feature_extractor_config"]["params"]["ckpt_path"] is None
+    # the decoy's worse val_loss loses; a file path is taken as it is
+    assert TR.resolve_ckpt(experiment / "checkpoints" / DECOY).name == DECOY
+    assert (TR.best_val_loss_ckpt(experiment)
+            == JR.best_val_loss_ckpt(experiment))
+    hp = TR.resolve_hparams_path(t_ckpt)
+    assert hp == JR.resolve_hparams_path(j_ckpt)
+    assert hp == experiment / EXPERIMENT_NAME / "hparams.yaml"
+
+
+def test_is_reference_checkpoint_matches_jax(experiment, tmp_path):
+    orbax = tmp_path / "orbax"
+    orbax.mkdir()
+    (orbax / "_METADATA").write_text("{}")
+    for p in (experiment, experiment / "checkpoints" / BEST, orbax,
+              tmp_path / "missing", experiment / EXPERIMENT_NAME / "hparams.yaml"):
+        assert TR.is_reference_checkpoint(p) == JR.is_reference_checkpoint(p)
+
+
+def test_override_hparams_writes_json_that_yaml_reads(experiment, tmp_path):
+    """Backup/restore semantics of the JAX package's ``override_hparams``;
+    the port writes the patched file as JSON text."""
+    import shutil
+
+    exp = tmp_path / "exp"
+    shutil.copytree(experiment / EXPERIMENT_NAME, exp)
+    p1 = TR.override_hparams(exp / "hparams.yaml", {"learning_rate": 1.0})
+    assert (exp / "hparams.original.yaml").exists()
+    assert yaml.safe_load(p1.read_text())["learning_rate"] == 1.0
+    p2 = TR.override_hparams(exp / "hparams.original.yaml",
+                             {"weight_decay": 2.0})
+    got = yaml.safe_load(p2.read_text())
+    assert got["weight_decay"] == 2.0 and got["learning_rate"] == 1e-3
+    assert got == dict(REF_HPARAMS, weight_decay=2.0)
+
+
+def _synth_sd(manifest):
+    rng = np.random.default_rng(0)
+    return {k: torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                * np.float32(0.02))
+            for k, shape in manifest["keys"].items()}
+
+
+def test_published_dac_schema_matches_jax():
+    manifest = json.loads((FIXTURES / "dac_44khz_8kbps.keys.json").read_text())
+    sd = _synth_sd(manifest)
+    want = from_jax_params({"dac": J.convert_dac_state_dict(sd)})["dac"]
+    got = T.convert_dac_state_dict(sd)
+    del sd
+    assert_same_state_dicts(got, want)
+    from vaura_tpu_torch.models.dac.model import Dac, config_for_sample_rate
+
+    # every tensor of the 44.1 kHz codec, at its shape
+    Dac(config_for_sample_rate(44100), "meta").load_state_dict(got, assign=True)
+
+
+def test_published_avclip_schema_matches_jax():
+    manifest = json.loads(
+        (FIXTURES / "avclip_stage1_vggsound.keys.json").read_text())
+    sd = _synth_sd(manifest)
+    stripped = T.strip_avclip_prefix(sd)
+    assert stripped.keys() == J.strip_avclip_prefix(sd).keys()
+    del sd
+    want = from_jax_params(
+        {"encoder": J.convert_motionformer_state_dict(stripped)})["encoder"]
+    got = T.convert_motionformer_state_dict(stripped)
+    assert_same_state_dicts(got, want)
+    from vaura_tpu_torch.models.motionformer import MotionFormer, MotionFormerConfig
+
+    # every tensor of the flagship encoder, at its shape
+    MotionFormer(MotionFormerConfig(), "meta").load_state_dict(got, assign=True)
+
+
+def test_unported_encoder_variants_raise():
+    sd = {"blocks.0.attn.proj_q.weight": torch.zeros(1)}
+    with pytest.raises(NotImplementedError):
+        T.convert_motionformer_state_dict(sd)
+    sd = {"blocks.0.timeattn.qkv.weight": torch.zeros(1),
+          "temp_attn_agg.cls_token": torch.zeros(1)}
+    with pytest.raises(NotImplementedError):
+        T.convert_motionformer_state_dict(sd)
+
+
+def test_maybe_load_pretrained(experiment, tmp_path):
+    """A torch checkpoint of the codec named by the config's ``ckpt_path``
+    loads into the system; an orbax directory raises."""
+    from vaura_tpu_torch.models.factory import build_system, maybe_load_pretrained
+
+    full = torch.load(experiment / "checkpoints" / BEST, weights_only=False)
+    prefix = "audio_encoder.model."
+    dac_sd = {k[len(prefix):]: v for k, v in full["state_dict"].items()
+              if k.startswith(prefix)}
+    torch.save({"state_dict": dac_sd}, tmp_path / "dac.pth")
+    cfg = json.loads(json.dumps(REF_HPARAMS))
+    cfg["audio_encoder_config"]["params"]["ckpt_path"] = str(tmp_path / "dac.pth")
+    system = build_system(cfg, device="cpu")
+    maybe_load_pretrained(system, cfg)
+    want = T.convert_dac_state_dict(dac_sd)
+    assert torch.equal(system.dac.state_dict()["quantizer.codebooks"],
+                       want["quantizer.codebooks"])
+    cfg["audio_encoder_config"]["params"]["ckpt_path"] = str(tmp_path)
+    with pytest.raises(NotImplementedError, match="orbax"):
+        maybe_load_pretrained(system, cfg)
+
+
+def test_experiment_helpers_match_jax(tmp_path):
+    """``save_hparams``/``load_hparams`` across the two packages (the port
+    writes JSON text, the JAX package PyYAML's block style), and the
+    best-checkpoint and hparams resolution of an experiment of the JAX
+    package's own training."""
+    from vaura_tpu.utils import experiment as JE
+    from vaura_tpu_torch.utils import experiment as TE
+
+    cfg = json.loads(json.dumps(REF_HPARAMS))
+    (tmp_path / "t").mkdir()
+    (tmp_path / "j").mkdir()
+    assert JE.load_hparams(TE.save_hparams(tmp_path / "t", cfg)) == cfg
+    assert TE.load_hparams(JE.save_hparams(tmp_path / "j", cfg)) == cfg
+    exp = tmp_path / "exp"
+    for name in ("epoch=1-step=10-val_loss=2.125", "epoch=2-step=20-val_loss=0.750",
+                 "last"):
+        (exp / "checkpoints" / name).mkdir(parents=True)
+    (exp / "run").mkdir()
+    JE.save_hparams(exp / "run", cfg)
+    assert TE.resolve_experiment_paths(exp) == JE.resolve_experiment_paths(exp)
+    best = TE.resolve_best_checkpoint(exp / "checkpoints")
+    assert best == JE.resolve_best_checkpoint(exp / "checkpoints")
+    assert best.name == "epoch=2-step=20-val_loss=0.750"

@@ -79,6 +79,29 @@ def config_for_sample_rate(model_sr: int) -> DacConfig:
     return DacConfig(sample_rate=16000, n_codebooks=12)
 
 
+class DacSpec:
+    """``{target, params}`` form of the codec, as
+    ``vaura_tpu.models.dac.model.DacSpec``: the published configuration of
+    ``model_sr`` with optional ``DacConfig`` field overrides (the tiny test
+    configurations) in ``.config``, and ``ckpt_path`` (read by
+    ``models.factory.maybe_load_pretrained``)."""
+
+    def __init__(self, model_sr: int = 44100, ckpt_path: Optional[str] = None,
+                 **overrides):
+        base = config_for_sample_rate(model_sr)
+        if overrides:
+            valid = {f.name for f in dataclasses.fields(DacConfig)}
+            unknown = set(overrides) - valid
+            if unknown:
+                raise TypeError(f"Unknown DAC config keys: {sorted(unknown)}")
+            for key in ("encoder_rates", "decoder_rates"):
+                if key in overrides:
+                    overrides[key] = tuple(overrides[key])
+            base = dataclasses.replace(base, **overrides)
+        self.config = base
+        self.ckpt_path = ckpt_path
+
+
 class DacEncoder(nn.Module):
     """``[B, 1, T]`` -> ``[B, latent, T / hop]``."""
 

@@ -53,6 +53,7 @@ from vaura_tpu_torch.ops.encoder_fused import (
     fused_mlp_sublayer,
     layernorm,
 )
+from vaura_tpu_torch.utils import ANY, drop_unported_fields
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,6 +94,56 @@ class MotionFormerConfig:
     @property
     def head_dim(self) -> int:
         return self.embed_dim // self.num_heads
+
+
+# MotionFormerConfig fields of the JAX package the port has no field for:
+# the value of the one configuration the port runs (the divided ViT with
+# separate positional embeddings, the spatial aggregation layer and no
+# temporal or global one), or ANY where the field changes nothing here
+# (knobs of the trajectory attention, the switch for JAX's own fused
+# kernels, which the port always takes, the global aggregation's settings
+# when it is off)
+_JAX_ONLY_FIELDS = {
+    "attn_drop_rate": 0.0,
+    "pos_embed_type": "separate",
+    "attn_layer": "divided",
+    "approx_attn_type": ANY,
+    "approx_attn_dim": ANY,
+    "use_original_code": ANY,
+    "fused_divided_attention": ANY,
+    "quantize": False,
+    "factorize_space_time": True,
+    "agg_space_module": "TransformerEncoderLayer",
+    "agg_time_module": "Identity",
+    "add_global_repr": False,
+    "agg_segments_module": ANY,
+    "max_segments": ANY,
+}
+
+
+def MotionFormerSpec(
+    extract_features: bool = True,
+    ckpt_path: Optional[str] = None,
+    factorize_space_time: bool = True,
+    agg_space_module: str = "TransformerEncoderLayer",
+    agg_time_module: str = "torch.nn.Identity",
+    add_global_repr: bool = False,
+    agg_segments_module: Optional[str] = None,
+    max_segments: Optional[int] = None,
+    **kwargs,
+) -> MotionFormerConfig:
+    """``MotionFormerConfig`` from the reference wrapper's parameter names,
+    as ``vaura_tpu.models.motionformer.MotionFormerSpec``. ``ckpt_path`` is
+    read by ``models.factory.maybe_load_pretrained``. A setting of a
+    variant the port lacks raises ``NotImplementedError``."""
+    kwargs = dict(
+        kwargs, factorize_space_time=factorize_space_time,
+        agg_space_module=agg_space_module,
+        agg_time_module=("Identity" if "Identity" in agg_time_module
+                         else agg_time_module),
+        add_global_repr=add_global_repr)
+    kwargs = drop_unported_fields(kwargs, _JAX_ONLY_FIELDS, "encoder")
+    return MotionFormerConfig(**kwargs)
 
 
 class Dense(nn.Module):

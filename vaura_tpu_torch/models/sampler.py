@@ -48,6 +48,7 @@ from vaura_tpu_torch.ops.decode_attention import decode_attention
 from vaura_tpu_torch.ops.dropout import drop_path, dropout
 from vaura_tpu_torch.ops.quantization import quant_dense, quantize_kv
 from vaura_tpu_torch.ops.rope import apply_rotary_emb, precompute_freqs_cis
+from vaura_tpu_torch.utils import ANY, drop_unported_fields
 
 
 def find_multiple(n: int, k: int) -> int:
@@ -123,6 +124,48 @@ class SamplerConfig:
     @property
     def special_token_id(self) -> int:
         return self.d_codebook
+
+
+# SamplerConfig fields of the JAX package the port has no field for: the
+# value the port's behaviour equals, or ANY where the field changes nothing
+# the port computes (an initialiser scale for weights that come from a seed
+# or a checkpoint; the switch for JAX's own decode kernel, which the port
+# always takes; a scan unroll factor; a flag the system decides)
+_JAX_ONLY_FIELDS = {
+    "initializer_range": ANY,
+    "use_pallas_decode": ANY,
+    "scan_unroll": ANY,
+    "use_visual_conditioning": ANY,
+    "dac_factored_embeddings": True,
+    "remat_policy": None,
+    "cache_bits": 8,
+    "int8_dots": False,
+}
+
+
+def SamplerSpec(**kwargs) -> SamplerConfig:
+    """``SamplerConfig`` from the reference YAML parameter set
+    (``llama_9cbs.yaml``), as ``vaura_tpu.models.sampler.SamplerSpec``: the
+    keys the reference itself ignores (``dim_feedforward`` and torch-API
+    artifacts) are dropped, and so are the JAX-only fields that change
+    nothing here (see ``_JAX_ONLY_FIELDS``)."""
+    ignored = {
+        "dim_feedforward",
+        "activation",
+        "batch_first",
+        "norm_first",
+        "positional_embedder",
+        "use_delay_strategy",
+    }
+    clean = {k: v for k, v in kwargs.items() if k not in ignored}
+    if "dropout" in clean:
+        clean.setdefault("class_dropout_prob", 0.1)
+    clean = drop_unported_fields(clean, _JAX_ONLY_FIELDS, "sampler")
+    valid = {f.name for f in dataclasses.fields(SamplerConfig)}
+    unknown = set(clean) - valid
+    if unknown:
+        raise TypeError(f"Unknown sampler config keys: {sorted(unknown)}")
+    return SamplerConfig(**clean)
 
 
 class PDense(nn.Module):

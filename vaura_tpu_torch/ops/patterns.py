@@ -192,3 +192,10 @@ class DelayedPatternProvider:
             for r in range(timesteps + max(self.delays))
         ]
         return Pattern([[]] + body, timesteps=timesteps, n_q=self.n_q)
+
+
+class ParallelPatternProvider(DelayedPatternProvider):
+    """No delay: all codebooks advance in lockstep."""
+
+    def __init__(self, n_q: int):
+        super().__init__(n_q, [0] * n_q)

@@ -1,4 +1,5 @@
-"""Device resolution, stage timing and seeded random initialisation."""
+"""Device resolution, stage timing, seeded random initialisation and the
+config helpers of the spec functions."""
 
 from __future__ import annotations
 
@@ -88,3 +89,21 @@ def seeded_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
         tmp.normal_(0.0, std, generator=generator)
         p.copy_(tmp)
     return module
+
+
+ANY = object()  # a field value the port accepts whatever it is
+
+
+def drop_unported_fields(kwargs: dict, fields: dict, what: str) -> dict:
+    """``kwargs`` without the JAX-only config ``fields`` (name -> the one
+    value the port's behaviour equals, or ``ANY``). A value that asks for
+    behaviour the port does not have raises ``NotImplementedError``."""
+    out = {}
+    for k, v in kwargs.items():
+        if k not in fields:
+            out[k] = v
+        elif fields[k] is not ANY and v != fields[k]:
+            raise NotImplementedError(
+                f"{what} {k}={v!r} is not ported (ROADMAP.md, 'Modules to "
+                "port', item 'Everything else')")
+    return out

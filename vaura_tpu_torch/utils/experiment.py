@@ -1,0 +1,65 @@
+"""Experiment directory layout + checkpoint resolution.
+
+The functions of ``vaura_tpu/utils/experiment.py`` that the generate action
+uses: an experiment directory holds ``checkpoints/`` and an
+``<experiment_name>/hparams.yaml`` snapshot; the best checkpoint is picked
+by the val-loss encoded in checkpoint names (``utils/utils.py:30-45`` of
+the reference). ``save_hparams`` writes JSON text, which YAML readers read.
+The run-directory creation of the trainer waits for the Trainer's port.
+"""
+
+from __future__ import annotations
+
+import re
+from pathlib import Path
+from typing import Optional
+
+from vaura_tpu_torch.config.yaml_subset import dump, load_file
+
+CKPT_NAME_RE = re.compile(
+    r"epoch=(?P<epoch>\d+)-step=(?P<step>\d+)-val_loss=(?P<val>[0-9.]+?)(?:\.|$)"
+)
+
+
+def save_hparams(exp_dir: str | Path, cfg: dict) -> Path:
+    """Snapshot the resolved config next to the run (the reference saves
+    Lightning hparams.yaml, ``vaura_model.py:50``)."""
+    path = Path(exp_dir) / "hparams.yaml"
+    path.write_text(dump(cfg), encoding="utf-8")
+    return path
+
+
+def load_hparams(path: str | Path) -> dict:
+    return load_file(path)
+
+
+def resolve_best_checkpoint(ckpt_dir: str | Path) -> Optional[Path]:
+    """Pick the checkpoint with the lowest val_loss encoded in its name
+    (reference ``utils/utils.py:30-45``); falls back to ``last``."""
+    ckpt_dir = Path(ckpt_dir)
+    best, best_val = None, float("inf")
+    for p in ckpt_dir.iterdir() if ckpt_dir.exists() else []:
+        m = CKPT_NAME_RE.search(p.name)
+        if m:
+            val = float(m.group("val"))
+            if val < best_val:
+                best, best_val = p, val
+    if best is None:
+        last = ckpt_dir / "last"
+        if last.exists():
+            return last
+    return best
+
+
+def resolve_experiment_paths(experiment_path: str | Path) -> dict:
+    """Locate checkpoints dir + hparams.yaml under an experiment dir
+    (reference ``scripts/generate.py:43-128``)."""
+    root = Path(experiment_path)
+    ckpt_dir = root / "checkpoints"
+    hparams = None
+    for cand in sorted(root.glob("*/hparams.yaml")):
+        hparams = cand
+        break
+    if (root / "hparams.yaml").exists():
+        hparams = root / "hparams.yaml"
+    return {"root": root, "checkpoints": ckpt_dir, "hparams": hparams}
