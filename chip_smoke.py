@@ -58,8 +58,23 @@ result line):
              decode kernel (its int8 instantiation under ``quantize``) and
              both encoder kernels launched; WAVs under
              ``chiprun_out/action/``.
+  9. serve   the server as a user starts it (``action=serve`` from
+             ``configs/generate_vgg.yaml``, ``make_server``, HTTP on
+             127.0.0.1): with the bf16 cache, buckets [1, 8] and the
+             rolling-KV stream, a lone request whose codes must equal
+             ``VauraSystem.generate``'s on the same padded features and
+             seed, a burst of 16 WAV requests (at most 15 batches), one
+             clip through the encoder (``video_b64``, or
+             ``GenerationService.frames_to_features`` where the native
+             media library is missing), a stream of 440 tokens, a hot
+             reload from a ``CheckpointManager`` checkpoint (the codes must
+             change) and ``close()``; then a burst of 8 with
+             ``quantize=cache``. Launch counters zeroed after each
+             service's warm-up; the direct generations that check the
+             server are not counted.
 
 It prints the action runs' wall times and audio-s/s (``action: {...}``),
+the server's burst, stream and request times (``serve: {...}``),
 the kernels JSON line, the card's name and power limit, and as its last
 line ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``. It needs one CUDA card and exits non-zero
@@ -1352,6 +1367,368 @@ def phase_action(gen, report):
     return total
 
 
+# the server's runs: service A serves the flagship model of
+# configs/generate_vgg.yaml (seeded random weights) with the bf16 cache,
+# buckets [1, 8] and the rolling-KV stream of 5.12 s; service B the same
+# with the int8 KV cache (quantize=cache) and one bucket of 8
+SERVE_A = ["batch=8", "batch_buckets=1", "duration=2.56", "stream_mode=kv",
+           "stream_duration=5.12"]
+SERVE_B = ["batch=8", "duration=2.56", "quantize=cache"]
+SERVE_CONFIG = "configs/generate_vgg.yaml"
+
+
+def _decode_steps(service, tokens: int) -> int:
+    return service.system.prepare_generation(tokens)[2] - 1
+
+
+def _start_server(extra):
+    """``make_server`` from ``SERVE_CONFIG`` with ``action=serve`` and
+    ``extra``, on a free port of 127.0.0.1, serving in a thread."""
+    import threading
+
+    from vaura_tpu_torch.main import get_config
+    from vaura_tpu_torch.scripts.serve import make_server
+
+    cfg = get_config([f"config={os.path.join(ROOT, SERVE_CONFIG)}",
+                      "action=serve", "port=0", *extra])
+    service, server = make_server(cfg)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    return service, server, f"http://127.0.0.1:{server.server_address[1]}"
+
+
+def _post_npy(url, arr, timeout=600):
+    import io
+    import urllib.request
+
+    import numpy as np
+
+    buf = io.BytesIO()
+    np.save(buf, np.asarray(arr, np.float32))
+    req = urllib.request.Request(url, data=buf.getvalue(), headers={
+        "Content-Type": "application/octet-stream"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.read()
+
+
+def _post_json(url, payload, timeout=600):
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.read()
+
+
+def _metrics(base):
+    import urllib.request
+
+    text = urllib.request.urlopen(base + "/metrics", timeout=60).read().decode()
+    return {line.split()[0]: float(line.split()[1]) for line in
+            text.splitlines() if line and not line.startswith("#")}
+
+
+def _check_wav(body, service, problems, tag):
+    """A 44.1 kHz WAV of the service's tokens times the hop, not silent."""
+    import io
+    import wave
+
+    import numpy as np
+
+    samples = service.tokens * service.system.dac.cfg.hop_length
+    with wave.open(io.BytesIO(body)) as w:
+        sr, n = w.getframerate(), w.getnframes()
+        pcm = np.frombuffer(w.readframes(n), dtype="<i2")
+    if sr != 44100 or n != samples or float(pcm.std()) == 0.0:
+        problems.append(f"{tag}: wav of {n} samples at {sr} Hz (expected "
+                        f"{samples}), std {float(pcm.std())}")
+
+
+def _burst(service, base, n, rng, problems, tag):
+    """``n`` concurrent WAV requests of seeded random features: wall,
+    request latencies, the batches and fill ratio they took (/metrics)."""
+    import concurrent.futures
+
+    import numpy as np
+
+    feats = [rng.standard_normal((service.tv, service.cond_dim)).astype(
+        np.float32) for _ in range(n)]
+
+    def one(f):
+        t0 = time.time()
+        body = _post_npy(base + "/generate", f)
+        return body, time.time() - t0
+
+    before = _metrics(base)
+    t0 = time.time()
+    with concurrent.futures.ThreadPoolExecutor(len(feats)) as ex:
+        results = [fut.result() for fut in
+                   [ex.submit(one, f) for f in feats]]
+    wall = time.time() - t0
+    after = _metrics(base)
+    for i, (body, _) in enumerate(results):
+        _check_wav(body, service, problems, f"{tag} request {i}")
+    lat = np.array([dt for _, dt in results])
+    batches = int(after["vaura_batches_total"] - before["vaura_batches_total"])
+    slots = len(feats)
+    capacity = sum(
+        int(after[k] - before[k]) * int(k.split('"')[1])
+        for k in after if k.startswith("vaura_bucket_batches_total"))
+    res = {"requests": slots, "wall_s": wall, "batches": batches,
+           "fill_ratio": slots / max(capacity, 1),
+           "latency_p50_s": float(np.percentile(lat, 50)),
+           "latency_p95_s": float(np.percentile(lat, 95)),
+           "audio_s_per_s": slots * service.tokens / 86 / wall}
+    log(f"[serve] {tag}: {slots} requests in {wall:.3f} s, {batches} batches, "
+        f"fill {res['fill_ratio']:.3f}, latency p50 {res['latency_p50_s']:.3f}"
+        f" p95 {res['latency_p95_s']:.3f} s, {res['audio_s_per_s']:.3f} "
+        "audio-s/s")
+    return res
+
+
+def phase_serve(gen, report):
+    """The server as a user starts it (``action=serve`` from
+    ``configs/generate_vgg.yaml``, seeded random weights, HTTP on
+    127.0.0.1). Service A (bf16 cache, buckets [1, 8], rolling-KV stream of
+    5.12 s): a lone ``raw=codes`` request held to ``VauraSystem.generate``
+    of the same padded features and seed; a burst of 16 WAV requests; one
+    clip through the encoder (``video_b64`` where the native media library
+    can write and decode MP4, else the decoded-frames half of it); one
+    stream of 440 tokens; ``/reload`` from a ``CheckpointManager``
+    checkpoint of differently seeded sampler weights, after which a lone
+    request's codes differ from the old weights' at the same seed;
+    ``close()``. Service B (``quantize=cache``): a burst of 8. The counters
+    are zeroed after each service's warm-up and read after its last
+    request; the direct generations that check the server are not
+    counted."""
+    import base64
+    import io
+    import shutil
+    import tempfile
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from vaura_tpu_torch.data import media
+    from vaura_tpu_torch.models.sampler import Sampler
+    from vaura_tpu_torch.train.checkpoint import CheckpointManager
+    from vaura_tpu_torch.train.state import TrainState, make_optimizer
+    from vaura_tpu_torch.utils import seeded_init_
+
+    problems, res, total, uncounted = [], {}, {}, {}
+    rng = np.random.default_rng(0)
+
+    def direct(system, feats, seed):
+        """Codes of ``VauraSystem.generate`` outside the server (its
+        launches are taken out of the counts)."""
+        before = _counters()
+        with torch.inference_mode():
+            out = system.generate(
+                vis_feats=torch.from_numpy(feats[None]).to(service.device),
+                generator=torch.Generator(service.device).manual_seed(seed),
+                max_new_tokens=service.tokens, tokens_per_frame=7,
+                decode_to_audio=False, **service.sampling)
+        for k, v in _counters().items():
+            uncounted[k] = uncounted.get(k, 0) + v - before[k]
+        return out["codes"].cpu().numpy()[0]
+
+    def lone_codes(feats):
+        seed = service._next_seed
+        body = _post_npy(base + "/generate?raw=codes", feats)
+        return np.asarray(json.loads(body)["codes"]), seed
+
+    # ---- service A ------------------------------------------------------
+    t0 = time.time()
+    service, server, base = _start_server(SERVE_A)
+    res["a_startup_s"] = time.time() - t0
+    log(f"[serve] A: started and warmed up in {res['a_startup_s']:.1f} s")
+    steps = _decode_steps(service, service.tokens)
+    stream_steps = _decode_steps(service, service.stream_tokens)
+    layers = service.system.sampler_config.num_layers
+    try:
+        if service.device.type == "cuda":
+            torch.cuda.synchronize()
+        _zero_counters()
+        # 1. a lone request against the direct generation
+        feats = rng.standard_normal((service.tv, service.cond_dim)).astype(
+            np.float32)
+        t0 = time.time()
+        codes, seed = lone_codes(feats)
+        res["lone_request_s"] = time.time() - t0
+        want = direct(service.system, feats, seed)
+        res["lone_codes_equal_direct"] = bool(np.array_equal(codes, want))
+        log(f"[serve] lone request {res['lone_request_s']:.3f} s, codes "
+            f"{codes.shape} equal to VauraSystem.generate: "
+            f"{res['lone_codes_equal_direct']}")
+        if not res["lone_codes_equal_direct"]:
+            problems.append("lone request codes differ from the direct "
+                            f"generation at {int((codes != want).sum())} of "
+                            f"{codes.size}")
+        # 2. a burst of 16
+        res["burst16"] = _burst(service, base, 16, rng, problems,
+                                "A burst of 16")
+        if res["burst16"]["batches"] > 15:
+            problems.append(f"burst of 16 took {res['burst16']['batches']} "
+                            "batches")
+        # 3. one clip through the encoder, sent alone (the encoder's launch
+        # counters are plain integers, incremented by one thread at a time)
+        before = _counters()
+        # one frame past the duration, as a decoder may drop the last
+        n_frames = int(service.duration * 25) + 1
+        frames = rng.integers(0, 256, (n_frames, 224, 224, 3), dtype=np.uint8)
+        t0 = time.time()
+        if media.available():
+            with tempfile.TemporaryDirectory() as d:
+                path = os.path.join(d, "clip.mp4")
+                media.write_video(path, frames, fps=25.0)
+                with open(path, "rb") as f:
+                    video = base64.b64encode(f.read()).decode()
+            body = _post_json(base + "/generate", {"video_b64": video})
+            res["video_route"] = "video_b64"
+        else:
+            # without libav no MP4 can be written or decoded: the
+            # server's encoder half runs on the frames
+            log("[serve] the native media library is unavailable: the clip "
+                "goes through GenerationService.frames_to_features, then "
+                "/generate as features")
+            body = _post_npy(base + "/generate",
+                             service.frames_to_features(frames))
+            res["video_route"] = "frames_to_features"
+        res["video_request_s"] = time.time() - t0
+        _check_wav(body, service, problems, "video request")
+        enc = {k: v - before[k] for k, v in _counters().items()}
+        log(f"[serve] clip via {res['video_route']} in "
+            f"{res['video_request_s']:.3f} s, launches {enc}")
+        depth = service.system.encoder.cfg.depth
+        if service.device.type == "cuda" and (
+                enc["encoder_attention"] != 2 * depth
+                or enc["encoder_mlp"] != depth):
+            problems.append(f"video request: encoder launches {enc}")
+        # 4. one stream
+        seg = rng.standard_normal((service.stream_segments, service.stream_t,
+                                   service.cond_dim)).astype(np.float32)
+        buf = io.BytesIO()
+        np.save(buf, seg)
+        req = urllib.request.Request(
+            base + "/generate_long", data=buf.getvalue(),
+            headers={"Content-Type": "application/octet-stream"})
+        t0 = time.time()
+        with urllib.request.urlopen(req, timeout=600) as r:
+            header = r.read(44)  # sent with the first increment
+            first = time.time() - t0
+            pcm = r.read()
+        hop = service.system.dac.cfg.hop_length
+        res["stream"] = {"tokens": service.stream_tokens,
+                         "time_to_first_increment_s": first,
+                         "wall_s": time.time() - t0,
+                         "samples": len(pcm) // 2}
+        log(f"[serve] stream of {service.stream_tokens} tokens: first "
+            f"increment after {first:.3f} s, {len(pcm) // 2} samples in "
+            f"{res['stream']['wall_s']:.3f} s")
+        if header[:4] != b"RIFF" or len(pcm) // 2 != service.stream_tokens * hop:
+            problems.append(f"stream: header {header[:4]!r}, "
+                            f"{len(pcm) // 2} samples")
+        # 5. hot reload from a checkpoint of differently seeded sampler
+        # weights (and the served encoder's), a TrainState as training
+        # saves it
+        ckdir = tempfile.mkdtemp()
+        try:
+            old = service.system
+            sampler = Sampler(old.sampler_config, service.device)
+            seeded_init_(sampler,
+                         torch.Generator(service.device).manual_seed(1))
+            params = {f"sampler.{k}": v for k, v in
+                      sampler.named_parameters()}
+            params.update({k: v for k, v in old.named_parameters()
+                           if k in service._trainable_like
+                           and not k.startswith("sampler.")})
+            state = TrainState.create(params, make_optimizer(1e-4))
+            t0 = time.time()
+            path = CheckpointManager(ckdir).save(state, epoch=0, step=1,
+                                                 val_loss=1.0)
+            res["checkpoint_save_s"] = time.time() - t0
+            del sampler, params, state
+            t0 = time.time()
+            info = json.loads(_post_json(base + "/reload",
+                                         {"ckpt_path": str(path)}))
+            res["reload_s"] = time.time() - t0
+            codes, seed = lone_codes(feats)
+            res["reload_codes_changed"] = bool(
+                not np.array_equal(codes, direct(old, feats, seed)))
+            reloads = _metrics(base)["vaura_reloads_total"]
+            log(f"[serve] checkpoint saved in {res['checkpoint_save_s']:.1f}"
+                f" s, reload {info} in {res['reload_s']:.1f} s; codes changed:"
+                f" {res['reload_codes_changed']}; vaura_reloads_total "
+                f"{reloads}")
+            if not (info.get("reloaded") and res["reload_codes_changed"]
+                    and reloads == 1):
+                problems.append(f"reload: {info}, codes changed "
+                                f"{res['reload_codes_changed']}, reloads "
+                                f"{reloads}")
+            del old
+        finally:
+            shutil.rmtree(ckdir, ignore_errors=True)
+        a_batches = int(_metrics(base)["vaura_batches_total"])
+        # 6. close: drain and end the worker
+        server.shutdown()
+        res["close_drained"] = service.close(timeout=60)
+        if not res["close_drained"] or service._worker.is_alive():
+            problems.append("close() did not drain and end the worker")
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close(timeout=60)
+    launches = {k: v - uncounted.get(k, 0) for k, v in _counters().items()}
+    want = {"decode_attention": layers * (steps * a_batches + stream_steps),
+            "decode_attention_int8": 0, "encoder_attention": 2 * depth,
+            "encoder_mlp": depth, "grouped_cls_attention": 0}
+    res["a_launches"], res["a_expected_launches"] = launches, want
+    log(f"[serve] A: launches {launches}, expected {want} ({a_batches} "
+        "batches and one stream)")
+    if service.device.type == "cuda" and launches != want:
+        problems.append(f"A: launches {launches}, expected {want}")
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    del service, server
+
+    # ---- service B: the int8 KV cache -----------------------------------
+    service, server, base = _start_server(SERVE_B)
+    try:
+        if service.device.type == "cuda":
+            torch.cuda.synchronize()
+        _zero_counters()
+        res["b_burst8"] = _burst(service, base, 8, rng, problems,
+                                 "B (int8 cache) burst of 8")
+        b_batches = int(_metrics(base)["vaura_batches_total"])
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close(timeout=60)
+    launches = _counters()
+    want = {"decode_attention": 0,
+            "decode_attention_int8": layers * steps * b_batches,
+            "encoder_attention": 0, "encoder_mlp": 0,
+            "grouped_cls_attention": 0}
+    res["b_launches"], res["b_expected_launches"] = launches, want
+    log(f"[serve] B: launches {launches}, expected {want}")
+    if service.device.type == "cuda" and launches != want:
+        problems.append(f"B: launches {launches}, expected {want}")
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    del service, server
+    res["launches"] = total
+    report["serve"] = res
+    print("serve: " + json.dumps({
+        "A_burst16": res["burst16"], "B_int8_cache_burst8": res["b_burst8"],
+        "stream_kv": res["stream"], "lone_request_s": res["lone_request_s"],
+        "video_request_s": res["video_request_s"],
+        "video_route": res["video_route"]}), flush=True)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return total
+
+
 # ---------------------------------------------------------------------------
 def main() -> int:
     try:
@@ -1409,17 +1786,19 @@ def main() -> int:
     run("long", phase_long, gen, report)
     run("reference", phase_reference, gen, report)
     action_launches = run("action", phase_action, gen, report) or {}
+    serve_launches = run("serve", phase_serve, gen, report) or {}
 
     # each kernel's count on the main paths that run it: generation for the
     # decode and fused encoder kernels, generation with the int8 cache for
     # the int8 decode kernel, the three training steps for the grouped
-    # attention, and the generate action's three runs
+    # attention, the generate action's three runs and the server's requests
     for entry in kernels:
         name = entry["name"]
         entry["launches"] = (
             launches.get(name, 0) + train_launches.get(name, 0)
             + (int8_launches.get(name, 0) if name == "decode_attention_int8"
-               else 0) + action_launches.get(name, 0))
+               else 0) + action_launches.get(name, 0)
+            + serve_launches.get(name, 0))
     report["kernels"] = kernels
     report["failed"] = failed
     os.makedirs(OUT_DIR, exist_ok=True)

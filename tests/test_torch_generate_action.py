@@ -128,7 +128,8 @@ def test_generation_below_the_action_matches_jax(experiment, mode, tmp_path):
     assert {k: v for k, v in tc.items() if k != "trainer"} == {
         k: v for k, v in jc.items() if k != "trainer"}
     j_cfg, j_params, _ = j_load(experiment)
-    t_cfg, t_sds = _model_config(tc)
+    t_cfg, t_sds, t_ckpt = _model_config(tc)
+    assert t_ckpt is None  # the reference checkpoint came converted
     assert t_cfg == j_cfg
     want_sds = from_jax_params(j_params)
     for name, sd in t_sds.items():
@@ -200,16 +201,57 @@ def test_action_prompt_and_ground_truth(experiment, tmp_path):
 
 
 def test_jax_checkpoints_raise(tmp_path):
-    """An experiment of the JAX package's own training (orbax) raises: the
-    checkpoint manager is not ported yet."""
+    """An experiment of the JAX package's own training (an orbax checkpoint,
+    no ``state.pt``) raises ``ValueError``: only JAX reads it."""
     from vaura_tpu_torch.scripts.generate import generate
 
     (tmp_path / "checkpoints" / "epoch=0-step=1-val_loss=1.000").mkdir(
         parents=True)
     _, cfg = _configs(COMMON + ONE_CHUNK + [f"experiment_path={tmp_path}",
                                             f"output_dir={tmp_path / 'out'}"])
-    with pytest.raises(NotImplementedError, match="Checkpoints"):
+    with pytest.raises(ValueError, match="JAX package"):
         generate(cfg)
+
+
+def test_action_loads_a_checkpoint_of_the_port(tmp_path):
+    """An experiment of the port's own format (``CheckpointManager``, the
+    ``hparams.yaml`` beside it): the action restores the best checkpoint's
+    trainable weights and generates what the system with those weights
+    generates."""
+    from vaura_tpu_torch.models.factory import build_system
+    from vaura_tpu_torch.scripts.generate import _model_config, generate
+    from vaura_tpu_torch.train.checkpoint import CheckpointManager
+    from vaura_tpu_torch.train.state import TrainState, make_optimizer
+    from vaura_tpu_torch.train.steps import split_params
+    from vaura_tpu_torch.utils import seeded_init_
+    from vaura_tpu_torch.utils.experiment import save_hparams
+
+    exp = tmp_path / "exp"
+    (exp / "run").mkdir(parents=True)
+    _, base = _configs(["config=configs/experiments/dummy.yaml"])
+    save_hparams(exp / "run", {"model": base["model"]})
+    system = build_system(copy.deepcopy(base["model"]), device="cpu")
+    seeded_init_(system, torch.Generator().manual_seed(9))
+    trainable, _ = split_params(system)
+    mgr = CheckpointManager(exp / "checkpoints")
+    for val in (2.0, 1.0, 3.0):  # the best is not the last
+        mgr.save(TrainState.create(trainable, make_optimizer(1e-3)),
+                 0, int(val), val)
+        with torch.no_grad():
+            trainable["sampler.lm_head.weight"].add_(1.0)
+    argv = COMMON + ONE_CHUNK + [f"experiment_path={exp}",
+                                 f"output_dir={tmp_path / 'out'}"]
+    _, cfg = _configs(argv)
+    model_cfg, ref_sds, ckpt = _model_config(cfg)
+    assert ref_sds is None and ckpt.endswith("val_loss=1.000")
+    assert model_cfg == base["model"]
+    assert generate(cfg)["num_generated"] == 1
+    _, cfg = _configs(argv + [f"output_dir={tmp_path / 'out2'}",
+                              f"ckpt_path={exp / 'checkpoints' / 'last'}"])
+    assert generate(cfg)["num_generated"] == 1
+    # the two checkpoints differ in lm_head, so their greedy codes differ
+    assert not np.array_equal(np.load(tmp_path / "out" / "0.codes.npy"),
+                              np.load(tmp_path / "out2" / "0.codes.npy"))
 
 
 def test_main_dispatch_and_device(monkeypatch):
@@ -217,7 +259,7 @@ def test_main_dispatch_and_device(monkeypatch):
     from vaura_tpu_torch.scripts.generate import config_device
 
     monkeypatch.chdir(REPO)
-    for action in ("train", "test", "finetune", "eval", "serve"):
+    for action in ("train", "test", "finetune", "eval"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             main(["config=configs/experiments/dummy.yaml", f"action={action}"])
     with pytest.raises(ValueError, match="Unknown action"):

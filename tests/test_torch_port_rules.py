@@ -119,6 +119,7 @@ def test_generate_entry_point_loads_nothing_of_jax_or_yaml():
 
     code = ("import sys\n"
             "import vaura_tpu_torch.main, vaura_tpu_torch.scripts.generate\n"
+            "import vaura_tpu_torch.scripts.serve\n"
             "import vaura_tpu_torch.data.vggsound, vaura_tpu_torch.models.convert\n"
             "from vaura_tpu_torch.config import registry\n"
             "registry.ensure_aliases()\n"
@@ -128,3 +129,19 @@ def test_generate_entry_point_loads_nothing_of_jax_or_yaml():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True)
     assert r.returncode == 0, r.stderr
+
+
+def test_serve_and_checkpoint_modules_are_covered_and_need_a_device(
+        monkeypatch):
+    """``action=serve`` runs on the card: without CUDA and without
+    ``trainer.platform=cpu`` it raises before serving."""
+    names = {str(f.relative_to(ROOT)) for f in _port_files()}
+    for mod in ("scripts/serve.py", "train/checkpoint.py"):
+        assert f"vaura_tpu_torch/{mod}" in names, mod
+    from vaura_tpu_torch.main import main
+
+    monkeypatch.chdir(ROOT)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["config=configs/experiments/dummy.yaml", "action=serve",
+              "port=0"])

@@ -152,7 +152,9 @@ def test_unported_encoder_variants_raise():
 
 def test_maybe_load_pretrained(experiment, tmp_path):
     """A torch checkpoint of the codec named by the config's ``ckpt_path``
-    loads into the system; an orbax directory raises."""
+    loads into the system, and so does a directory of the port's checkpoint
+    format; a directory without ``state.pt`` (an orbax tree), or with names
+    that lack the ``dac.`` prefix, raises."""
     from vaura_tpu_torch.models.factory import build_system, maybe_load_pretrained
 
     full = torch.load(experiment / "checkpoints" / BEST, weights_only=False)
@@ -167,8 +169,21 @@ def test_maybe_load_pretrained(experiment, tmp_path):
     want = T.convert_dac_state_dict(dac_sd)
     assert torch.equal(system.dac.state_dict()["quantizer.codebooks"],
                        want["quantizer.codebooks"])
+    fresh = build_system(cfg, device="cpu")
+    (tmp_path / "dac_dir").mkdir()
+    torch.save({"params": {f"dac.{k}": v for k, v in want.items()}},
+               tmp_path / "dac_dir" / "state.pt")
+    cfg["audio_encoder_config"]["params"]["ckpt_path"] = str(tmp_path / "dac_dir")
+    maybe_load_pretrained(fresh, cfg)
+    assert torch.equal(fresh.dac.state_dict()["quantizer.codebooks"],
+                       want["quantizer.codebooks"])
+    (tmp_path / "bare_dir").mkdir()  # names without the ``dac.`` prefix
+    torch.save({"params": want}, tmp_path / "bare_dir" / "state.pt")
+    cfg["audio_encoder_config"]["params"]["ckpt_path"] = str(tmp_path / "bare_dir")
+    with pytest.raises(ValueError, match=r"dac\."):
+        maybe_load_pretrained(system, cfg)
     cfg["audio_encoder_config"]["params"]["ckpt_path"] = str(tmp_path)
-    with pytest.raises(NotImplementedError, match="orbax"):
+    with pytest.raises(ValueError, match="orbax"):
         maybe_load_pretrained(system, cfg)
 
 

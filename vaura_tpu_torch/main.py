@@ -6,8 +6,9 @@ Usage::
     python -m vaura_tpu_torch config=configs/generate_vgg.yaml [key=value ...]
 
 ``generate`` and ``predict`` run the generate action
-(``vaura_tpu_torch.scripts.generate``). The other actions of ``main.py``
-(``train``, ``test``, ``finetune``, ``eval``, ``serve``) raise
+(``vaura_tpu_torch.scripts.generate``); ``serve`` starts the micro-batching
+HTTP server (``vaura_tpu_torch.scripts.serve``). The other actions of
+``main.py`` (``train``, ``test``, ``finetune``, ``eval``) raise
 ``NotImplementedError`` naming the ROADMAP item that ports them. The device
 is ``cuda`` unless the config says ``trainer.platform=cpu``; without CUDA
 and without that key the action raises.
@@ -29,7 +30,6 @@ _NOT_PORTED = {
     "test": "The Trainer",
     "finetune": "LoRA and finetune",
     "eval": "Everything else (eval)",
-    "serve": "The server",
 }
 
 
@@ -57,6 +57,10 @@ def main(argv=None) -> dict:
         from vaura_tpu_torch.scripts.generate import generate
 
         return generate(cfg)
+    if action == "serve":
+        from vaura_tpu_torch.scripts.serve import run_server
+
+        return run_server(cfg)
     if action in _NOT_PORTED:
         raise NotImplementedError(
             f"action {action!r} is not ported yet (ROADMAP.md, 'Modules to "

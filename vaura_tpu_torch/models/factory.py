@@ -121,12 +121,16 @@ def maybe_load_pretrained(system: VauraSystem,
     """Load pretrained frozen-submodule weights referenced by the config,
     in place: ``audio_encoder_config.params.ckpt_path`` (DAC) and
     ``feature_extractor_config.params.ckpt_path`` (AVCLIP/MotionFormer),
-    each a raw torch checkpoint file converted on the fly. A directory (an
-    orbax tree of ``scripts/convert_checkpoints.py``) raises
-    ``NotImplementedError``: the checkpoint manager is a later slice. Other
-    failures are logged and leave the weights as they are, as in the JAX
-    package."""
+    each a raw torch checkpoint file converted on the fly, or a directory
+    of this package's checkpoint format (``train/checkpoint.py``) holding
+    the submodule's parameters under their ``dac.`` / ``encoder.`` names,
+    as ``CheckpointManager.save_frozen`` writes them. A directory without
+    ``state.pt`` (an orbax tree of the JAX package's
+    ``scripts/convert_checkpoints.py``), or without a name of the
+    submodule, raises ``ValueError``. Other failures are logged and leave
+    the weights as they are, as in the JAX package."""
     from vaura_tpu_torch.models import convert as C
+    from vaura_tpu_torch.train.checkpoint import load_state
 
     for cfg_key, name in (("audio_encoder_config", "dac"),
                           ("feature_extractor_config", "encoder")):
@@ -136,17 +140,26 @@ def maybe_load_pretrained(system: VauraSystem,
         if not ckpt_path or module is None:
             continue
         path = Path(ckpt_path)
-        if path.is_dir():
-            raise NotImplementedError(
-                f"{path} is an orbax directory: orbax checkpoints are not "
-                "ported (ROADMAP.md, 'Modules to port', item 'Checkpoints')")
+        sd = None
+        if path.is_dir():  # this package's format; an orbax tree raises
+            prefix = f"{name}."
+            params = load_state(path)
+            params = params.get("params", params)
+            sd = {k[len(prefix):]: v for k, v in params.items()
+                  if k.startswith(prefix)}
+            if not sd:
+                raise ValueError(f"{path} holds no parameter named "
+                                 f"{prefix}*")
         try:
-            ckpt = torch.load(path, map_location="cpu", weights_only=False)
-            sd = ckpt.get("state_dict", ckpt.get("model_state", ckpt))
-            if name == "dac":
-                sd = C.convert_dac_state_dict(sd)
-            else:
-                sd = C.convert_motionformer_state_dict(C.strip_avclip_prefix(sd))
+            if sd is None:
+                ckpt = torch.load(path, map_location="cpu",
+                                  weights_only=False)
+                sd = ckpt.get("state_dict", ckpt.get("model_state", ckpt))
+                if name == "dac":
+                    sd = C.convert_dac_state_dict(sd)
+                else:
+                    sd = C.convert_motionformer_state_dict(
+                        C.strip_avclip_prefix(sd))
             system.load_state_dicts({name: sd})
             logger.info("loaded pretrained %s from %s", name, ckpt_path)
         except Exception as e:  # noqa: BLE001 — as the JAX package: warn

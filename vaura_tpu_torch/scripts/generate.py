@@ -1,5 +1,7 @@
 """Generate action: build the system from a config, load a reference
-checkpoint (or make seeded random weights), iterate a generation
+checkpoint or a checkpoint of this package (``ckpt_path``, or the best one
+of ``experiment_path`` with the ``hparams.yaml`` beside it; else seeded
+random weights), iterate a generation
 dataloader, run single-chunk or long-horizon generation on the device, and
 write one WAV file per clip (+ ``.codes.npy`` under
 ``return_sampled_indices``, + an MP4 mux when the native media module is
@@ -40,6 +42,7 @@ from vaura_tpu_torch.models.factory import build_system
 from vaura_tpu_torch.models.sampler import Sampler
 from vaura_tpu_torch.ops.audio import normalize_audio, write_wav
 from vaura_tpu_torch.ops.quantization import quantize_sampler_params
+from vaura_tpu_torch.train.checkpoint import load_trainable_
 from vaura_tpu_torch.utils import resolve_device, seeded_init_
 from vaura_tpu_torch.utils.experiment import (
     load_hparams,
@@ -131,9 +134,11 @@ def _replace_sampler(system, **changes) -> None:
 
 
 def _model_config(cfg: dict):
-    """``(model_cfg, reference state dicts or None)`` from a reference
-    checkpoint, an experiment's hparams, the config's own ``model`` section
-    or the flagship defaults."""
+    """``(model_cfg, reference state dicts or None, checkpoint or None)``:
+    a reference checkpoint's converted weights and hparams; else the
+    experiment's ``hparams.yaml`` (or the config's own ``model`` section, or
+    the flagship defaults) with the port-format checkpoint of ``ckpt_path``
+    or the experiment's best one."""
     from vaura_tpu_torch.utils.reference_ckpt import (
         is_reference_checkpoint,
         load_reference_experiment,
@@ -150,7 +155,7 @@ def _model_config(cfg: dict):
             hparams=cfg.get("hparams"),
         )
         logger.info("Loaded reference checkpoint %s", ckpt_file)
-        return model_cfg, ref_sds
+        return model_cfg, ref_sds, None
     hparams = None
     if exp_path:
         paths = resolve_experiment_paths(exp_path)
@@ -158,11 +163,6 @@ def _model_config(cfg: dict):
             ckpt_path = resolve_best_checkpoint(paths["checkpoints"])
         if paths["hparams"] is not None:
             hparams = load_hparams(paths["hparams"])
-    if ckpt_path:
-        raise NotImplementedError(
-            f"{ckpt_path} is a checkpoint of the JAX package's own training "
-            "(orbax): not ported yet (ROADMAP.md, 'Modules to port', item "
-            "'Checkpoints')")
     source = hparams if hparams and "model" in hparams else cfg
     if "model" not in source:
         # no experiment and no inline model section: the flagship defaults
@@ -177,7 +177,7 @@ def _model_config(cfg: dict):
     model_cfg = source["model"]
     for k, v in (cfg.get("overridden_hparams") or {}).items():
         model_cfg[k] = v
-    return model_cfg, None
+    return model_cfg, None, (str(ckpt_path) if ckpt_path else None)
 
 
 def generate(cfg: dict) -> dict:
@@ -204,13 +204,16 @@ def generate(cfg: dict) -> dict:
         logger.info("%d CUDA devices are visible; the port's generate action "
                     "runs on one (%s)", torch.cuda.device_count(), device)
 
-    model_cfg, ref_sds = _model_config(cfg)
+    model_cfg, ref_sds, ckpt_path = _model_config(cfg)
     # bf16 storage of the matmul weights: generation only
     system = build_system(model_cfg, device=device,
                           param_dtype=torch.bfloat16)
     generator = seed_everything(int(cfg.get("seed", 666)), device)
     seeded_init_(system, generator)
     system.load_dac_embeddings_into_sampler()
+    if ckpt_path:
+        load_trainable_(system, ckpt_path, model_cfg, cfg.get("trainer"))
+        logger.info("Loaded checkpoint %s", ckpt_path)
     if ref_sds is not None:
         system.load_state_dicts(ref_sds)
     system.requires_grad_(False)

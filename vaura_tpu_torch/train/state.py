@@ -65,6 +65,22 @@ def trainable_mask(params: Params) -> Dict[str, bool]:
     return {k: v != "frozen" for k, v in param_labels(params).items()}
 
 
+@torch.no_grad()
+def copy_leaves(dst: Dict[str, torch.Tensor], src: Mapping[str, torch.Tensor],
+                what: str) -> None:
+    """Copy ``src`` into the tensors of ``dst``, in place; the two must hold
+    the same names with the same shapes."""
+    missing, unexpected = sorted(set(dst) - set(src)), sorted(set(src) - set(dst))
+    if missing or unexpected:
+        raise ValueError(f"{what}: missing {missing[:5]}, unexpected "
+                         f"{unexpected[:5]}")
+    for k, t in dst.items():
+        if tuple(src[k].shape) != tuple(t.shape):
+            raise ValueError(f"{what}.{k}: shape {tuple(src[k].shape)}, "
+                             f"expected {tuple(t.shape)}")
+        t.copy_(src[k])
+
+
 @dataclasses.dataclass
 class OptState:
     count: int                      # updates applied (the schedule's step)
@@ -72,6 +88,19 @@ class OptState:
     mu: Dict[str, torch.Tensor]
     nu: Dict[str, torch.Tensor]
     acc: Dict[str, torch.Tensor]    # running mean (accumulation only)
+
+    def state_dict(self) -> dict:
+        """``count``, ``mini_step`` and the ``mu`` / ``nu`` / ``acc`` leaves
+        by name (the state's own tensors)."""
+        return {"count": self.count, "mini_step": self.mini_step,
+                "mu": dict(self.mu), "nu": dict(self.nu), "acc": dict(self.acc)}
+
+    def load_state_dict(self, sd: Mapping) -> None:
+        """Copy ``state_dict()``'s layout into this state, in place; every
+        leaf name and shape must match (``ValueError``)."""
+        for key in ("mu", "nu", "acc"):
+            copy_leaves(getattr(self, key), sd[key], f"opt_state.{key}")
+        self.count, self.mini_step = int(sd["count"]), int(sd["mini_step"])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -195,6 +224,18 @@ class TrainState:
     def create(cls, params: Params, tx: Optimizer) -> "TrainState":
         params = dict(params)
         return cls(0, params, tx.init(params), tx)
+
+    def state_dict(self) -> dict:
+        """``{"params", "opt_state", "step"}``: what a checkpoint holds."""
+        return {"params": dict(self.params),
+                "opt_state": self.opt_state.state_dict(), "step": self.step}
+
+    def load_state_dict(self, sd: Mapping) -> None:
+        """Copy a ``state_dict()`` into the parameters and the optimizer's
+        state, in place (``tx`` is the caller's, rebuilt from the config)."""
+        copy_leaves(self.params, sd["params"], "params")
+        self.opt_state.load_state_dict(sd["opt_state"])
+        self.step = int(sd["step"])
 
     def apply_gradients(self, grads: Mapping[str, torch.Tensor]
                         ) -> "TrainState":

@@ -1,16 +1,20 @@
 """Experiment directory layout + checkpoint resolution.
 
-The functions of ``vaura_tpu/utils/experiment.py`` that the generate action
-uses: an experiment directory holds ``checkpoints/`` and an
-``<experiment_name>/hparams.yaml`` snapshot; the best checkpoint is picked
-by the val-loss encoded in checkpoint names (``utils/utils.py:30-45`` of
-the reference). ``save_hparams`` writes JSON text, which YAML readers read.
-The run-directory creation of the trainer waits for the Trainer's port.
+The functions of ``vaura_tpu/utils/experiment.py`` that the generate action,
+the server and the checkpoint manager use: an experiment directory holds
+``checkpoints/`` and an ``<experiment_name>/hparams.yaml`` snapshot; a
+checkpoint is named by its epoch, step and val-loss, and the best one is
+picked by the val-loss in its name (``utils/utils.py:30-45`` of the
+reference). ``save_hparams`` writes JSON text, which YAML readers read. The
+run-directory creation of the trainer waits for the Trainer's port.
 """
 
 from __future__ import annotations
 
+import random
 import re
+import time
+from datetime import datetime
 from pathlib import Path
 from typing import Optional
 
@@ -19,6 +23,14 @@ from vaura_tpu_torch.config.yaml_subset import dump, load_file
 CKPT_NAME_RE = re.compile(
     r"epoch=(?P<epoch>\d+)-step=(?P<step>\d+)-val_loss=(?P<val>[0-9.]+?)(?:\.|$)"
 )
+
+
+def timestamp_dirname(jitter: bool = True) -> str:
+    """YY-MM-DDTHH-MM-SS with a small collision-avoiding jitter
+    (reference ``train_utils.py:113-116``)."""
+    if jitter:
+        time.sleep(random.random() * 2)
+    return datetime.now().strftime("%y-%m-%dT%H-%M-%S")
 
 
 def save_hparams(exp_dir: str | Path, cfg: dict) -> Path:
@@ -31,6 +43,10 @@ def save_hparams(exp_dir: str | Path, cfg: dict) -> Path:
 
 def load_hparams(path: str | Path) -> dict:
     return load_file(path)
+
+
+def checkpoint_name(epoch: int, step: int, val_loss: float) -> str:
+    return f"epoch={epoch}-step={step}-val_loss={val_loss:.3f}"
 
 
 def resolve_best_checkpoint(ckpt_dir: str | Path) -> Optional[Path]:
