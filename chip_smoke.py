@@ -58,7 +58,19 @@ result line):
              decode kernel (its int8 instantiation under ``quantize``) and
              both encoder kernels launched; WAVs under
              ``chiprun_out/action/``.
-  9. serve   the server as a user starts it (``action=serve`` from
+  9. train_action  the train and test actions as a user runs them
+             (``vaura_tpu_torch.main`` from
+             ``configs/experiments/flagship_smoke.yaml``: the flagship
+             model, seeded random weights, the dummy datamodule): A trains
+             2 epochs x 3 steps with the encoder frozen (every validation,
+             predict-media and TensorBoard path on), B resumes A for a
+             third epoch with async saves, C tests A's best checkpoint, D
+             trains 2 steps with the encoder unfrozen; losses, steps,
+             checkpoints, TensorBoard tags, the resumed early-stop state,
+             C's test loss against A's and each run's launches are held;
+             each run's wall, step, validation, save and restore times and
+             peak memory printed (``train_action: {...}``);
+ 10. serve   the server as a user starts it (``action=serve`` from
              ``configs/generate_vgg.yaml``, ``make_server``, HTTP on
              127.0.0.1): with the bf16 cache, buckets [1, 8] and the
              rolling-KV stream, a lone request whose codes must equal
@@ -74,6 +86,7 @@ result line):
              server are not counted.
 
 It prints the action runs' wall times and audio-s/s (``action: {...}``),
+the train action's runs (``train_action: {...}``),
 the server's burst, stream and request times (``serve: {...}``),
 the kernels JSON line, the card's name and power limit, and as its last
 line ``{"ok": true, "device": {...}}``. Details go to
@@ -1367,6 +1380,234 @@ def phase_action(gen, report):
     return total
 
 
+# the train action's runs (``configs/experiments/flagship_smoke.yaml``: the
+# full encoder, the 24-layer sampler, the 44.1 kHz codec, bf16 compute,
+# the dummy datamodule): A trains two epochs of 3 steps with a frozen
+# encoder, as the main experiment does, with the predict media of every
+# epoch and a validation after each of the first two steps (every scalar tag
+# of the Trainer); B resumes A's `last` for a third epoch with async saves;
+# C tests A's best checkpoint; D trains 2 steps with the encoder unfrozen
+TRAIN_CONFIG = "configs/experiments/flagship_smoke.yaml"
+TRAIN_A = ["trainer.fast_dev_run=false", "trainer.max_epochs=2",
+           "trainer.limit_train_batches=3", "trainer.limit_val_batches=2",
+           "trainer.limit_test_batches=2", "trainer.val_check_interval=0.5",
+           "model.predict_at_val_start=true",
+           "model.plot_distr_of_pred_indices=true",
+           "model.return_attention_weights=true",
+           "model.flatten_vis_feats=true"]
+TRAIN_D = ["trainer.fast_dev_run=false", "trainer.max_epochs=1",
+           "trainer.limit_train_batches=2", "trainer.limit_val_batches=1",
+           "trainer.limit_test_batches=1",
+           "model.freeze_feature_extractor=false"]
+# C against A: the same restored parameters through the same kernels on one
+# card, so the losses (means of float32 cross entropies of bf16 logits) are
+# expected equal; 1e-3 is a thirtieth of a bf16 ulp at ln 1024 (2^-5)
+# (measured: 0.0)
+TOL_TEST_LOSS = 1e-3
+
+
+def _train_run(tag, argv, log_dir, want, res, total, problems):
+    """One train or test action through ``vaura_tpu_torch.main``, counters
+    zeroed before and read after; its wall, step, validation, save and
+    restore times, peak memory and launches go into ``res[tag]``."""
+    import torch
+
+    from vaura_tpu_torch.main import main
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    _zero_counters()
+    t0 = time.time()
+    out = main([f"config={os.path.join(ROOT, TRAIN_CONFIG)}",
+                f"trainer.log_dir={log_dir}", *argv])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = _counters()
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    stats = out.get("stats", {})
+    steps = stats.get("step_ms", [])
+    mean = lambda xs: sum(xs) / len(xs) if xs else None
+    parts = ("forward", "backward", "optimizer")
+    # a run's first step carries the first use of every library and
+    # allocation; the mean is over the steps after it
+    r = {"wall_s": wall, "launches": launches, "expected_launches": want,
+         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+         "steps": len(steps),
+         "first_step_ms": {k: steps[0][k] for k in parts} if steps else {},
+         "step_ms": {k: mean([s[k] for s in steps[1:]]) for k in parts},
+         "val_ms": mean(stats.get("val_ms", [])),
+         "media_s": stats.get("media_s", []),
+         "save_s": stats.get("save_s", []),
+         "restore_s": stats.get("restore_s", [])}
+    r["test_loss"] = (out["metrics"] if "metrics" in out else out)["test_loss"]
+    r["root"] = _glob_one(log_dir, "*")
+    res[tag] = r
+    log(f"[train_action] {tag}: wall {wall:.2f} s, {len(steps)} steps: "
+        "first " + ", ".join(f"{k} {v:.1f}" for k, v in
+                             r["first_step_ms"].items())
+        + " ms, then a mean of "
+        + ", ".join(f"{k} {v:.1f}" for k, v in r["step_ms"].items() if v)
+        + f" ms, validation {r['val_ms'] or 0:.1f} ms, predict media "
+        f"{[round(x, 2) for x in r['media_s']]} s, saves "
+        f"{[round(x, 2) for x in r['save_s']]} s, restores "
+        f"{[round(x, 2) for x in r['restore_s']]} s, peak "
+        f"{r['peak_mem_gib']:.2f} GiB, test loss {r['test_loss']:.5f}, "
+        f"launches {launches}")
+    if launches != want:
+        problems.append(f"{tag}: launches {launches}, expected {want}")
+
+
+def _glob_one(root, pattern):
+    import glob
+
+    (path,) = glob.glob(os.path.join(root, pattern))
+    return path
+
+
+def _epoch_checkpoints(root):
+    ck = os.path.join(root, "checkpoints")
+    return sorted(n.split("-val_loss=")[0] for n in os.listdir(ck)
+                  if n.startswith("epoch="))
+
+
+def phase_train_action(gen, report):
+    """The train and test actions as a user runs them (runs A-D above, at
+    flagship width with seeded random weights). Checks: finite losses, the
+    first step's loss ``ln 1024``, the steps and epochs of each run, the
+    checkpoints and every TensorBoard tag the Trainer logs (read back with
+    the port's own reader), the resumed early-stop state, C's test loss
+    equal to A's, and every kernel's launches: both encoder kernels once per
+    encoder forward (each train, validation and test step, each predict
+    generation and its attention forward), decode attention 24 x the decode
+    steps of each predict generation, ``grouped_cls_attention`` 24 per
+    unfrozen training step and never with the encoder frozen. The run
+    directories are deleted at the end."""
+    import shutil
+    import tempfile
+
+    from vaura_tpu_torch.ops.patterns import DelayedPatternProvider
+    from vaura_tpu_torch.utils.experiment import resolve_best_checkpoint
+    from vaura_tpu_torch.utils.tb import read_events
+
+    tmp = tempfile.mkdtemp(prefix="train_action_")
+    res, problems, total = {}, [], {}
+    # 221 predict tokens (flatten_vis_feats) over the 9-codebook delay
+    pred_steps = DelayedPatternProvider(9).get_pattern(221)._build_seq_tables(
+        221)[1].shape[1] - 1
+
+    def want(fwd, decode_gens=0, grouped_steps=0):
+        return {"decode_attention": 24 * pred_steps * decode_gens,
+                "decode_attention_int8": 0, "encoder_attention": 24 * fwd,
+                "encoder_mlp": 12 * fwd,
+                "grouped_cls_attention": 24 * grouped_steps}
+
+    try:
+        # A: 6 steps, 2 x (2 mid-epoch + 1 end) validations of 2 batches,
+        # 2 test batches, 2 predict generations and attention forwards
+        _train_run("A", TRAIN_A, os.path.join(tmp, "A"),
+                   want(6 + 12 + 2 + 2 + 2, decode_gens=2), res, total,
+                   problems)
+        a_root = res["A"]["root"]
+        ev = read_events(_glob_one(a_root, "events.out.tfevents.*"))
+        tags = {e["tag"] for e in ev}
+        need = {"train_loss_step", "lr", "train_loss_epoch", "val_loss_step",
+                "val_loss_epoch", "test_loss_epoch", "generated_audio/0",
+                "conditioned_frames/0", "sampled_indices/0",
+                "s_attention_weights/0", "custom_scalars__config__"}
+        need |= {f"{s}_loss_per_codebook_{i}" for s in ("val", "test")
+                 for i in range(9)}
+        if need - tags:
+            problems.append(f"A: TensorBoard tags missing: {sorted(need - tags)}")
+        steps = [(e["step"], e["value"]) for e in ev
+                 if e["tag"] == "train_loss_step"]
+        losses = [e["value"] for e in ev
+                  if e["kind"] == "scalar" and "loss" in e["tag"]]
+        res["A"]["train_loss_step"] = steps
+        if [s for s, _ in steps] != list(range(1, 7)):
+            problems.append(f"A: train_loss_step at steps {[s for s, _ in steps]}")
+        if not all(math.isfinite(x) for x in losses):
+            problems.append("A: losses not finite")
+        if not steps or abs(steps[0][1] - math.log(1024)) > 1e-2:
+            problems.append(f"A: first loss {steps[:1]} is not ln 1024")
+        if _epoch_checkpoints(a_root) != ["epoch=0-step=3", "epoch=1-step=6"]:
+            problems.append(f"A: checkpoints {_epoch_checkpoints(a_root)}")
+        ck = os.path.join(a_root, "checkpoints")
+        if not (os.path.islink(os.path.join(ck, "last"))
+                and os.path.isdir(os.path.join(ck, "frozen"))):
+            problems.append("A: `last` or the frozen save is missing")
+        with open(os.path.join(ck, "last", "meta.json")) as f:
+            a_meta = json.load(f)
+        shutil.copy(_glob_one(a_root, "events.out.tfevents.*"),
+                    os.path.join(OUT_DIR, "train_action_A.tfevents"))
+
+        # B: resume A's last for epoch 2 only (3 steps, 3 validations, the
+        # test, 1 predict generation)
+        _train_run("B", TRAIN_A + ["trainer.max_epochs=3",
+                                   "trainer.async_checkpointing=true",
+                                   f"trainer.ckpt_path={ck}/last"],
+                   os.path.join(tmp, "B"),
+                   want(3 + 6 + 2 + 1 + 1, decode_gens=1), res, total,
+                   problems)
+        b_root = res["B"]["root"]
+        ev = read_events(_glob_one(b_root, "events.out.tfevents.*"))
+        b_steps = [e["step"] for e in ev if e["tag"] == "train_loss_step"]
+        if b_steps != [7, 8, 9]:
+            problems.append(f"B: train_loss_step at steps {b_steps}")
+        if _epoch_checkpoints(b_root) != ["epoch=2-step=9"]:
+            problems.append(f"B: checkpoints {_epoch_checkpoints(b_root)}")
+        with open(os.path.join(b_root, "checkpoints", "last", "meta.json")) as f:
+            b_meta = json.load(f)
+        # the early-stop state B started from is A's: B's epoch either
+        # improved on A's best or counted one more epoch after A's count
+        (b_val,) = [e["value"] for e in ev if e["tag"] == "val_loss_epoch"]
+        if b_val < a_meta["early_stop_best"]:
+            want_es = (b_val, 0)
+        else:
+            want_es = (a_meta["early_stop_best"], a_meta["early_stop_count"] + 1)
+        got_es = (b_meta["early_stop_best"], b_meta["early_stop_count"])
+        res["B"]["early_stop"] = {"A": [a_meta["early_stop_best"],
+                                        a_meta["early_stop_count"]],
+                                  "B": list(got_es)}
+        if got_es[1] != want_es[1] or abs(got_es[0] - want_es[0]) > 1e-6:
+            problems.append(f"B: early stop {got_es}, expected {want_es}")
+        shutil.rmtree(b_root, ignore_errors=True)
+
+        # C: test A's best checkpoint (2 test batches), the one A's own
+        # test restored
+        best = resolve_best_checkpoint(ck)
+        _train_run("C", ["action=test", "trainer.limit_test_batches=2",
+                         f"trainer.ckpt_path={best}"],
+                   os.path.join(tmp, "C"), want(2), res, total, problems)
+        res["C"]["ckpt"] = best.name
+        res["C"]["test_loss_vs_A"] = abs(res["C"]["test_loss"]
+                                         - res["A"]["test_loss"])
+        if not res["C"]["test_loss_vs_A"] <= TOL_TEST_LOSS:
+            problems.append(f"C: test loss {res['C']['test_loss']} against "
+                            f"A's {res['A']['test_loss']}")
+        shutil.rmtree(a_root, ignore_errors=True)
+
+        # D: the encoder unfrozen, 2 steps through the grouped attention,
+        # then 1 validation and 1 test batch through the fused kernels
+        _train_run("D", TRAIN_D, os.path.join(tmp, "D"),
+                   want(2, grouped_steps=2), res, total, problems)
+        if not math.isfinite(res["D"]["test_loss"]):
+            problems.append("D: test loss not finite")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["launches"] = total
+    report["train_action"] = res
+    print("train_action: " + json.dumps({t: {k: res[t][k] for k in (
+        "wall_s", "steps", "first_step_ms", "step_ms", "val_ms", "media_s",
+        "save_s", "restore_s", "peak_mem_gib", "test_loss")} for t in "ABCD"
+        if t in res}),
+        flush=True)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return total
+
+
 # the server's runs: service A serves the flagship model of
 # configs/generate_vgg.yaml (seeded random weights) with the bf16 cache,
 # buckets [1, 8] and the rolling-KV stream of 5.12 s; service B the same
@@ -1786,6 +2027,8 @@ def main() -> int:
     run("long", phase_long, gen, report)
     run("reference", phase_reference, gen, report)
     action_launches = run("action", phase_action, gen, report) or {}
+    train_action_launches = run("train_action", phase_train_action, gen,
+                                report) or {}
     serve_launches = run("serve", phase_serve, gen, report) or {}
 
     # each kernel's count on the main paths that run it: generation for the
@@ -1798,6 +2041,7 @@ def main() -> int:
             launches.get(name, 0) + train_launches.get(name, 0)
             + (int8_launches.get(name, 0) if name == "decode_attention_int8"
                else 0) + action_launches.get(name, 0)
+            + train_action_launches.get(name, 0)
             + serve_launches.get(name, 0))
     report["kernels"] = kernels
     report["failed"] = failed

@@ -88,6 +88,26 @@ def test_topk_and_best(tmp_path):
     assert "val_loss=0.500" in str(last.readlink())
 
 
+def test_best_checkpoint_reads_the_whole_val_loss(tmp_path):
+    """The best of two checkpoints whose val losses share their integer
+    part (a known fault of the JAX package's pattern, which reads only that
+    part and takes the first directory listed; the port reads the whole
+    number, also before a file extension)."""
+    from vaura_tpu.utils.experiment import CKPT_NAME_RE as J_RE
+
+    for names, want in (
+        (["epoch=0-step=3-val_loss=6.931", "epoch=1-step=6-val_loss=6.930"],
+         "epoch=1-step=6-val_loss=6.930"),
+        (["epoch=4-step=5-val_loss=1.250.ckpt", "epoch=2-step=3-val_loss=1.5.ckpt",
+          "epoch=9-step=9-val_loss=10.000"], "epoch=4-step=5-val_loss=1.250.ckpt"),
+    ):
+        d = tmp_path / names[0]
+        for n in names:
+            (d / n).mkdir(parents=True)
+        assert resolve_best_checkpoint(d).name == want
+    assert J_RE.search("epoch=1-step=6-val_loss=6.930").group("val") == "6"
+
+
 def test_frozen_roundtrip(tmp_path):
     mgr = CheckpointManager(tmp_path / "ckpts")
     frozen = {"dac.w": torch.arange(6.0).reshape(2, 3)}

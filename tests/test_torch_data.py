@@ -22,6 +22,7 @@ from vaura_tpu_torch.data import dummy as TD
 from vaura_tpu_torch.data import media as t_media
 from vaura_tpu_torch.data import transforms as TT
 from vaura_tpu_torch.data import vjepa as TV
+from torch_port_util import assert_same
 
 
 
@@ -33,18 +34,6 @@ def media_ok():
     several workers reach it together)."""
     if not t_media.available():
         pytest.skip("native media module unavailable")
-
-
-def assert_same(a, b, path="batch"):
-    if isinstance(a, dict):
-        assert a.keys() == b.keys(), path
-        for k in a:
-            assert_same(a[k], b[k], f"{path}.{k}")
-    elif isinstance(a, np.ndarray):
-        assert isinstance(b, np.ndarray) and a.dtype == b.dtype, path
-        np.testing.assert_array_equal(a, b, err_msg=path)
-    else:
-        assert a == b, path
 
 
 DUMMY = dict(batch_size=3, seed=5, sample_rate_audio=150, frame_shape=(8, 8),
@@ -72,19 +61,35 @@ def test_dummy_batches_match_jax(workers, worker_type):
         assert n == len(tl)
 
 
+def _lazy_target(factory):
+    """``(module path, attribute)`` of a registry entry made by ``_lazy``."""
+    cells = dict(zip(factory.__code__.co_freevars,
+                     (c.cell_contents for c in factory.__closure__)))
+    return cells["modpath"], cells["attr"]
+
+
 def test_datamodule_registry():
     dm = t_data.get_datamodule_from_type("dummy", {"dataset_type": "dummy",
                                                    "batch_size": 1})
     assert isinstance(dm, TD.DummyDataModule)
     with pytest.raises(ValueError, match="Unknown dataset_type"):
         t_data.get_datamodule_from_type("nope", {"batch_size": 1})
+    import importlib
+
     from vaura_tpu.data import DATALOADER_TYPES as J_TYPES
 
     assert set(t_data.DATALOADER_TYPES) == set(J_TYPES)
-    for name in ("audioset", "greatesthit", "vjepa", "vjepa_gen",
-                 "motionformer", "motionformer_gen"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_data.get_datamodule_from_type(name, {"batch_size": 1})
+    # every lazily imported type names the port's module and class of the
+    # JAX package's own (``tests/test_torch_data_more.py`` holds their items)
+    for name, factory in t_data.DATALOADER_TYPES.items():
+        if name == "dummy":
+            continue
+        mod, attr = _lazy_target(factory)
+        j_mod, j_attr = _lazy_target(J_TYPES[name])
+        assert (mod, attr) == (j_mod.replace("vaura_tpu.", "vaura_tpu_torch."),
+                               j_attr), name
+        assert issubclass(getattr(importlib.import_module(mod), attr),
+                          t_data.DataModule), name
 
 
 def _video(seed=0, shape=(6, 30, 40, 3)):

@@ -259,9 +259,18 @@ def test_main_dispatch_and_device(monkeypatch):
     from vaura_tpu_torch.scripts.generate import config_device
 
     monkeypatch.chdir(REPO)
-    for action in ("train", "test", "finetune", "eval"):
+    for action in ("finetune", "eval"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             main(["config=configs/experiments/dummy.yaml", f"action={action}"])
+    # train and test are ported: on the card unless trainer.platform says
+    # otherwise, so without CUDA they raise before writing anything
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for action in ("train", "test"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(["config=configs/experiments/dummy.yaml", f"action={action}",
+                  "trainer.log_dir=/nonexistent/logs"])
+    monkeypatch.undo()
+    monkeypatch.chdir(REPO)
     with pytest.raises(ValueError, match="Unknown action"):
         main(["config=configs/experiments/dummy.yaml", "action=nope"])
     assert config_device({"trainer": {"platform": "cpu"}}) == torch.device("cpu")

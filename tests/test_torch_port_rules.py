@@ -145,3 +145,33 @@ def test_serve_and_checkpoint_modules_are_covered_and_need_a_device(
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["config=configs/experiments/dummy.yaml", "action=serve",
               "port=0"])
+
+
+def test_trainer_modules_write_tensorboard_without_its_packages():
+    """The Trainer and its TensorBoard record run on the card's machine,
+    which has neither ``tensorboardX``, ``tensorboard`` nor PIL: the event
+    files, WAV bytes and GIFs are written with the standard library and
+    numpy."""
+    names = {str(f.relative_to(ROOT)) for f in _port_files()}
+    mods = ("train/loop.py", "utils/tb.py", "utils/viz.py", "scripts/train.py",
+            "scripts/test.py")
+    for mod in mods:
+        assert f"vaura_tpu_torch/{mod}" in names, mod
+    bad = [f"{mod}:{line} imports {name}" for mod in mods
+           for name, line in _imported_roots(ROOT / "vaura_tpu_torch" / mod)
+           if name in ("tensorboardX", "tensorboard", "PIL")]
+    assert not bad, "\n".join(bad)
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            "import vaura_tpu_torch.scripts.train, vaura_tpu_torch.scripts.test\n"
+            "import vaura_tpu_torch.data.vjepa, vaura_tpu_torch.data.audioset\n"
+            "import vaura_tpu_torch.data.greatesthit\n"
+            "import vaura_tpu_torch.data.motionformer_data\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN + ('yaml', 'tensorboardX', 'tensorboard', 'PIL')!r}]\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True)
+    assert r.returncode == 0, r.stderr

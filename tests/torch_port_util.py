@@ -189,3 +189,16 @@ def flat_state_dicts(state_dicts):
     names of ``VauraSystem.named_parameters()``."""
     return {f"{top}.{k}": v for top, sd in state_dicts.items()
             for k, v in sd.items()}
+
+
+def assert_same(a, b, path="batch"):
+    """Equal nested dicts of numpy arrays (same dtype) and plain values."""
+    if isinstance(a, dict):
+        assert a.keys() == b.keys(), path
+        for k in a:
+            assert_same(a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, np.ndarray):
+        assert isinstance(b, np.ndarray) and a.dtype == b.dtype, path
+        np.testing.assert_array_equal(a, b, err_msg=path)
+    else:
+        assert a == b, path

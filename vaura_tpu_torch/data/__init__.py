@@ -1,9 +1,5 @@
 """Datamodule registry: ``DATALOADER_TYPES`` + ``get_datamodule_from_type``
-(counterpart of ``vaura_tpu/data/__init__.py``).
-
-The types whose datamodules the port has not ported yet stay listed, so that
-an unknown type (``ValueError``) and an unported one
-(``NotImplementedError``, naming the ROADMAP item) give different errors.
+(counterpart of ``vaura_tpu/data/__init__.py``, every type of it).
 """
 
 from __future__ import annotations
@@ -24,23 +20,20 @@ def _lazy(modpath: str, attr: str) -> Callable:
     return factory
 
 
-def _not_ported(dataset_type: str) -> Callable:
-    def factory(**_):
-        raise NotImplementedError(
-            f"dataset_type {dataset_type!r} is not ported yet (ROADMAP.md, "
-            "'Modules to port', item 'The remaining datamodules')")
-
-    return factory
-
-
 DATALOADER_TYPES: Dict[str, Callable] = {
     "dummy": DummyDataModule,
     "vggsound": _lazy("vaura_tpu_torch.data.vggsound", "VggSoundDataModule"),
     "visualsound": _lazy("vaura_tpu_torch.data.vggsound", "VggSoundDataModule"),
+    "audioset": _lazy("vaura_tpu_torch.data.audioset", "AudioSetDataModule"),
+    "greatesthit": _lazy("vaura_tpu_torch.data.greatesthit",
+                         "GreatestHitDataModule"),
     "video": _lazy("vaura_tpu_torch.data.video_dataset", "VideoDataModule"),
-    **{t: _not_ported(t) for t in (
-        "audioset", "greatesthit", "vjepa", "vjepa_gen", "motionformer",
-        "motionformer_gen")},
+    "vjepa": _lazy("vaura_tpu_torch.data.vjepa", "VJEPADataModule"),
+    "vjepa_gen": _lazy("vaura_tpu_torch.data.vjepa", "VJEPAGenDataModule"),
+    "motionformer": _lazy("vaura_tpu_torch.data.motionformer_data",
+                          "MotionFormerDataModule"),
+    "motionformer_gen": _lazy("vaura_tpu_torch.data.motionformer_data",
+                              "MotionFormerGenDataModule"),
 }
 
 

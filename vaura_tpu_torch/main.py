@@ -5,11 +5,13 @@ Usage::
 
     python -m vaura_tpu_torch config=configs/generate_vgg.yaml [key=value ...]
 
-``generate`` and ``predict`` run the generate action
-(``vaura_tpu_torch.scripts.generate``); ``serve`` starts the micro-batching
-HTTP server (``vaura_tpu_torch.scripts.serve``). The other actions of
-``main.py`` (``train``, ``test``, ``finetune``, ``eval``) raise
-``NotImplementedError`` naming the ROADMAP item that ports them. The device
+``train`` and ``test`` run the train and test actions
+(``vaura_tpu_torch.scripts.train``, ``.test``); ``generate`` and
+``predict`` run the generate action (``vaura_tpu_torch.scripts.generate``);
+``serve`` starts the micro-batching HTTP server
+(``vaura_tpu_torch.scripts.serve``). The other actions of ``main.py``
+(``finetune``, ``eval``) raise ``NotImplementedError`` naming the ROADMAP
+item that ports them. The device
 is ``cuda`` unless the config says ``trainer.platform=cpu``; without CUDA
 and without that key the action raises.
 """
@@ -26,8 +28,6 @@ logger = logging.getLogger("vaura_tpu_torch")
 
 # the ROADMAP.md items ("Modules to port") that port the other actions
 _NOT_PORTED = {
-    "train": "The Trainer",
-    "test": "The Trainer",
     "finetune": "LoRA and finetune",
     "eval": "Everything else (eval)",
 }
@@ -47,12 +47,22 @@ def get_config(argv):
 
 def main(argv=None) -> dict:
     """Run the action of the config ``argv`` assembles; returns its result
-    (the generate action's ``{"output_dir", "num_generated", ...}``)."""
+    (the train action's ``{"dirs", "metrics", ...}``, the test action's
+    ``{"test_loss"}``, the generate action's ``{"output_dir",
+    "num_generated", ...}``)."""
     argv = argv if argv is not None else sys.argv[1:]
     cfg = get_config(argv)
     action = cfg.get("action")
     logging.basicConfig(level=logging.WARNING)
     logger.setLevel(logging.INFO)
+    if action == "train":
+        from vaura_tpu_torch.scripts.train import train
+
+        return train(cfg)
+    if action == "test":
+        from vaura_tpu_torch.scripts.test import test
+
+        return test(cfg)
     if action in ("generate", "predict"):
         from vaura_tpu_torch.scripts.generate import generate
 

@@ -9,9 +9,10 @@ Reference-style target strings resolve through the registry aliases
 (``vaura_tpu_torch.config.registry``), so configs written for the reference
 or for the JAX package work unchanged.
 
-``flatten_vis_feats`` only changes the JAX package's training step (the
-clip-partitioned audio of the reference's non-flattened mode), which the
-port's training step does not take; LoRA (``lora_rank``) is not ported.
+``flatten_vis_feats`` is read by the Trainer (``train/loop.py``: the
+length of its predict-media generation) and, through the config defaults,
+by the datamodules (``partition_audio_to_clips``); the system does not keep
+it. LoRA (``lora_rank``) is not ported.
 """
 
 from __future__ import annotations

@@ -237,15 +237,21 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, freqs_cis: torch.Tensor,
                 mask: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                probs_out: Optional[list] = None) -> torch.Tensor:
         """``x [B, S, d_model]``, ``mask [S, S]`` bool (True = attend).
         Float32 scores, ``-1e30`` at masked pairs, probabilities cast to the
-        value dtype, dropout on the probabilities and on the output."""
-        return self.forward_kv(x, freqs_cis, mask, train, generator)[0]
+        value dtype, dropout on the probabilities and on the output. A
+        ``probs_out`` list receives the softmax probabilities averaged over
+        heads, ``[B, S, S]`` float32 (before dropout; the JAX package's
+        ``sow("intermediates", "attn_probs")``)."""
+        return self.forward_kv(x, freqs_cis, mask, train, generator,
+                               probs_out)[0]
 
     def forward_kv(self, x: torch.Tensor, freqs_cis: torch.Tensor,
                    mask: torch.Tensor, train: bool = False,
-                   generator: Optional[torch.Generator] = None
+                   generator: Optional[torch.Generator] = None,
+                   probs_out: Optional[list] = None
                    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         """``forward`` that also returns every position's K/V ``[B, S, H_kv,
         hd]`` (after RoPE), what ``prefill`` puts into the cache."""
@@ -265,6 +271,8 @@ class Attention(nn.Module):
         scores = torch.where(mask[None, None], scores,
                              scores.new_full((), -1e30))
         probs = torch.softmax(scores, dim=-1)
+        if probs_out is not None:
+            probs_out.append(probs.mean(1))
         probs = dropout(probs, cfg.attn_dropout_p, train, generator)
         out = torch.einsum("bhst,bthd->bshd", probs.to(v.dtype), v)
         out = self.wo(out.reshape(B, S, H * hd).to(cfg.dtype))
@@ -306,10 +314,11 @@ class TransformerBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, freqs_cis: torch.Tensor,
                 mask: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                probs_out: Optional[list] = None) -> torch.Tensor:
         dp = lambda t: drop_path(t, self.drop_path_rate, train, generator)
         h = x + dp(self.attention(self.attention_norm(x), freqs_cis, mask,
-                                  train, generator))
+                                  train, generator, probs_out))
         return h + dp(self.feed_forward(self.ffn_norm(h), train, generator))
 
     def prefill(self, x, freqs_cis, mask):
@@ -462,11 +471,16 @@ class Sampler(nn.Module):
     def forward(self, tokens: torch.Tensor, cond_feats: torch.Tensor,
                 train: bool = False, tokens_per_frame: Optional[int] = None,
                 attn_mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                return_attn_probs: bool = False):
         """Teacher-forced causal forward: tokens ``[B, K, S]`` and raw visual
         features ``[B, Tv, cond_in_dim]`` -> logits ``[B, K, S, vocab]``.
         ``attn_mask [S, S]`` (bool, a subset of the causal mask) replaces
-        the causal mask."""
+        the causal mask. ``return_attn_probs`` returns ``(logits, probs)``
+        with every layer's softmax probabilities averaged over heads,
+        ``probs [L, B, S, S]`` float32 (the JAX package's ``attn_probs``
+        intermediates, stacked over layers by its ``nn.scan``); the blocks
+        then run without recomputation."""
         cfg = self.cfg
         B, K, S = tokens.shape
         tok_emb = self.tok_embeddings(tokens)
@@ -482,12 +496,13 @@ class Sampler(nn.Module):
             mask = torch.ones(S, S, dtype=torch.bool, device=h.device).tril()
         else:
             mask = torch.as_tensor(attn_mask, dtype=torch.bool, device=h.device)
-        remat = cfg.remat and torch.is_grad_enabled()
+        probs = [] if return_attn_probs else None
+        remat = cfg.remat and torch.is_grad_enabled() and probs is None
         stochastic = train and bool(cfg.dropout or cfg.attn_dropout_p
                                     or cfg.drop_path_rate)
         for layer in self.layers:
             if not remat:
-                h = layer(h, freqs, mask, train, generator)
+                h = layer(h, freqs, mask, train, generator, probs)
                 continue
             # the backward pass runs the block again and must draw the same
             # masks: each block gets a generator of its own, seeded from the
@@ -503,6 +518,8 @@ class Sampler(nn.Module):
 
             h = checkpoint(run, h, use_reentrant=False,
                            preserve_rng_state=False)
+        if probs is not None:
+            return self._logits(h), torch.stack(probs)
         return self._logits(h)
 
     def uncond_cond_emb(self, batch: int, n_tokens: int) -> torch.Tensor:

@@ -40,19 +40,42 @@ def array_batch(batch: dict) -> dict:
     return {k: batch[k] for k in ("frames", "audio", "codes") if k in batch}
 
 
-def batch_to_device(batch: dict, device) -> dict:
+def batch_to_device(batch: dict, device, non_blocking: bool = False) -> dict:
     """Move the array leaves of a host batch (numeric numpy arrays and
     tensors, also inside nested dicts) onto ``device``; meta leaves
-    (strings, lists) are kept."""
+    (strings, lists) are kept. ``non_blocking`` onto a CUDA device copies
+    from pinned host memory without waiting, on the current stream, which
+    the steps that read the batch follow."""
+    pin = non_blocking and torch.device(device).type == "cuda"
+
     def put(x):
         if isinstance(x, np.ndarray) and np.issubdtype(x.dtype, np.number):
-            return torch.from_numpy(x).to(device)
+            x = torch.from_numpy(x)
         if isinstance(x, torch.Tensor):
-            return x.to(device)
+            if pin and not x.is_cuda:
+                x = x.pin_memory()
+            return x.to(device, non_blocking=pin)
         return x
 
-    return {k: batch_to_device(v, device) if isinstance(v, dict) else put(v)
-            for k, v in batch.items()}
+    return {k: batch_to_device(v, device, non_blocking)
+            if isinstance(v, dict) else put(v) for k, v in batch.items()}
+
+
+def prefetch_to_device(iterator, size: int = 2, device=None):
+    """Double-buffer host batches onto ``device`` (the JAX package's
+    ``prefetch_to_device``): up to ``size`` batches are in flight, so the
+    host issues batch N+1's copy (``batch_to_device`` with
+    ``non_blocking``) before step N and does not wait for it. Yields device
+    batches."""
+    import collections
+
+    queue = collections.deque()
+    for batch in iterator:
+        queue.append(batch_to_device(batch, device, non_blocking=True))
+        if len(queue) >= size:
+            yield queue.popleft()
+    while queue:
+        yield queue.popleft()
 
 
 def make_train_step(system: VauraSystem) -> Callable:

@@ -5,8 +5,10 @@ the server and the checkpoint manager use: an experiment directory holds
 ``checkpoints/`` and an ``<experiment_name>/hparams.yaml`` snapshot; a
 checkpoint is named by its epoch, step and val-loss, and the best one is
 picked by the val-loss in its name (``utils/utils.py:30-45`` of the
-reference). ``save_hparams`` writes JSON text, which YAML readers read. The
-run-directory creation of the trainer waits for the Trainer's port.
+reference). ``save_hparams`` writes JSON text, which YAML readers read.
+``init_log_directory`` makes a run directory of the train and test actions:
+``<log_dir>/<YY-MM-DDTHH-MM-SS>/`` holding ``checkpoints/`` and
+``<experiment_name>/``.
 """
 
 from __future__ import annotations
@@ -20,8 +22,11 @@ from typing import Optional
 
 from vaura_tpu_torch.config.yaml_subset import dump, load_file
 
+# the whole val loss: the JAX package's pattern (``[0-9.]+?`` before an
+# optional dot) reads only its integer part, so checkpoints of 6.930 and
+# 6.931 tie there and the first listed wins
 CKPT_NAME_RE = re.compile(
-    r"epoch=(?P<epoch>\d+)-step=(?P<step>\d+)-val_loss=(?P<val>[0-9.]+?)(?:\.|$)"
+    r"epoch=(?P<epoch>\d+)-step=(?P<step>\d+)-val_loss=(?P<val>\d+(?:\.\d+)?)"
 )
 
 
@@ -31,6 +36,26 @@ def timestamp_dirname(jitter: bool = True) -> str:
     if jitter:
         time.sleep(random.random() * 2)
     return datetime.now().strftime("%y-%m-%dT%H-%M-%S")
+
+
+def init_log_directory(
+    log_dir: str | Path, experiment_name: str, run_name: Optional[str] = None
+) -> dict:
+    """Create ``<log_dir>/<run_name>/{checkpoints,<experiment_name>}``
+    (``run_name`` from ``timestamp_dirname()`` unless given) and return
+    ``{"root", "checkpoints", "experiment", "run_name"}``."""
+    run_name = run_name or timestamp_dirname()
+    root = Path(log_dir) / run_name
+    ckpt_dir = root / "checkpoints"
+    exp_dir = root / experiment_name
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    exp_dir.mkdir(parents=True, exist_ok=True)
+    return {
+        "root": root,
+        "checkpoints": ckpt_dir,
+        "experiment": exp_dir,
+        "run_name": run_name,
+    }
 
 
 def save_hparams(exp_dir: str | Path, cfg: dict) -> Path:
