@@ -84,10 +84,30 @@ result line):
              ``quantize=cache``. Launch counters zeroed after each
              service's warm-up; the direct generations that check the
              server are not counted.
+ 11. finetune the finetune action as a user runs it (``action=finetune``
+             on ``configs/experiments/flagship_smoke.yaml``, seeded random
+             weights): L trains LoRA adapters of rank 8 for 3 steps from a
+             base checkpoint of the same model (the base sampler must stay
+             bit for bit, the run's checkpoint hold the adapters alone), F
+             trains the whole model with the encoder unfrozen and bf16
+             first moments for 2 steps; then the generate action from L's
+             experiment (its merged weights held to ``W + (alpha / r) b a``,
+             its codes to ``VauraSystem.generate`` of a system that holds
+             the merged weights without adapters) and from the base, 1.28 s
+             at batch 2, WAVs under ``chiprun_out/finetune/``;
+ 12. eval    ``action=eval`` on those WAVs (L's against the base's) with
+             ``melstats``, ``vggish`` and ``panns`` (seeded random-weight
+             ``.pth`` files written under ``chiprun_out/eval/`` and deleted
+             after): finite metrics, the FAD of a set against itself within
+             D sqrt(eps) of its total variance, the networks' embeddings on
+             the card within 1e-3 relative of the CPU's (cuDNN at its
+             defaults: the networks turn TF32 off themselves).
 
 It prints the action runs' wall times and audio-s/s (``action: {...}``),
 the train action's runs (``train_action: {...}``),
-the server's burst, stream and request times (``serve: {...}``),
+the server's burst, stream and request times (``serve: {...}``), the
+finetune and generate runs' walls and peak memory (``finetune: {...}``),
+the eval action's walls and metrics (``eval: {...}``),
 the kernels JSON line, the card's name and power limit, and as its last
 line ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``. It needs one CUDA card and exits non-zero
@@ -1608,6 +1628,383 @@ def phase_train_action(gen, report):
     return total
 
 
+# the finetune phase's runs (``configs/experiments/flagship_smoke.yaml``,
+# ``action=finetune``, which assembles the experiment file alone, as the JAX
+# ``main.py`` does: no learning-rate schedule): L trains LoRA adapters of
+# rank 8 for 3 steps from a base checkpoint of the same model (lr 1e-2, so
+# that the adapters move the bf16 weights they merge into), F trains the
+# whole model with the encoder unfrozen and bf16 first moments for 2 steps;
+# then the generate action from L's experiment and from the base, 1.28 s
+# (110 tokens: one VGGish example a clip) at batch 2
+FT_COMMON = ["action=finetune", "trainer.fast_dev_run=false",
+             "trainer.max_epochs=1", "trainer.limit_val_batches=1",
+             "trainer.limit_test_batches=1"]
+FT_LORA = FT_COMMON + ["trainer.limit_train_batches=3",
+                       "finetune.lora_rank=8", "model.learning_rate=1e-2"]
+FT_FULL = FT_COMMON + ["trainer.limit_train_batches=2",
+                       "finetune.unfreeze_encoder=true",
+                       "model.adam_mu_dtype=bfloat16"]
+FT_GEN = ["action=generate", "dataloader.batch_size=2", "max_batches=1",
+          "duration=1.28", "return_sampled_indices=true"]
+FT_GEN_TOKENS = 110
+
+
+def _ft_want(encoder_fwd=0, grouped_steps=0, decode_steps=0):
+    return {"decode_attention": 24 * decode_steps, "decode_attention_int8": 0,
+            "encoder_attention": 24 * encoder_fwd,
+            "encoder_mlp": 12 * encoder_fwd,
+            "grouped_cls_attention": 24 * grouped_steps}
+
+
+def phase_finetune(gen, report):
+    """The finetune action as a user runs it (runs L and F above, at
+    flagship width with seeded random weights) and the generate action
+    from L's experiment. Checks: L leaves every base-sampler weight bit for
+    bit as ``init_from`` gave it, its checkpoint holds the adapters alone,
+    its test loss is finite; F stores its first moments in bf16 and runs
+    the grouped attention in each step; the generate action loads L's base
+    and adapters, its merged weights equal ``W + (alpha / r) b a`` computed
+    here in float32 (within the two bf16 roundings of the merge), and its
+    codes equal
+    ``VauraSystem.generate`` of a system without adapters that holds those
+    merged weights, under the same generator state; every run's launches.
+    The WAVs of L's experiment and of the base go to
+    ``chiprun_out/finetune/`` for the eval phase; the run directories are
+    deleted."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import vaura_tpu_torch.models.vaura as tvaura
+    import vaura_tpu_torch.train.loop as tloop
+    from vaura_tpu_torch.main import get_config, main
+    from vaura_tpu_torch.models.factory import build_system
+    from vaura_tpu_torch.ops.audio import read_wav
+    from vaura_tpu_torch.ops.patterns import DelayedPatternProvider
+    from vaura_tpu_torch.train.checkpoint import load_state
+    from vaura_tpu_torch.train.lora import lora_pairs, merge_lora
+    from vaura_tpu_torch.utils import seeded_init_
+
+    config = f"config={os.path.join(ROOT, TRAIN_CONFIG)}"
+    tmp = tempfile.mkdtemp(prefix="finetune_")
+    wav_root = os.path.join(OUT_DIR, "finetune")
+    shutil.rmtree(wav_root, ignore_errors=True)
+    res, problems, total = {}, [], {}
+    seen = {}
+    fit, generate = tloop.Trainer.fit, tvaura.VauraSystem.generate
+
+    def fit_spy(self, *a, **k):
+        seen["system"] = self.system
+        out = fit(self, *a, **k)
+        seen["fit"] = out
+        return out
+
+    def generate_spy(self, *a, **k):
+        g = k.get("generator")
+        seen["call"] = (self, a, dict(k), None if g is None else g.get_state())
+        return generate(self, *a, **k)
+
+    def run(tag, argv, want):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        _zero_counters()
+        t0 = time.time()
+        out = main([config, *argv])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = _counters()
+        for key, v in launches.items():
+            total[key] = total.get(key, 0) + v
+        r = {"wall_s": wall, "launches": launches, "expected_launches": want,
+             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        stats = (out or {}).get("stats") or {}
+        if "metrics" in out:
+            r["test_loss"] = out["metrics"]["test_loss"]
+            r["step_ms"] = stats.get("step_ms", [])
+            r["save_s"] = stats.get("save_s", [])
+        res[tag] = r
+        log(f"[finetune] {tag}: wall {wall:.2f} s, peak "
+            f"{r['peak_mem_gib']:.2f} GiB, test loss {r.get('test_loss')}, "
+            f"launches {launches}")
+        if launches != want:
+            problems.append(f"{tag}: launches {launches}, expected {want}")
+        return out
+
+    tvaura.VauraSystem.generate = generate_spy
+    tloop.Trainer.fit = fit_spy
+    try:
+        # the base: the flagship sampler from another seed, the LM head
+        # random (a zero head passes no gradient to the adapters), in bf16
+        t0 = time.time()
+        model_cfg = get_config([config, "action=finetune"])["model"]
+        base_sys = seeded_init_(build_system(model_cfg, device="cuda"),
+                                torch.Generator("cuda").manual_seed(1))
+        base = {k: v.detach().to(torch.bfloat16).cpu()
+                for k, v in base_sys.named_parameters()
+                if k.startswith("sampler.")}
+        del base_sys
+        base_dir = os.path.join(tmp, "base")
+        os.makedirs(base_dir)
+        torch.save({"params": base}, os.path.join(base_dir, "state.pt"))
+        res["base_s"] = time.time() - t0
+
+        # L: LoRA, 3 steps, 1 validation and 1 test batch through the
+        # fused encoder kernels (a frozen encoder)
+        out = run("L", FT_LORA + [f"trainer.log_dir={tmp}/L",
+                                  f"finetune.init_from={base_dir}"],
+                  _ft_want(encoder_fwd=3 + 1 + 1))
+        system = seen.pop("system")
+        changed = [k for k, v in system.named_parameters()
+                   if k.startswith("sampler.")
+                   and not torch.equal(v.detach().cpu(), base[k].float())]
+        if changed:
+            problems.append(f"L: base sampler changed: {changed[:3]}")
+        l_root = str(out["dirs"]["root"])
+        ckpts = [n for n in os.listdir(os.path.join(l_root, "checkpoints"))
+                 if n.startswith("epoch=")]
+        names = set(load_state(os.path.join(l_root, "checkpoints",
+                                            ckpts[0]))["params"])
+        res["L"]["checkpoint_params"] = len(names)
+        if len(ckpts) != 1 or not names or any(
+                not k.startswith("lora_sampler.") for k in names):
+            problems.append(f"L: checkpoints {ckpts} hold {sorted(names)[:3]}")
+        if not math.isfinite(res["L"]["test_loss"]):
+            problems.append("L: test loss not finite")
+        res["L"]["adapter_params"] = sum(p.numel() for p in
+                                         system.lora_sampler.parameters())
+        del system, out
+        seen.clear()
+
+        # F: the whole model, the encoder unfrozen, bf16 first moments:
+        # 2 steps through the grouped attention, then the fused kernels
+        run("F", FT_FULL + [f"trainer.log_dir={tmp}/F",
+                            f"finetune.init_from={base_dir}"],
+            _ft_want(encoder_fwd=1 + 1, grouped_steps=2))
+        mu = seen.pop("fit")["state"].opt_state.mu
+        res["F"]["mu_dtypes"] = sorted({str(v.dtype) for v in mu.values()})
+        if res["F"]["mu_dtypes"] != ["torch.bfloat16"]:
+            problems.append(f"F: first moments {res['F']['mu_dtypes']}")
+        if not math.isfinite(res["F"]["test_loss"]):
+            problems.append("F: test loss not finite")
+        seen.clear()
+        shutil.rmtree(os.path.join(tmp, "F"), ignore_errors=True)
+
+        # the generate action from L's experiment, then from the base
+        steps = DelayedPatternProvider(9).get_pattern(
+            FT_GEN_TOKENS)._build_seq_tables(FT_GEN_TOKENS)[1].shape[1] - 1
+        want = _ft_want(encoder_fwd=1, decode_steps=steps)
+        lora_wavs = os.path.join(wav_root, "lora")
+        run("generate_lora", FT_GEN + [f"experiment_path={l_root}",
+                                       f"output_dir={lora_wavs}"], want)
+        system, args, kwargs, g_state = seen.pop("call")
+        merged = merge_lora(system.sampler, system.lora_sampler,
+                            system.lora_alpha)
+        # the port rounds delta to bf16, then W + delta: each element within
+        # half a bf16 ulp of each, 2^-8 (|delta| + |merged|), of the float32
+        # W + delta; and the change it applied, merged - W, within a quarter
+        # of delta's magnitude of delta in sum (rounding noise: 2^-8 |W| an
+        # element; a missing or mis-scaled delta: all of it)
+        worst, off, size = 0.0, 0.0, 0.0
+        for name, pair in lora_pairs(system.lora_sampler).items():
+            W = system.sampler.get_submodule(name).weight.float()
+            scale = (system.lora_alpha or pair.lora_a.shape[0]) \
+                / pair.lora_a.shape[0]
+            delta = scale * (pair.lora_b.float() @ pair.lora_a.float())
+            m = merged[name].float()
+            bound = 2.0 ** -8 * (delta.abs() + m.abs())
+            worst = max(worst, float(((m - (W + delta)).abs()
+                                      / bound.clamp_min(1e-30)).max()))
+            off += float((m - W - delta).abs().sum())
+            size += float(delta.abs().sum())
+        res["generate_lora"]["merged_err_of_bound"] = worst
+        res["generate_lora"]["applied_delta_rel_err"] = off / size
+        moved = sum(int((merged[n] != system.sampler.get_submodule(n).weight)
+                        .sum()) for n in merged)
+        res["generate_lora"]["merged_elements_changed"] = moved
+        if not (worst <= 1.01 and off / size <= 0.25 and moved > 0):
+            problems.append(f"generate_lora: merged weights {worst} of the "
+                            f"rounding bound from W + (alpha/r) b a, the "
+                            f"applied change {off / size} of delta off it, "
+                            f"{moved} changed")
+        # the same call on a system without adapters holding the merged
+        # weights
+        codes = np.stack([np.load(os.path.join(lora_wavs, f"{i}.codes.npy"))
+                          for i in range(2)])
+        lora = system.lora_sampler
+        with torch.no_grad():
+            for name, w in merged.items():
+                system.sampler.get_submodule(name).weight.copy_(w)
+        system.lora_sampler = None
+        g = torch.Generator("cuda")
+        g.set_state(g_state)
+        replay = generate(system, *args, **dict(kwargs, generator=g))
+        replay_codes = replay["codes"].cpu().numpy()
+        res["generate_lora"]["replay_equal"] = bool(
+            np.array_equal(replay_codes, codes))
+        if not res["generate_lora"]["replay_equal"]:
+            problems.append("generate_lora: codes differ from the merged "
+                            "system's generate")
+        del system, lora, merged, replay
+        seen.clear()
+        base_wavs = os.path.join(wav_root, "base")
+        run("generate_base", FT_GEN + [f"ckpt_path={base_dir}",
+                                       f"output_dir={base_wavs}"], want)
+        seen.clear()
+        base_codes = np.stack([np.load(os.path.join(base_wavs,
+                                                    f"{i}.codes.npy"))
+                               for i in range(2)])
+        res["generate_lora"]["codes_differ_from_base"] = int(
+            (base_codes != codes).sum())
+        for d in (lora_wavs, base_wavs):
+            for i in range(2):
+                wav, sr = read_wav(os.path.join(d, f"{i}.wav"))
+                if (sr != 44100 or wav.shape != (1, FT_GEN_TOKENS * 512)
+                        or not np.isfinite(wav).all()):
+                    problems.append(f"{d}: clip {i} {wav.shape} at {sr} Hz")
+    finally:
+        tvaura.VauraSystem.generate = generate
+        tloop.Trainer.fit = fit
+        seen.clear()
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    res["train_action_D_peak_mem_gib"] = (
+        report.get("train_action", {}).get("D", {}).get("peak_mem_gib"))
+    res["launches"] = total
+    res["wav_dirs"] = {"lora": lora_wavs, "base": base_wavs}
+    report["finetune"] = res
+    print("finetune: " + json.dumps(
+        {t: {k: res[t].get(k) for k in ("wall_s", "peak_mem_gib",
+                                        "test_loss")}
+         for t in ("L", "F", "generate_lora", "generate_base") if t in res}
+        | {"base_s": res.get("base_s"), "train_action_D_peak_mem_gib":
+           res["train_action_D_peak_mem_gib"]}), flush=True)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return total
+
+
+# eval: the eval action on the finetune phase's WAVs (L's experiment against
+# the base) with each embedder; the networks from seeded random weights
+# (N(0, 1/fan_in), zero biases: the published files are not in the repo)
+# written as .pth files under chiprun_out/eval/ and deleted after the phase
+# (each is several hundred MB). Card against CPU: float32 embeddings of
+# the same clips, as the embedders compute them (their networks turn TF32
+# off themselves), within 1e-3 of the largest magnitude. The FAD
+# of a set against itself: within D sqrt(eps) of the set's total variance
+# (the trace of its covariance, the scale of each term of the distance;
+# D the embedding's width, eps float64's). Two clips give a covariance of
+# rank 1, and the eigh square roots turn the rounding noise of its D - 1
+# zero eigenvalues into up to about D sqrt(eps) lambda_max, which exceeds
+# an absolute 1e-6 at a variance of order 10: such a bound would hold the
+# metric's own numerics, not the port
+TOL_EMBED_REL = 1e-3
+
+
+def phase_eval(gen, report):
+    """``action=eval`` as a user runs it on the finetune phase's WAVs, with
+    ``melstats``, ``vggish`` and ``panns``: finite metrics (``fad_*``,
+    ``kld_panns``), the FAD of the LoRA set against itself within D
+    sqrt(eps) of the set's total variance, and each network's embeddings
+    (and Cnn14's
+    posteriors) of the LoRA clips on the card within 1e-3 relative of the
+    CPU's."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from vaura_tpu_torch.main import main
+    from vaura_tpu_torch.ops.audio import read_wav
+    from vaura_tpu_torch.ops.panns import Cnn14
+    from vaura_tpu_torch.ops.vggish import VGGish
+    from vaura_tpu_torch.scripts.eval_metrics import make_embedder
+    from vaura_tpu_torch.utils import seeded_init_
+
+    dirs = report["finetune"]["wav_dirs"]
+    root = os.path.join(OUT_DIR, "eval")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    res, problems = {}, []
+    # cuDNN's flags stay at their defaults (TF32 convolutions allowed): the
+    # embedders run their networks in full float32 themselves, and the card
+    # against CPU check below holds what a user's action=eval computes
+    try:
+        ckpts = {}
+        for name, cls, seed in (("vggish", VGGish, 5), ("panns", Cnn14, 6)):
+            ckpts[name] = os.path.join(root, f"{name}.pth")
+            net = seeded_init_(cls("cpu"), torch.Generator().manual_seed(seed))
+            sd = net.state_dict()
+            torch.save({"model": sd} if name == "panns" else sd, ckpts[name])
+        for embedder in ("melstats", "vggish", "panns"):
+            extra = ([f"embedder_ckpt={ckpts[embedder]}"]
+                     if embedder in ckpts else [])
+            t0 = time.time()
+            report_ = main(["config=" + os.path.join(ROOT, TRAIN_CONFIG),
+                            "action=eval", f"generated_dir={dirs['lora']}",
+                            f"reference_dir={dirs['base']}", "fad=true",
+                            f"embedder={embedder}", *extra])
+            wall = time.time() - t0
+            self_ = main(["config=" + os.path.join(ROOT, TRAIN_CONFIG),
+                          "action=eval", f"generated_dir={dirs['lora']}",
+                          f"reference_dir={dirs['lora']}", "fad=true",
+                          f"embedder={embedder}", *extra])
+            mean = report_["mean"]
+            r = {"wall_s": wall, "n": report_["n"], "mean": mean,
+                 "self_fad": self_["mean"].get(f"fad_{embedder}")}
+            bad = [k for k, v in mean.items() if not math.isfinite(v)]
+            if report_["n"] != 2 or bad or f"fad_{embedder}" not in mean:
+                problems.append(f"{embedder}: n {report_['n']}, metrics "
+                                f"{mean}")
+            on_card = make_embedder(embedder, ckpts.get(embedder), "cuda")
+            on_cpu = make_embedder(embedder, ckpts.get(embedder), "cpu")
+            rows, err = [], 0.0
+            for i in range(2):
+                wav, sr = read_wav(os.path.join(dirs["lora"], f"{i}.wav"))
+                a = np.atleast_2d(on_card(wav[0], sr))
+                rows.append(a)
+                if embedder not in ckpts:
+                    continue  # melstats: numpy, no device
+                b = np.atleast_2d(on_cpu(wav[0], sr))
+                err = max(err, float(np.abs(a - b).max())
+                          / max(float(np.abs(b).max()), 1e-30))
+                if embedder == "panns":
+                    p, q = on_card.last_probs, on_cpu.last_probs
+                    err = max(err, float(np.abs(p - q).max())
+                              / float(np.abs(q).max()))
+            del on_card, on_cpu
+            rows = np.concatenate(rows).astype(np.float64)
+            r["variance"] = float(np.trace(np.atleast_2d(
+                np.cov(rows, rowvar=False))))
+            r["self_fad_tol"] = (rows.shape[1] * float(np.sqrt(np.finfo(
+                np.float64).eps)) * r["variance"])
+            if r["self_fad"] is None or not abs(r["self_fad"]) <= \
+                    r["self_fad_tol"]:
+                problems.append(f"{embedder}: FAD of a set against itself "
+                                f"{r['self_fad']} (variance "
+                                f"{r['variance']})")
+            if embedder in ckpts:
+                r["card_vs_cpu_rel"] = err
+                if not err <= TOL_EMBED_REL:
+                    problems.append(f"{embedder}: card against CPU {err}")
+            res[embedder] = r
+            log(f"[eval] {embedder}: wall {wall:.2f} s, {mean}, self FAD "
+                f"{r['self_fad']} (variance {r['variance']:.4g}), card vs "
+                f"CPU {r.get('card_vs_cpu_rel')}")
+    finally:
+        for path in os.listdir(root):
+            if path.endswith(".pth"):
+                os.remove(os.path.join(root, path))
+        torch.cuda.empty_cache()
+    report["eval"] = res
+    print("eval: " + json.dumps({k: {"wall_s": v["wall_s"], **v["mean"]}
+                                 for k, v in res.items()}), flush=True)
+    if problems:
+        raise AssertionError("; ".join(problems))
+
+
 # the server's runs: service A serves the flagship model of
 # configs/generate_vgg.yaml (seeded random weights) with the bf16 cache,
 # buckets [1, 8] and the rolling-KV stream of 5.12 s; service B the same
@@ -2030,6 +2427,11 @@ def main() -> int:
     train_action_launches = run("train_action", phase_train_action, gen,
                                 report) or {}
     serve_launches = run("serve", phase_serve, gen, report) or {}
+    finetune_launches = run("finetune", phase_finetune, gen, report) or {}
+    if "finetune" in report:
+        run("eval", phase_eval, gen, report)
+    else:
+        failed.append("eval")
 
     # each kernel's count on the main paths that run it: generation for the
     # decode and fused encoder kernels, generation with the int8 cache for
@@ -2042,7 +2444,8 @@ def main() -> int:
             + (int8_launches.get(name, 0) if name == "decode_attention_int8"
                else 0) + action_launches.get(name, 0)
             + train_action_launches.get(name, 0)
-            + serve_launches.get(name, 0))
+            + serve_launches.get(name, 0)
+            + finetune_launches.get(name, 0))
     report["kernels"] = kernels
     report["failed"] = failed
     os.makedirs(OUT_DIR, exist_ok=True)

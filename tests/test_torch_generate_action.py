@@ -259,13 +259,11 @@ def test_main_dispatch_and_device(monkeypatch):
     from vaura_tpu_torch.scripts.generate import config_device
 
     monkeypatch.chdir(REPO)
-    for action in ("finetune", "eval"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            main(["config=configs/experiments/dummy.yaml", f"action={action}"])
-    # train and test are ported: on the card unless trainer.platform says
-    # otherwise, so without CUDA they raise before writing anything
+    # every action of main.py is ported: on the card unless
+    # trainer.platform says otherwise, so without CUDA they raise before
+    # writing anything
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for action in ("train", "test"):
+    for action in ("train", "test", "finetune", "eval"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main(["config=configs/experiments/dummy.yaml", f"action={action}",
                   "trainer.log_dir=/nonexistent/logs"])

@@ -175,3 +175,40 @@ def test_trainer_modules_write_tensorboard_without_its_packages():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True)
     assert r.returncode == 0, r.stderr
+
+
+def test_finetune_and_eval_modules_are_covered_and_need_a_device(
+        monkeypatch, tmp_path):
+    """``action=finetune`` and ``action=eval`` run on the card: without
+    CUDA and without ``trainer.platform=cpu`` they raise before writing
+    anything; their modules are under the import rule above and load
+    nothing of JAX or PyYAML."""
+    names = {str(f.relative_to(ROOT)) for f in _port_files()}
+    for mod in ("train/lora.py", "scripts/finetune.py", "ops/fad.py",
+                "ops/vggish.py", "ops/panns.py", "scripts/eval_metrics.py"):
+        assert f"vaura_tpu_torch/{mod}" in names, mod
+    from vaura_tpu_torch.main import main
+
+    monkeypatch.chdir(ROOT)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for action, extra in (("finetune", [f"trainer.log_dir={tmp_path}"]),
+                          ("eval", [f"generated_dir={tmp_path}",
+                                    f"reference_dir={tmp_path}"])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(["config=configs/experiments/dummy.yaml",
+                  f"action={action}", *extra])
+    assert not any(tmp_path.iterdir())
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            "import vaura_tpu_torch.scripts.finetune\n"
+            "import vaura_tpu_torch.scripts.eval_metrics\n"
+            "import vaura_tpu_torch.ops.vggish, vaura_tpu_torch.ops.panns\n"
+            "import vaura_tpu_torch.ops.fad, vaura_tpu_torch.train.lora\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN + ('yaml',)!r}]\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True)
+    assert r.returncode == 0, r.stderr

@@ -251,10 +251,17 @@ def test_stacked_rank_decay_quirk(setup):
 
 
 def test_optimizer_options_and_batches():
-    with pytest.raises(NotImplementedError):
-        make_optimizer(1e-3, mu_dtype="bfloat16")
-    with pytest.raises(NotImplementedError):
-        make_optimizer(1e-3, nu_dtype="bfloat16")
+    # reduced-precision moments: stored in the dtype named
+    # (tests/test_torch_optimizer_dtypes.py holds their updates to JAX's)
+    params = {"w": torch.zeros(2, 2), "b": torch.zeros(2)}
+    state = make_optimizer(1e-3, mu_dtype="bfloat16").init(params)
+    assert {v.dtype for v in state.mu.values()} == {torch.bfloat16}
+    assert {v.dtype for v in state.nu.values()} == {torch.float32}
+    state = make_optimizer(1e-3, nu_dtype="bfloat16").init(params)
+    assert {v.dtype for v in state.mu.values()} == {torch.float32}
+    assert {v.dtype for v in state.nu.values()} == {torch.bfloat16}
+    with pytest.raises(ValueError):
+        make_optimizer(1e-3, mu_dtype="int8")
     with pytest.raises(ValueError):
         make_optimizer(1e-3, gradient_clip_algorithm="sign")
     sched = build_schedule(

@@ -19,7 +19,9 @@ Layouts:
 Weight norm is already folded on the JAX side. The int8 weights of a
 ``quantize_sampler_params`` tree (``kernel_q [in, out]`` int8, ``scale
 [out]``) become ``kernel_q [out, in]`` int8 and ``scale`` buffers, for a
-sampler built with ``quantize_weights=True``.
+sampler built with ``quantize_weights=True``. LoRA adapters
+(``lora_sampler``: stacked ``a [L, in, r]``, ``b [L, r, out]``) become one
+transposed pair per layer.
 
 Every mapping is linear (a transpose, a slice or a copy), so a JAX GRADIENT
 tree or an UPDATED parameter tree goes through ``from_jax_params`` just as
@@ -171,19 +173,40 @@ def bridge_state_dict(p: Tree) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def lora_state_dict(p: Tree) -> Dict[str, torch.Tensor]:
+    """``init_lora``'s tree (``{path: {"lora_a" [(L,) in, r], "lora_b"
+    [(L,) r, out]}}``) -> one ``lora_a [r, in]`` / ``lora_b [out, r]`` per
+    adapted layer, at the layer's name (``layers.{i}.attention.wqkv``)."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(node: Tree, path: tuple) -> None:
+        for k, v in node.items():
+            if hasattr(v, "items"):
+                walk(v, path + (k,))
+                continue
+            a = np.asarray(v)
+            if path[0] == "layers":  # stacked: one pair per layer
+                for i in range(a.shape[0]):
+                    name = ".".join(("layers", str(i)) + path[1:] + (k,))
+                    sd[name] = _t(a[i].T)
+            else:
+                sd[".".join(path + (k,))] = _t(a.T)
+
+    walk(p, ())
+    return sd
+
+
 _CONVERTERS = {
     "sampler": sampler_state_dict,
     "encoder": encoder_state_dict,
     "dac": dac_state_dict,
     "bridge": bridge_state_dict,
+    "lora_sampler": lora_state_dict,
 }
 
 
 def from_jax_params(tree: Tree) -> Dict[str, Dict[str, torch.Tensor]]:
     """The JAX package's parameter tree (nested dicts of numpy arrays) ->
     the port's state dicts for each subtree present."""
-    if "lora_sampler" in tree:
-        raise NotImplementedError("LoRA adapters are not ported; merge them "
-                                  "into the sampler first")
     return {name: fn(tree[name]) for name, fn in _CONVERTERS.items()
             if name in tree}

@@ -6,14 +6,17 @@ Usage::
     python -m vaura_tpu_torch config=configs/generate_vgg.yaml [key=value ...]
 
 ``train`` and ``test`` run the train and test actions
-(``vaura_tpu_torch.scripts.train``, ``.test``); ``generate`` and
-``predict`` run the generate action (``vaura_tpu_torch.scripts.generate``);
-``serve`` starts the micro-batching HTTP server
-(``vaura_tpu_torch.scripts.serve``). The other actions of ``main.py``
-(``finetune``, ``eval``) raise ``NotImplementedError`` naming the ROADMAP
-item that ports them. The device
-is ``cuda`` unless the config says ``trainer.platform=cpu``; without CUDA
-and without that key the action raises.
+(``vaura_tpu_torch.scripts.train``, ``.test``); ``finetune`` the finetune
+action (``.finetune``: from ``finetune.init_from``, optionally with LoRA
+adapters); ``generate`` and ``predict`` the generate action
+(``.generate``); ``serve`` starts the micro-batching HTTP server
+(``.serve``); ``eval`` computes the objective metrics of
+``generated_dir`` (or ``output_dir``) against ``reference_dir``, with
+``fad=true`` a Frechet audio distance under ``embedder`` (``melstats``,
+``vggish`` or ``panns``, ``embedder_ckpt`` for the last two;
+``.eval_metrics``). The device is ``cuda`` unless the config says
+``trainer.platform=cpu``; without CUDA and without that key the action
+raises.
 """
 
 from __future__ import annotations
@@ -25,12 +28,6 @@ from pathlib import Path
 REPO_ROOT = Path(__file__).absolute().parents[1]
 
 logger = logging.getLogger("vaura_tpu_torch")
-
-# the ROADMAP.md items ("Modules to port") that port the other actions
-_NOT_PORTED = {
-    "finetune": "LoRA and finetune",
-    "eval": "Everything else (eval)",
-}
 
 
 def get_config(argv):
@@ -47,9 +44,9 @@ def get_config(argv):
 
 def main(argv=None) -> dict:
     """Run the action of the config ``argv`` assembles; returns its result
-    (the train action's ``{"dirs", "metrics", ...}``, the test action's
-    ``{"test_loss"}``, the generate action's ``{"output_dir",
-    "num_generated", ...}``)."""
+    (the train and finetune actions' ``{"dirs", "metrics", ...}``, the
+    test action's ``{"test_loss"}``, the generate action's ``{"output_dir",
+    "num_generated", ...}``, the eval action's report or None)."""
     argv = argv if argv is not None else sys.argv[1:]
     cfg = get_config(argv)
     action = cfg.get("action")
@@ -71,10 +68,14 @@ def main(argv=None) -> dict:
         from vaura_tpu_torch.scripts.serve import run_server
 
         return run_server(cfg)
-    if action in _NOT_PORTED:
-        raise NotImplementedError(
-            f"action {action!r} is not ported yet (ROADMAP.md, 'Modules to "
-            f"port', item '{_NOT_PORTED[action]}')")
+    if action == "finetune":
+        from vaura_tpu_torch.scripts.finetune import finetune
+
+        return finetune(cfg)
+    if action == "eval":
+        from vaura_tpu_torch.scripts.eval_metrics import run_eval
+
+        return run_eval(cfg)
     raise ValueError(f"Unknown action {action!r}")
 
 

@@ -12,7 +12,10 @@ or for the JAX package work unchanged.
 ``flatten_vis_feats`` is read by the Trainer (``train/loop.py``: the
 length of its predict-media generation) and, through the config defaults,
 by the datamodules (``partition_audio_to_clips``); the system does not keep
-it. LoRA (``lora_rank``) is not ported.
+it. ``lora_rank``, ``lora_target_modules`` (the reference's key name) and
+``lora_alpha`` give the system LoRA adapters on its sampler
+(``train/lora.py``); ``lora_finetune_feature_extractor`` is accepted with a
+warning, as in the JAX package: LoRA targets the sampler only.
 """
 
 from __future__ import annotations
@@ -54,10 +57,6 @@ def build_system(
     storage of the sampler's and encoder's matmul weights (float32 by
     default, what training updates; bf16 for a system that only
     generates). ``device``: ``resolve_device``'s rule."""
-    if int(model_cfg.get("lora_rank", 0) or 0):
-        raise NotImplementedError(
-            "LoRA is not ported yet (ROADMAP.md, 'Modules to port', item "
-            "'LoRA and finetune')")
     use_vis = model_cfg.get("use_visual_conditioning", True)
     dtype = _PRECISION.get(precision) if precision is not None else None
     store = {} if param_dtype is None else {"param_dtype": param_dtype}
@@ -104,6 +103,12 @@ def build_system(
             pp_cfg["params"] = pp_params
         pattern_provider = instantiate_from_config(pp_cfg)
 
+    lora_targets = model_cfg.get("lora_target_modules")
+    if model_cfg.get("lora_finetune_feature_extractor"):
+        logger.warning(
+            "lora_finetune_feature_extractor is accepted for config "
+            "compatibility (reference scripts/test.py:63-65) but LoRA "
+            "targets the sampler only")
     return VauraSystem(
         sampler_config=sampler_spec,
         dac_config=dac_config,
@@ -114,6 +119,9 @@ def build_system(
         freeze_feature_extractor=model_cfg.get("freeze_feature_extractor",
                                                False),
         device=device,
+        lora_rank=int(model_cfg.get("lora_rank", 0) or 0),
+        lora_targets=tuple(lora_targets) if lora_targets else None,
+        lora_alpha=model_cfg.get("lora_alpha"),
     )
 
 

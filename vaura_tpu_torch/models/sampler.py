@@ -34,6 +34,7 @@ weights as int8 with per-output-channel scales (``kernel_q``/``scale``,
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Dict, Optional, Tuple, Union
@@ -172,7 +173,9 @@ class PDense(nn.Module):
     """Bias-free dense: weight ``[out, in]`` stored in ``param_dtype``, cast
     to the compute dtype at use; with ``cfg.quantize_weights`` (and
     ``quantizable``) the int8 ``kernel_q [out, in]`` and float32 ``scale
-    [out]`` buffers instead."""
+    [out]`` buffers instead. ``merged``, when set (``use_weights``), is
+    used in place of the weight: a LoRA-merged weight in the compute
+    dtype, made once per entry call (``VauraSystem.lora_merged``)."""
 
     def __init__(self, i: int, o: int, cfg: SamplerConfig, device=None,
                  quantizable: bool = True):
@@ -186,12 +189,29 @@ class PDense(nn.Module):
         else:
             self.weight = nn.Parameter(torch.empty(o, i, dtype=cfg.param_dtype,
                                                    device=device))
+        self.merged: Optional[torch.Tensor] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.merged is not None:
+            return F.linear(x.to(self.dtype), self.merged)
         if self.quantized:
             return quant_dense(x.to(self.dtype), self.kernel_q, self.scale)
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
 
+
+@contextlib.contextmanager
+def use_weights(weights: Dict[PDense, torch.Tensor]):
+    """Run the ``PDense`` layers of ``weights`` with the given weights (cast
+    to each layer's compute dtype) in place of their own, until the block
+    ends; the layers' previous state is restored then."""
+    old = {m: m.merged for m in weights}
+    for m, w in weights.items():
+        m.merged = w.to(m.dtype)
+    try:
+        yield
+    finally:
+        for m, w in old.items():
+            m.merged = w
 
 
 class RMSNorm(nn.Module):
@@ -511,10 +531,16 @@ class Sampler(nn.Module):
                                       generator=generator))
                     if stochastic else None)
 
-            def run(x, layer=layer, seed=seed):
+            # the merged LoRA weights of this call, which the backward
+            # pass's rerun must use too
+            merged = {m: m.merged for m in layer.modules()
+                      if isinstance(m, PDense) and m.merged is not None}
+
+            def run(x, layer=layer, seed=seed, merged=merged):
                 g = (None if seed is None else
                      torch.Generator(device=x.device).manual_seed(seed))
-                return layer(x, freqs, mask, train, g)
+                with use_weights(merged):
+                    return layer(x, freqs, mask, train, g)
 
             h = checkpoint(run, h, use_reentrant=False,
                            preserve_rng_state=False)

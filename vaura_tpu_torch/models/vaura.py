@@ -36,6 +36,8 @@ whole call where JAX splits its key per chunk.
 from __future__ import annotations
 
 import contextlib
+import functools
+import inspect
 import logging
 import math
 from typing import Dict, Optional, Tuple
@@ -51,10 +53,17 @@ from vaura_tpu_torch.models.sampler import (
     Sampler,
     SamplerConfig,
     default_tokens_per_frame,
+    use_weights,
 )
 from vaura_tpu_torch.ops.losses import masked_codebook_cross_entropy
 from vaura_tpu_torch.ops.patterns import DelayedPatternProvider
 from vaura_tpu_torch.ops.sampling import cfg_blend, sample_tokens
+from vaura_tpu_torch.train.lora import (
+    DEFAULT_TARGETS,
+    init_lora,
+    lora_pairs,
+    merge_lora,
+)
 from vaura_tpu_torch.utils import DeviceLike, StageClock, resolve_device
 
 UNKNOWN_TOKEN = -1
@@ -62,6 +71,24 @@ UNKNOWN_TOKEN = -1
 
 def _largest_divisor(n: int, cap: int) -> int:
     return next(c for c in range(min(cap, n), 0, -1) if n % c == 0)
+
+
+def _merges_lora(fn):
+    """Run an entry point (a function or a generator) inside
+    ``VauraSystem.lora_merged``, where the JAX package resolves its
+    parameters (``_resolve_params``)."""
+    if inspect.isgeneratorfunction(fn):
+        @functools.wraps(fn)
+        def stream(self, *args, **kwargs):
+            with self.lora_merged():
+                yield from fn(self, *args, **kwargs)
+        return stream
+
+    @functools.wraps(fn)
+    def call(self, *args, **kwargs):
+        with self.lora_merged():
+            return fn(self, *args, **kwargs)
+    return call
 
 
 class VauraSystem(nn.Module):
@@ -80,6 +107,9 @@ class VauraSystem(nn.Module):
         use_visual_conditioning: bool = True,
         freeze_feature_extractor: bool = False,
         device: DeviceLike = None,
+        lora_rank: int = 0,
+        lora_targets: Optional[Tuple[str, ...]] = None,
+        lora_alpha: Optional[float] = None,
     ):
         super().__init__()
         self.device = resolve_device(device)
@@ -97,6 +127,14 @@ class VauraSystem(nn.Module):
         self.pattern_provider = pattern_provider or DelayedPatternProvider(
             sampler_config.num_codebooks)
         self.pattern_name = type(self.pattern_provider).__name__
+        # LoRA (train/lora.py): rank 0 disables; the adapters are a module
+        # beside the sampler, merged into its weights at each entry call
+        self.lora_rank, self.lora_alpha = int(lora_rank), lora_alpha
+        self.lora_sampler = None
+        if self.lora_rank > 0:
+            self.lora_sampler = init_lora(
+                self.sampler, self.lora_rank,
+                tuple(lora_targets or DEFAULT_TARGETS))
 
     @property
     def num_codebooks(self) -> int:
@@ -106,9 +144,31 @@ class VauraSystem(nn.Module):
     def special_token_id(self) -> int:
         return self.sampler_config.special_token_id
 
+    @contextlib.contextmanager
+    def lora_merged(self):
+        """Run the sampler with the LoRA adapters merged into its weights
+        until the block ends: each adapted ``PDense`` gets ``W + (alpha / r)
+        * lora_b @ lora_a`` once (``train/lora.py::merge_lora``), not at each
+        use, and gradients reach the adapters through it. Without adapters,
+        and inside an enclosing block (its layers already hold merged
+        weights), it does nothing. The nesting is read from the layers, not
+        kept on the system, so a copy of the system taken inside a block (a
+        hot reload's view) merges on its own next call."""
+        if self.lora_sampler is None:
+            yield
+            return
+        layers = {name: self.sampler.get_submodule(name)
+                  for name in lora_pairs(self.lora_sampler)}
+        if any(m.merged is not None for m in layers.values()):
+            yield
+            return
+        merged = merge_lora(self.sampler, self.lora_sampler, self.lora_alpha)
+        with use_weights({layers[name]: w for name, w in merged.items()}):
+            yield
+
     def load_state_dicts(self, state_dicts: Dict[str, Dict[str, torch.Tensor]]):
-        """Load ``{"sampler", "dac", "encoder", "bridge"}`` state dicts (the
-        keys present) into the matching submodules."""
+        """Load ``{"sampler", "dac", "encoder", "bridge", "lora_sampler"}``
+        state dicts (the keys present) into the matching submodules."""
         for name, sd in state_dicts.items():
             module = getattr(self, name)
             if module is None:
@@ -190,6 +250,7 @@ class VauraSystem(nn.Module):
         """Waveform ``[B, 1, T]`` -> codes ``[B, K, T / hop]`` (no graph)."""
         return self.dac.encode(audio.to(self.device))
 
+    @_merges_lora
     def train_forward(
         self,
         frames: Optional[torch.Tensor],
@@ -348,6 +409,7 @@ class VauraSystem(nn.Module):
         return gen_seq
 
     @torch.no_grad()
+    @_merges_lora
     def generate(
         self,
         frames: Optional[torch.Tensor] = None,
@@ -544,6 +606,7 @@ class VauraSystem(nn.Module):
             prompt = codes[:, :, stride_tokens:]
 
     @torch.no_grad()
+    @_merges_lora
     def generate_long(
         self,
         frames: Optional[torch.Tensor] = None,   # [B, S_total, C, T, H, W]
@@ -748,6 +811,7 @@ class VauraSystem(nn.Module):
         return out
 
     @torch.no_grad()
+    @_merges_lora
     def generate_long_kv(
         self,
         frames: Optional[torch.Tensor] = None,   # [B, S_total, C, T, H, W]
@@ -820,6 +884,7 @@ class VauraSystem(nn.Module):
         return audio.reshape(wav.shape[0], -1), emit_to
 
     @torch.no_grad()
+    @_merges_lora
     def generate_long_kv_stream(
         self,
         frames: Optional[torch.Tensor] = None,   # [B, S_total, C, T, H, W]
@@ -883,6 +948,7 @@ class VauraSystem(nn.Module):
             emitted, n_prev = emit_to, n_known
 
     @torch.no_grad()
+    @_merges_lora
     def generate_long_stream(
         self,
         frames: Optional[torch.Tensor] = None,   # [B, S_total, C, T, H, W]

@@ -17,7 +17,11 @@ horizon); ``quantize`` (int8 sampler weights and int8 KV cache);
 (the DAC round trip); ``frame_step``, ``encoder_chunk_size``,
 ``max_batches``, ``seed``, ``audio_norm_strategy``; the per-batch error
 handling; bf16 weights at inference (every floating parameter rounded to
-bf16, as the JAX action's ``cast_floats``).
+bf16, as the JAX action's ``cast_floats``). A LoRA experiment (``lora_rank``
+in its hparams) gets its base weights from the run's ``finetune.init_from``
+(``load_lora_base_``) and its adapters from the checkpoint, merged at
+generation; with ``quantize`` it raises ``ValueError``, as the adapters
+cannot be merged into int8 weights.
 
 The device is ``cuda`` unless the config says ``trainer.platform: cpu``
 (``config_device``); without CUDA and without that key it raises. The
@@ -42,7 +46,11 @@ from vaura_tpu_torch.models.factory import build_system
 from vaura_tpu_torch.models.sampler import Sampler
 from vaura_tpu_torch.ops.audio import normalize_audio, write_wav
 from vaura_tpu_torch.ops.quantization import quantize_sampler_params
-from vaura_tpu_torch.train.checkpoint import load_trainable_
+from vaura_tpu_torch.train.checkpoint import (
+    load_base_,
+    load_trainable_,
+    lora_base_checkpoint,
+)
 from vaura_tpu_torch.utils import resolve_device, seeded_init_
 from vaura_tpu_torch.utils.experiment import (
     load_hparams,
@@ -180,6 +188,35 @@ def _model_config(cfg: dict):
     return model_cfg, None, (str(ckpt_path) if ckpt_path else None)
 
 
+LORA_INT8 = ("LoRA adapters cannot be merged into int8 weights: generate "
+             "from a LoRA experiment without quantize")
+
+
+def load_lora_base_(system, cfg: dict, ckpt_path: Optional[str]) -> None:
+    """The base weights of a LoRA experiment, in place: the run's
+    ``frozen/`` save, else its ``finetune.init_from`` (from the
+    experiment's ``hparams.yaml``, or from the config when no experiment is
+    named; ``train/checkpoint.py::lora_base_checkpoint``). The JAX action
+    leaves the seeded initialisation here, so its adapters merge into
+    another base than the one they trained over (ROADMAP.md, section 3)."""
+    hparams, ckpt_dir = cfg, None
+    if cfg.get("experiment_path"):
+        paths = resolve_experiment_paths(cfg["experiment_path"])
+        ckpt_dir = paths["checkpoints"]
+        if paths["hparams"] is not None:
+            hparams = load_hparams(paths["hparams"])
+    elif ckpt_path:
+        ckpt_dir = Path(ckpt_path).parent
+    base = lora_base_checkpoint(hparams, ckpt_dir)
+    if base is None:
+        logger.warning("LoRA experiment without a frozen save or "
+                       "finetune.init_from: the adapters merge into the "
+                       "seeded initialisation")
+        return
+    load_base_(system, base)
+    logger.info("Loaded the LoRA base weights from %s", base)
+
+
 def generate(cfg: dict) -> dict:
     logging.basicConfig(level=logging.INFO)
     logging.getLogger().setLevel(logging.INFO)
@@ -208,9 +245,13 @@ def generate(cfg: dict) -> dict:
     # bf16 storage of the matmul weights: generation only
     system = build_system(model_cfg, device=device,
                           param_dtype=torch.bfloat16)
+    if system.lora_sampler is not None and cfg.get("quantize"):
+        raise ValueError(LORA_INT8)
     generator = seed_everything(int(cfg.get("seed", 666)), device)
     seeded_init_(system, generator)
     system.load_dac_embeddings_into_sampler()
+    if system.lora_sampler is not None:
+        load_lora_base_(system, cfg, ckpt_path)
     if ckpt_path:
         load_trainable_(system, ckpt_path, model_cfg, cfg.get("trainer"))
         logger.info("Loaded checkpoint %s", ckpt_path)

@@ -37,7 +37,12 @@ The server runs on ``cuda`` unless ``trainer.platform=cpu``, on one card:
 with several cards visible (``mesh_serving``) it says so in a log line.
 ``aot_export`` / ``aot_load`` raise (eager PyTorch has no graph to export);
 ``compilation_cache_dir`` is logged and ignored; ``decode_buckets`` is
-accepted and has no effect (``VauraSystem.generate_tokens``).
+accepted and has no effect (``VauraSystem.generate_tokens``). A LoRA
+experiment serves its adapters merged into its base (the run's ``frozen/``
+save, else its ``finetune.init_from``:
+``scripts/generate.py::load_lora_base_``); a reload
+swaps in new adapters; ``quantize=true`` raises ``ValueError`` with LoRA
+(the adapters cannot be merged into int8 weights; ``quantize=cache`` can).
 
 Differences from the JAX server that come from eager PyTorch:
 
@@ -82,10 +87,12 @@ from vaura_tpu_torch.models.sampler import Sampler
 from vaura_tpu_torch.ops.audio import pcm16, wav_stream_header, write_wav
 from vaura_tpu_torch.ops.quantization import quantize_sampler_params
 from vaura_tpu_torch.scripts.generate import (
+    LORA_INT8,
     REPO_ROOT,
     _replace_sampler,
     _round_params_to_bf16_,
     config_device,
+    load_lora_base_,
 )
 from vaura_tpu_torch.train.checkpoint import (
     load_trainable_,
@@ -237,6 +244,9 @@ class GenerationService:
         # bf16 storage of the matmul weights: generation only
         system = build_system(model_cfg, device=self.device,
                               param_dtype=torch.bfloat16)
+        qmode = cfg.get("quantize")
+        if system.lora_sampler is not None and qmode and qmode != "cache":
+            raise ValueError(LORA_INT8)
         if self.stream_mode == "kv":
             # the rolling-KV decode runs over the whole stream horizon, so
             # the RoPE table must cover it (pattern delay + headroom)
@@ -247,6 +257,8 @@ class GenerationService:
         seeded_init_(system, torch.Generator(self.device).manual_seed(seed))
         maybe_load_pretrained(system, model_cfg)
         system.load_dac_embeddings_into_sampler()
+        if system.lora_sampler is not None:
+            load_lora_base_(system, cfg, ckpt_path)
         if ckpt_path:
             load_trainable_(system, ckpt_path, model_cfg, cfg.get("trainer"))
             logger.info("loaded %s", ckpt_path)
@@ -265,7 +277,6 @@ class GenerationService:
         self._trainer_cfg = cfg.get("trainer")
         self.ckpt_path = str(ckpt_path) if ckpt_path else None
         _round_params_to_bf16_(system)
-        qmode = cfg.get("quantize")
         # "cache": int8 KV cache with bf16 weights, a property of the
         # decode, not of the weights: reload does not quantize and the
         # teacher-forced gate does not apply

@@ -314,3 +314,57 @@ def load_trainable_(system, ckpt_path, model_cfg: dict,
                                         trainer_cfg)
     for k, t in trainable.items():
         t.copy_(restored[k])
+
+
+@torch.no_grad()
+def load_base_(system, path) -> None:
+    """Load the base weights of ``system`` (all but its LoRA adapters) from
+    ``path``, in place: a reference checkpoint (a Lightning ``.ckpt``, or a
+    directory holding one; converted), or a checkpoint of this package,
+    either a whole tree (``{"params": {name: tensor}}`` or the bare mapping,
+    as ``CheckpointManager.save_frozen`` writes it) or a training run's
+    checkpoint (its trainable parameters). Every sampler parameter must be
+    there; a name the system lacks raises ``ValueError`` (a LoRA run's
+    checkpoint holds adapters, not a base), as does an orbax tree of the
+    JAX package (``load_state``)."""
+    from vaura_tpu_torch.utils.reference_ckpt import (
+        is_reference_checkpoint,
+        resolve_ckpt,
+    )
+
+    if is_reference_checkpoint(path):
+        from vaura_tpu_torch.models.convert import convert_vaura_checkpoint
+
+        system.load_state_dicts(convert_vaura_checkpoint(
+            str(resolve_ckpt(path))))
+        return
+    payload = load_state(path)
+    params = payload["params"] if "params" in payload else payload
+    own = {k: v for k, v in system.named_parameters()
+           if not k.startswith("lora_sampler.")}
+    unknown = sorted(set(params) - set(own))
+    if unknown:
+        raise ValueError(
+            f"{path} holds parameters this system does not have "
+            f"({unknown[:3]}...): not a base checkpoint of this model (a LoRA "
+            "run's checkpoint holds its adapters, not the base)")
+    missing = sorted(k for k in own if k.startswith("sampler.")
+                     and k not in params)
+    if missing:
+        raise ValueError(f"{path} lacks sampler parameters ({missing[:3]}...)")
+    copy_leaves({k: own[k] for k in params}, params, "params")
+
+
+def lora_base_checkpoint(hparams: Optional[dict],
+                         checkpoints_dir: Optional[Path]) -> Optional[Path]:
+    """Where the base weights of a LoRA run are: the run's ``frozen/`` save
+    (``Trainer.fit`` writes it, and with LoRA it holds the base sampler the
+    adapters trained over), else, for a run without one, the
+    ``finetune.init_from`` its ``hparams.yaml`` carries, an outside path
+    that may have moved or been overwritten since; None when neither
+    exists."""
+    if checkpoints_dir is not None and (
+            Path(checkpoints_dir) / "frozen" / STATE_FILE).exists():
+        return Path(checkpoints_dir) / "frozen"
+    init_from = ((hparams or {}).get("finetune") or {}).get("init_from")
+    return Path(init_from) if init_from else None

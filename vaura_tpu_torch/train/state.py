@@ -15,6 +15,16 @@ gradient before Adam; with accumulation the running mean of k
 micro-gradients is clipped and applied on every k-th call, the other calls
 change nothing but the mean.
 
+**Reduced-precision moments** (``mu_dtype``, ``nu_dtype``) follow the two
+JAX paths, which round differently. ``mu_dtype`` alone is optax's
+``scale_by_adam``: the new first moment is ``(1 - b1) * g + b1 * mu`` where
+``b1 * mu`` is taken in ``mu``'s dtype (JAX casts the Python float to the
+array's dtype), the update reads that float32 moment, and the moment is cast
+for storage at the end. With ``nu_dtype`` (``_scale_by_adam_dtypes`` of the
+JAX package) each stored moment is upcast to the gradient's dtype before
+the product, the bias corrections are float32, and both moments are cast
+for storage at the end.
+
 **Rank is taken as the JAX package sees it.** There the per-layer leaves of
 the sampler's ``layers`` and the encoder's ``blocks`` are stacked on a
 leading axis, so a block's norm weight ``[L, d]`` or bias ``[L, d]`` has
@@ -116,12 +126,16 @@ class Optimizer:
     gradient_clip_val: Optional[float] = 1.0
     gradient_clip_algorithm: str = "value"
     accumulate_grad_batches: int = 1
+    mu_dtype: Optional[torch.dtype] = None
+    nu_dtype: Optional[torch.dtype] = None
 
     def init(self, params: Params) -> OptState:
         live = [k for k, v in param_labels(params).items() if v != "frozen"]
-        zeros = lambda keys: {k: torch.zeros_like(params[k]) for k in keys}
+        zeros = lambda keys, dtype=None: {
+            k: torch.zeros_like(params[k], dtype=dtype) for k in keys}
         acc = zeros(params) if self.accumulate_grad_batches > 1 else {}
-        return OptState(0, 0, zeros(live), zeros(live), acc)
+        return OptState(0, 0, zeros(live, self.mu_dtype),
+                        zeros(live, self.nu_dtype), acc)
 
     def lr_at(self, count: int) -> float:
         lr = self.learning_rate
@@ -171,18 +185,68 @@ class Optimizer:
             gk = [grad_of[k] for k in keys]
             mu = [state.mu[k] for k in keys]
             nu = [state.nu[k] for k in keys]
-            torch._foreach_mul_(mu, b1)
-            torch._foreach_add_(mu, gk, alpha=1.0 - b1)
-            torch._foreach_mul_(nu, b2)
-            torch._foreach_addcmul_(nu, gk, gk, value=1.0 - b2)
-            denom = torch._foreach_div(nu, bc2)
-            torch._foreach_sqrt_(denom)
-            torch._foreach_add_(denom, self.eps)
-            step = torch._foreach_div(mu, bc1)
-            torch._foreach_div_(step, denom)
+            if self.nu_dtype is not None:
+                step = self._moments_upcast(gk, mu, nu, state.count)
+            else:
+                if self.mu_dtype is not None:
+                    mu = self._mu_reduced(gk, mu)
+                else:
+                    torch._foreach_mul_(mu, b1)
+                    torch._foreach_add_(mu, gk, alpha=1.0 - b1)
+                torch._foreach_mul_(nu, b2)
+                torch._foreach_addcmul_(nu, gk, gk, value=1.0 - b2)
+                denom = torch._foreach_div(nu, bc2)
+                torch._foreach_sqrt_(denom)
+                torch._foreach_add_(denom, self.eps)
+                if self.mu_dtype is not None:
+                    step = mu  # a temporary already: divided in place
+                    torch._foreach_div_(step, bc1)
+                else:
+                    step = torch._foreach_div(mu, bc1)
+                torch._foreach_div_(step, denom)
             if wd:
                 torch._foreach_add_(step, p, alpha=wd)
             torch._foreach_add_(p, step, alpha=-lr)
+
+    def _mu_reduced(self, g: List[torch.Tensor], mu: List[torch.Tensor]
+                    ) -> List[torch.Tensor]:
+        """optax's first moment over a stored ``mu`` in ``mu_dtype``:
+        ``(1 - b1) * g + b1 * mu`` with ``b1 * mu`` taken in ``mu_dtype``
+        (``b1`` rounded to it first, as JAX casts a weakly typed float).
+        Stores it, rounded to ``mu_dtype``, in ``mu`` and returns it in the
+        gradients' dtype; the one temporary is that return value."""
+        b1 = self.betas[0]
+        torch._foreach_mul_(
+            mu, torch.tensor(b1, dtype=self.mu_dtype, device=mu[0].device))
+        out = torch._foreach_mul(g, 1.0 - b1)
+        torch._foreach_add_(out, mu)  # float32 += bf16: exact upcast
+        torch._foreach_copy_(mu, out)
+        return out
+
+    def _moments_upcast(self, g: List[torch.Tensor], mu: List[torch.Tensor],
+                        nu: List[torch.Tensor], count: int
+                        ) -> List[torch.Tensor]:
+        """The JAX package's ``_scale_by_adam_dtypes``: each stored moment
+        upcast to the gradient's dtype, the EMAs, float32 bias corrections,
+        ``(m / bc1) / (sqrt(v / bc2) + eps)``; the moments are written back
+        in their storage dtypes. Returns the Adam direction."""
+        b1, b2 = self.betas
+        m = torch._foreach_mul([x.to(y.dtype) for x, y in zip(mu, g)], b1)
+        torch._foreach_add_(m, torch._foreach_mul(g, 1.0 - b1))
+        v = torch._foreach_mul([x.to(y.dtype) for x, y in zip(nu, g)], b2)
+        torch._foreach_add_(v, torch._foreach_mul(torch._foreach_mul(g, g),
+                                                  1.0 - b2))
+        n = torch.tensor(float(count), dtype=torch.float32)
+        bc1 = float(1.0 - torch.tensor(b1, dtype=torch.float32) ** n)
+        bc2 = float(1.0 - torch.tensor(b2, dtype=torch.float32) ** n)
+        denom = torch._foreach_div(v, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        step = torch._foreach_div(m, bc1)
+        torch._foreach_div_(step, denom)
+        torch._foreach_copy_(mu, m)
+        torch._foreach_copy_(nu, v)
+        return step
 
 
 def make_optimizer(
@@ -196,18 +260,26 @@ def make_optimizer(
     nu_dtype: Optional[str] = None,
 ) -> Optimizer:
     """AdamW with per-rank decay, value or global-norm clipping, frozen
-    leaves and gradient accumulation. The moments are kept in the
-    parameters' dtype: ``mu_dtype`` / ``nu_dtype`` (reduced-precision
-    moments) are not ported."""
-    if mu_dtype is not None or nu_dtype is not None:
-        raise NotImplementedError(
-            "reduced-precision Adam moments (mu_dtype, nu_dtype) are not "
-            "ported yet")
+    leaves and gradient accumulation. ``mu_dtype`` (for example
+    ``"bfloat16"``) stores the first moment in that dtype; ``nu_dtype`` the
+    second too (the JAX package's experimental path); see the module
+    docstring for how each rounds."""
     if gradient_clip_algorithm not in ("value", "norm"):
         raise ValueError(gradient_clip_algorithm)
     return Optimizer(learning_rate, weight_decay, tuple(betas), 1e-8,
                      gradient_clip_val, gradient_clip_algorithm,
-                     max(int(accumulate_grad_batches or 1), 1))
+                     max(int(accumulate_grad_batches or 1), 1),
+                     _dtype(mu_dtype), _dtype(nu_dtype))
+
+
+def _dtype(name) -> Optional[torch.dtype]:
+    """A moment dtype by name (``"bfloat16"``, ``"float32"``) or None."""
+    if name is None or isinstance(name, torch.dtype):
+        return name
+    dtype = getattr(torch, str(name), None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"unknown moment dtype {name!r}")
+    return dtype
 
 
 @dataclasses.dataclass

@@ -23,12 +23,15 @@ def split_params(system: VauraSystem
                  ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """``(trainable, frozen)`` partition of ``system.named_parameters()``:
     the sampler and the bridge train, the codec never does, the encoder
-    follows ``freeze_feature_extractor``. Sets ``requires_grad`` of every
-    leaf to match."""
+    follows ``freeze_feature_extractor``. With LoRA adapters the adapters
+    train in the sampler's place, and the base sampler is frozen (merged
+    with them at each entry call). Sets ``requires_grad`` of every leaf to
+    match."""
     trainable, frozen = {}, {}
+    sampler = "sampler" if system.lora_sampler is None else "lora_sampler"
     for name, p in system.named_parameters():
         top = name.split(".", 1)[0]
-        train = top in ("sampler", "bridge") or (
+        train = top in (sampler, "bridge") or (
             top == "encoder" and not system.freeze_feature_extractor)
         p.requires_grad_(train)
         (trainable if train else frozen)[name] = p

@@ -66,8 +66,9 @@ _FAN_IN = {"proj_v": lambda s: s[-1], "out_proj_w": lambda s: s[1]}
 def seeded_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill every parameter of ``module`` from ``generator``, on the
     parameter's own device: biases zero; norm weights and scales, Snake
-    alphas and weight-norm gains one; embedding and positional tables
-    ``N(0, 0.02)``; codebooks ``N(0, 1)``; every other matrix or
+    alphas and weight-norm gains one; embedding and positional tables and
+    LoRA's ``lora_a`` ``N(0, 0.02)`` (its ``lora_b`` zero, as a ``_b``
+    leaf); codebooks ``N(0, 1)``; every other matrix or
     kernel ``N(0, 1/fan_in)`` with the fan-in over all axes but the first
     (torch's ``[out, in, ...]`` layout)."""
     for name, p in module.named_parameters():
@@ -79,7 +80,7 @@ def seeded_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
                                                           "alpha")):
             p.fill_(1.0)
             continue
-        if leaf in _EMBEDDINGS or p.ndim == 1:
+        if leaf in _EMBEDDINGS or leaf == "lora_a" or p.ndim == 1:
             std = 0.02
         elif leaf == "codebooks":
             std = 1.0
