@@ -102,13 +102,32 @@ result line):
              D sqrt(eps) of its total variance, the networks' embeddings on
              the card within 1e-3 relative of the CPU's (cuDNN at its
              defaults: the networks turn TF32 off themselves).
+ 13. encoder_variants  the encoder layouts and heads at full ViT-B/16
+             width and depth (seeded bf16 weights, frames [2, 4, 3, 16,
+             224, 224]): (a) the exact trajectory encoder into the flagship
+             generation (221 tokens, CFG 6.0, top-k 128, bf16 cache) down to
+             audio, decode-attention launches counted; (b) the Nystrom,
+             Orthoformer and Performer trajectory encoders (128 landmarks or
+             features) and the joint one, finite features [2, 4, 8, 768];
+             (c) the int8 encoder against the bf16 one on the same weights
+             (relative error < 0.05, cosine > 0.995), block 0's int8 MLP
+             products through ``torch._int_mm`` equal to float64 products of
+             the same values, and its 24 grouped-attention launches a
+             forward; (d) the temporal and global heads, average pooling and
+             unfactorised output, by shape; (e) two flagship training steps
+             at each ``remat_policy`` (None twice), both losses equal bit
+             for bit, the updated leaves that differ counted; (f) each variant at one block, card against CPU
+             within ``TOL_REF_REL`` (the CPU's orthoformer replays the
+             card's greedy landmark choice). Each forward's ms and peak
+             memory printed (``encoder_variants: {...}``).
 
 It prints the action runs' wall times and audio-s/s (``action: {...}``),
 the train action's runs (``train_action: {...}``),
 the server's burst, stream and request times (``serve: {...}``), the
 finetune and generate runs' walls and peak memory (``finetune: {...}``),
-the eval action's walls and metrics (``eval: {...}``),
-the kernels JSON line, the card's name and power limit, and as its last
+the eval action's walls and metrics (``eval: {...}``), the encoder
+variants' forwards, remat steps and card-vs-CPU errors
+(``encoder_variants: {...}``), the kernels JSON line, the card's name and power limit, and as its last
 line ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``. It needs one CUDA card and exits non-zero
 without one.
@@ -1052,11 +1071,11 @@ def phase_train(gen, report):
     n_trainable = sum(p.numel() for p in state.params.values())
     depth = system.encoder.cfg.depth
 
-    # a cheap fingerprint of every leaf (float64 sum and sum of magnitudes):
-    # equal fingerprints for an untouched leaf, different ones after any
-    # update that is not a pure permutation
-    mark = lambda: {k: (float(p.detach().double().sum()),
-                        float(p.detach().double().abs().sum()))
+    # a host copy of every leaf, compared element for element after the
+    # steps: a fingerprint such as the float64 sum can miss a change, since
+    # the warm-up updates (about 1e-6, of either sign) on a norm scale of
+    # ones may sum to exactly zero over its elements
+    mark = lambda: {k: p.detach().cpu()
                     for k, p in system.named_parameters()}
     before = mark()
     problems, steps, launches = [], [], dict.fromkeys(_counters(), 0)
@@ -1105,9 +1124,11 @@ def phase_train(gen, report):
     # against the first loss (ln 1024 by the zero-initialised head)
     if not losses[3] < losses[0] - 1e-3:
         problems.append(f"loss did not fall: {losses}")
+    same = {k: torch.equal(after[k], before[k]) for k in after}
+    del before, after
     unchanged = [k for k in state.params
-                 if after[k] == before[k] and not k.endswith("uncond_embedding")]
-    moved = [k for k in after if after[k] != before[k]
+                 if same[k] and not k.endswith("uncond_embedding")]
+    moved = [k for k in same if not same[k]
              and (k.startswith("dac.") or k.endswith("uncond_embedding"))]
     if unchanged:
         problems.append(f"{len(unchanged)} trainable leaves unchanged: "
@@ -2367,6 +2388,379 @@ def phase_serve(gen, report):
     return total
 
 
+# encoder_variants: the encoder layouts and heads of the JAX package at full
+# ViT-B/16 width and depth (seeded bf16 weights made on the card, frames
+# [2, 4, 3, 16, 224, 224], B' = 8): the exact trajectory encoder into the
+# flagship generation, the approximated trajectory encoders and the joint
+# one, the int8 encoder against the bf16 one, the aggregation heads, a
+# training step at each remat policy, and each variant at cut depth card
+# against CPU. The int8 bound is tests/test_encoder_quant.py's, the int8
+# encoder against the float one at random weights:
+TOL_INT8_REL = 0.05
+TOL_INT8_COS = 0.995
+VARIANT_APPROX_DIM = 128  # landmarks / random features (the JAX default)
+
+
+def _encoder(gen, depth=None, device="cuda", **kw):
+    """A seeded bf16 encoder of the flagship widths (no graph recorded)."""
+    import dataclasses
+
+    import torch
+
+    from vaura_tpu_torch.models.motionformer import MotionFormer, MotionFormerConfig
+    from vaura_tpu_torch.utils import seeded_init_
+
+    cfg = dataclasses.replace(MotionFormerConfig(), param_dtype=torch.bfloat16,
+                              **kw)
+    if depth:
+        cfg = dataclasses.replace(cfg, depth=depth)
+    enc = MotionFormer(cfg, device)
+    if gen is not None:
+        seeded_init_(enc, gen)
+    return enc.requires_grad_(False)
+
+
+def _timed_forward(enc, frames, **kw):
+    """One forward after a warm-up: ``(output, ms between CUDA events around
+    it, peak GiB of the run)``."""
+    import torch
+
+    with torch.no_grad():
+        enc(frames, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = enc(frames, **kw)
+        b.record()
+        b.synchronize()
+    return out, a.elapsed_time(b), torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _variants_generate(gen, frames, res, problems):
+    """(a) The exact trajectory encoder, then the flagship generation."""
+    import torch
+
+    from vaura_tpu_torch.flagship import GENERATE_KW, flagship_system
+
+    system = flagship_system("cuda", gen,
+                             encoder_overrides={"attn_layer": "trajectory"})
+    n_steps = system.prepare_generation(GENERATE_KW["max_new_tokens"])[2] - 1
+    expected = {"decode_attention": system.sampler_config.num_layers * n_steps,
+                "decode_attention_int8": 0, "encoder_attention": 0,
+                "encoder_mlp": 0, "grouped_cls_attention": 0}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counters()
+    t0 = time.time()
+    out = system.generate(frames, seed=0, **GENERATE_KW)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = _counters()
+    res["trajectory_generate"] = {
+        "wall_s": wall, "stage_ms": out["stage_ms"], "launches": launches,
+        "expected_launches": expected,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    log(f"[encoder_variants] trajectory -> generate: wall {wall:.2f} s, "
+        "stages (ms): " + ", ".join(f"{k} {v:.1f}"
+                                    for k, v in out["stage_ms"].items())
+        + f"; launches {launches}")
+    _check_generation("encoder_variants", out, (2, 9, 221), problems)
+    if launches != expected:
+        problems.append(f"trajectory generate: launches {launches}, "
+                        f"expected {expected}")
+    feats, ms, peak = _timed_forward(system.encoder, frames)
+    res["forwards"]["trajectory"] = {"ms": ms, "peak_gib": peak,
+                                     "shape": list(feats.shape)}
+    del system
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _variants_forwards(gen, frames, res, problems):
+    """(b) the approximated trajectory encoders and the joint one, (d) the
+    aggregation heads: finite outputs of the expected shapes."""
+    import torch
+
+    runs = {
+        "nystrom": dict(attn_layer="trajectory", approx_attn_type="nystrom"),
+        "orthoformer": dict(attn_layer="trajectory",
+                            approx_attn_type="orthoformer"),
+        "performer": dict(attn_layer="trajectory",
+                          approx_attn_type="performer"),
+        "joint": dict(attn_layer="joint", pos_embed_type="joint"),
+        "temporal_global": dict(agg_time_module="TransformerEncoderLayer",
+                                add_global_repr=True),
+        "average_global": dict(agg_space_module="AveragePooling",
+                               agg_time_module="AveragePooling",
+                               add_global_repr=True,
+                               agg_segments_module="AveragePooling"),
+        "unfactorised": dict(factorize_space_time=False),
+    }
+    B, S = frames.shape[:2]
+    shapes = {"temporal_global": ((B, S, 768), (B, 768)),
+              "average_global": ((B, S, 768), (B, 768)),
+              "unfactorised": ((B, S, 8 * 196, 768), None)}
+    for name, kw in runs.items():
+        if "approx_attn_type" in kw:
+            kw = dict(kw, approx_attn_dim=VARIANT_APPROX_DIM)
+        enc = _encoder(gen, **kw)
+        (feats, glob), ms, peak = _timed_forward(enc, frames,
+                                                 return_global=True)
+        want_f, want_g = shapes.get(name, ((B, S, 8, 768), None))
+        entry = {"ms": ms, "peak_gib": peak, "shape": list(feats.shape)}
+        if glob is not None:
+            entry["global_shape"] = list(glob.shape)
+        res["forwards"][name] = entry
+        log(f"[encoder_variants] {name}: {ms:.1f} ms, peak {peak:.2f} GiB, "
+            f"features {tuple(feats.shape)}"
+            + ("" if glob is None else f", global {tuple(glob.shape)}"))
+        if tuple(feats.shape) != want_f or not bool(
+                torch.isfinite(feats).all()):
+            problems.append(f"{name}: features {tuple(feats.shape)} "
+                            f"(expected {want_f}) or not finite")
+        if (None if glob is None else tuple(glob.shape)) != want_g or (
+                glob is not None and not bool(torch.isfinite(glob).all())):
+            problems.append(f"{name}: global {glob if glob is None else tuple(glob.shape)}"
+                            f" (expected {want_g}) or not finite")
+        del enc, feats, glob
+        torch.cuda.empty_cache()
+
+
+def _variants_int8(gen, frames, res, problems):
+    """(c) The int8 encoder against the bf16 one on the same weights; one
+    block's int8 products against float64; the grouped-attention launches
+    of the int8 encoder's unfused blocks."""
+    import dataclasses
+
+    import torch
+
+    from vaura_tpu_torch.models.motionformer import MotionFormer
+    from vaura_tpu_torch.ops.quantization import (
+        int8_matmul,
+        quantize_encoder_params,
+        quantize_rows,
+    )
+
+    enc = _encoder(gen)
+    q_enc = MotionFormer(dataclasses.replace(enc.cfg, quantize=True), "cuda")
+    q_enc.load_state_dict(quantize_encoder_params(enc.state_dict()))
+    q_enc.requires_grad_(False)
+    ref, ms_bf16, peak_bf16 = _timed_forward(enc, frames)
+    torch.cuda.synchronize()
+    _zero_counters()
+    with torch.no_grad():
+        q_enc(frames)
+    torch.cuda.synchronize()
+    launches = _counters()
+    out, ms_int8, peak_int8 = _timed_forward(q_enc, frames)
+    a, b = out.float().reshape(-1), ref.float().reshape(-1)
+    rel = float((a - b).norm() / b.norm())
+    cos = float(a @ b / (a.norm() * b.norm()))
+
+    # block 0's MLP products (K = 768 and 3072) over one block's rows
+    # (B' x 1569) and over 5 rows (padded to torch._int_mm's 17), against
+    # the float64 product of the same int8 values (exact: |sum| < 2^53)
+    blk = q_enc.blocks[0].mlp
+    exact = {}
+    for name, layer in (("fc1", blk.fc1), ("fc2", blk.fc2)):
+        K = layer.kernel_q.shape[1]
+        for rows in (frames.shape[0] * frames.shape[1] * 1569, 5):
+            x = torch.randn(rows, K, generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+            xq, _ = quantize_rows(x)
+            got = int8_matmul(xq, layer.kernel_q)
+            want = xq.double() @ layer.kernel_q.double().t()
+            exact[f"{name}_{rows}x{K}"] = bool(torch.equal(got.double(), want))
+    expected = {"decode_attention": 0, "decode_attention_int8": 0,
+                "encoder_attention": 0, "encoder_mlp": 0,
+                "grouped_cls_attention": 2 * enc.cfg.depth}
+    res["int8"] = {"rel": rel, "cos": cos, "ms": ms_int8, "ms_bf16": ms_bf16,
+                   "peak_gib": peak_int8, "peak_gib_bf16": peak_bf16,
+                   "int_mm_exact": exact, "launches": launches,
+                   "expected_launches": expected}
+    res["forwards"]["int8"] = {"ms": ms_int8, "peak_gib": peak_int8}
+    res["forwards"]["divided_bf16"] = {"ms": ms_bf16, "peak_gib": peak_bf16}
+    log(f"[encoder_variants] int8 encoder vs bf16: rel {rel:.4f} (tol "
+        f"{TOL_INT8_REL}), cos {cos:.5f} (tol {TOL_INT8_COS}); {ms_int8:.1f} "
+        f"ms against {ms_bf16:.1f} ms; _int_mm exact {exact}; launches "
+        f"{launches}")
+    if not (rel < TOL_INT8_REL and cos > TOL_INT8_COS):
+        problems.append(f"int8 encoder: rel {rel}, cos {cos}")
+    if not all(exact.values()):
+        problems.append(f"int8 products not exact: {exact}")
+    if launches != expected:
+        problems.append(f"int8 encoder: launches {launches}, expected "
+                        f"{expected}")
+    del enc, q_enc
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _variants_remat(res, problems):
+    """(e) Two flagship training steps at each remat policy from the same
+    seeds (None twice): both losses equal bit for bit; the second step's
+    forward / backward / optimizer ms, the memory a forward holds for the
+    backward pass, and the run's peak. The updated parameters are compared
+    with the first run's and the leaves that differ counted, not held:
+    the backward's atomic sums (an embedding's, an index_select's) are not
+    deterministic on the card, and the repeat of None shows that noise."""
+    import torch
+
+    from vaura_tpu_torch.flagship import (
+        flagship_system,
+        flagship_train_state,
+        random_train_batch,
+    )
+    from vaura_tpu_torch.train.steps import make_train_step
+    from vaura_tpu_torch.utils import StageClock
+
+    runs, first = {}, None
+    g = lambda s: torch.Generator(device="cuda").manual_seed(s)
+    for tag, policy in (("None", None), ("None_again", None), ("dots", "dots"),
+                        ("dots_no_batch", "dots_no_batch")):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        system = flagship_system(
+            "cuda", g(11), training=True,
+            sampler_overrides={"remat": True, "remat_policy": policy})
+        state = flagship_train_state(system)
+        batch = random_train_batch(2, g(12), "cuda")
+        step = make_train_step(system)
+        state, m0 = step(state, batch, g(13))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        loss, aux = system.train_forward(batch["frames"], batch["audio"],
+                                         g(14), train=True)
+        held = (torch.cuda.memory_allocated() - base) / 2 ** 30
+        del loss, aux
+        clock = StageClock(system.device)
+        clock.mark("start")
+        state, m1 = step(state, batch, g(15), clock=clock)
+        ms = clock.ms()
+        params = {k: p.detach().clone() for k, p in state.params.items()}
+        losses = [float(m0["loss"]), float(m1["loss"])]
+        run = {"losses": losses, **ms, "held_gib": held,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        if first is None:
+            first = (losses, {k: v.cpu() for k, v in params.items()})
+        else:
+            run["leaves_differing"] = sum(
+                not torch.equal(v.cpu(), first[1][k]) for k, v in params.items())
+            run["largest_difference"] = max(
+                float((v.cpu() - first[1][k]).abs().max()) for k, v in params.items())
+            if losses != first[0]:
+                problems.append(f"remat_policy={policy}: losses {losses} != "
+                                f"{first[0]}")
+        runs[tag] = run
+        log(f"[encoder_variants] remat_policy={policy} ({tag}): losses {losses}, "
+            f"second step forward {ms['forward']:.1f} / backward "
+            f"{ms['backward']:.1f} / optimizer {ms['optimizer']:.1f} ms; a "
+            f"forward holds {held:.2f} GiB; peak {run['peak_gib']:.2f} GiB; "
+            f"updated leaves unlike the first run's "
+            f"{run.get('leaves_differing', 0)} of {len(params)} (largest "
+            f"difference {run.get('largest_difference', 0.0):.3e})")
+        del system, state, batch, params
+    res["remat"] = runs
+
+
+def _variants_reference(gen, res, problems):
+    """(f) Each variant at 1 block on two segments, the card against the CPU
+    on the same weights, relative to the output's largest magnitude. The
+    orthoformer's greedy landmark choice turns on near-ties of |cosine|
+    that other roundings decide otherwise, so its CPU run replays the
+    card's choice (the share of equal choices is reported)."""
+    import torch
+
+    from vaura_tpu_torch.ops import trajectory_attention as TA
+    from vaura_tpu_torch.ops.quantization import quantize_encoder_params
+
+    runs = {
+        "trajectory": dict(attn_layer="trajectory"),
+        "nystrom": dict(attn_layer="trajectory", approx_attn_type="nystrom"),
+        "orthoformer": dict(attn_layer="trajectory",
+                            approx_attn_type="orthoformer"),
+        "performer": dict(attn_layer="trajectory",
+                          approx_attn_type="performer"),
+        "joint": dict(attn_layer="joint", pos_embed_type="joint"),
+        "int8": dict(quantize=True),
+        "temporal_global": dict(agg_time_module="TransformerEncoderLayer",
+                                add_global_repr=True),
+    }
+    frames = torch.randn(1, 2, 3, 16, 224, 224, generator=gen, device="cuda",
+                         dtype=torch.bfloat16)
+    rel = lambda a, b: max_err(a.cpu(), b) / float(b.float().abs().max())
+    out = {}
+    pick = TA._landmark_indices
+    for name, kw in runs.items():
+        if "approx_attn_type" in kw:
+            kw = dict(kw, approx_attn_dim=VARIANT_APPROX_DIM)
+        if kw.get("quantize"):
+            src = _encoder(gen, depth=1)
+            card = _encoder(None, depth=1, **kw)
+            card.load_state_dict(quantize_encoder_params(src.state_dict()))
+        else:
+            card = _encoder(gen, depth=1, **kw)
+        cpu = _encoder(None, depth=1, device="cpu", **kw)
+        cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+        chosen, own = [], []
+        if name == "orthoformer":
+            TA._landmark_indices = lambda *a: chosen.append(pick(*a)) or chosen[-1]
+        try:
+            with torch.no_grad():
+                fa, ga = card(frames, return_global=True)
+                if chosen:
+                    card_choice = chosen[0].cpu()
+                    TA._landmark_indices = (
+                        lambda *a: own.append(pick(*a)) or card_choice)
+                fb, gb = cpu(frames.cpu(), return_global=True)
+        finally:
+            TA._landmark_indices = pick
+        out[name] = rel(fa, fb)
+        if ga is not None:
+            out[name + "_global"] = rel(ga, gb)
+        if own:
+            res["orthoformer_same_choice"] = float(
+                (own[0] == card_choice).float().mean())
+        del card, cpu
+    res["reference"] = out
+    log("[encoder_variants] card vs CPU at 1 block, rel err (tol "
+        f"{TOL_REF_REL}): " + ", ".join(f"{k} {v:.2e}" for k, v in out.items())
+        + "; the CPU's own orthoformer landmarks equal to the card's: "
+        f"{res.get('orthoformer_same_choice')}")
+    bad = {k: v for k, v in out.items() if not v <= TOL_REF_REL}
+    if bad:
+        problems.append(f"card and CPU disagree: {bad}")
+
+
+def phase_encoder_variants(gen, report):
+    import torch
+
+    from vaura_tpu_torch.flagship import random_frames
+
+    frames = random_frames(2, gen, "cuda")
+    res, problems = {"forwards": {}}, []
+    launches = dict.fromkeys(_counters(), 0)
+    for part in (_variants_generate, _variants_int8):
+        for k, n in part(gen, frames, res, problems).items():
+            launches[k] += n
+    _variants_forwards(gen, frames, res, problems)
+    _variants_remat(res, problems)
+    _variants_reference(gen, res, problems)
+    report["encoder_variants"] = res
+    print("encoder_variants: " + json.dumps(
+        {"forwards": res["forwards"], "remat": res.get("remat"),
+         "int8": {k: res["int8"][k] for k in ("rel", "cos")},
+         "reference": res.get("reference"),
+         "orthoformer_same_choice": res.get("orthoformer_same_choice")}),
+        flush=True)
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return launches
+
+
 # ---------------------------------------------------------------------------
 def main() -> int:
     try:
@@ -2432,11 +2826,15 @@ def main() -> int:
         run("eval", phase_eval, gen, report)
     else:
         failed.append("eval")
+    variant_launches = run("encoder_variants", phase_encoder_variants, gen,
+                           report) or {}
 
     # each kernel's count on the main paths that run it: generation for the
     # decode and fused encoder kernels, generation with the int8 cache for
     # the int8 decode kernel, the three training steps for the grouped
-    # attention, the generate action's three runs and the server's requests
+    # attention, the generate action's three runs and the server's
+    # requests, the finetune runs, and the encoder variants' generation
+    # (decode attention) and int8 encoder (grouped attention)
     for entry in kernels:
         name = entry["name"]
         entry["launches"] = (
@@ -2445,7 +2843,8 @@ def main() -> int:
                else 0) + action_launches.get(name, 0)
             + train_action_launches.get(name, 0)
             + serve_launches.get(name, 0)
-            + finetune_launches.get(name, 0))
+            + finetune_launches.get(name, 0)
+            + variant_launches.get(name, 0))
     report["kernels"] = kernels
     report["failed"] = failed
     os.makedirs(OUT_DIR, exist_ok=True)

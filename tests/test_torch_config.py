@@ -208,31 +208,34 @@ def test_specs_reject_what_the_port_lacks():
     from vaura_tpu_torch.models.dac.model import DacSpec
     from vaura_tpu_torch.models.motionformer import MotionFormerSpec
     from vaura_tpu_torch.models.sampler import SamplerSpec
+    from vaura_tpu_torch.ops import patterns
 
     # the JAX-only knobs that change nothing here are dropped
     cfg = SamplerSpec(num_layers=2, use_pallas_decode=True, scan_unroll=2,
                       initializer_range=0.01, dim_feedforward=7)
     assert cfg.num_layers == 2
     for bad in ({"cache_bits": 4}, {"int8_dots": True},
-                {"remat_policy": "dots"}, {"dac_factored_embeddings": False}):
+                {"dac_factored_embeddings": False}):
         with pytest.raises(NotImplementedError):
             SamplerSpec(**bad)
+    assert SamplerSpec(remat=True, remat_policy="dots").remat_policy == "dots"
     with pytest.raises(TypeError):
         SamplerSpec(no_such_key=1)
     MotionFormerSpec(fused_divided_attention=True, approx_attn_type="nystrom")
-    for bad in ({"attn_layer": "joint"}, {"agg_time_module": "AveragePooling"},
-                {"add_global_repr": True}, {"quantize": True},
-                {"factorize_space_time": False}):
-        with pytest.raises(NotImplementedError):
-            MotionFormerSpec(**bad)
+    # every encoder variant of the JAX package builds
+    for kw in ({"attn_layer": "joint"}, {"agg_time_module": "AveragePooling"},
+               {"add_global_repr": True}, {"quantize": True},
+               {"factorize_space_time": False}):
+        cfg = MotionFormerSpec(**kw)
+        assert all(getattr(cfg, k) == v for k, v in kw.items()), kw
     with pytest.raises(TypeError):
         DacSpec(no_such_key=1)
     assert DacSpec(44100, encoder_rates=[2, 4]).config.encoder_rates == (2, 4)
     for name in ("UnrolledPatternProvider", "VALLEPattern", "MusicLMPattern"):
-        with pytest.raises(NotImplementedError):
-            instantiate_from_config(
-                {"target": f"vaura_tpu.ops.patterns.{name}",
-                 "params": {"n_q": 3}})
+        got = instantiate_from_config(
+            {"target": f"vaura_tpu.ops.patterns.{name}",
+             "params": {"n_q": 3}})
+        assert type(got) is getattr(patterns, name)
 
 
 def _dtype_name(d) -> str:

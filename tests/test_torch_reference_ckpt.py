@@ -140,14 +140,91 @@ def test_published_avclip_schema_matches_jax():
     MotionFormer(MotionFormerConfig(), "meta").load_state_dict(got, assign=True)
 
 
+def _reference_encoder_sd(layout, aggs, seed=0, D=8, depth=2, hw=4, t=2):
+    """A reference-named Motionformer state dict of random values: blocks of
+    ``layout`` (the key layouts of ``vit_helper.py``), the joint embedding
+    for the joint blocks, and the CLS aggregation layers ``aggs`` (the
+    global one with its ``pos_emb``)."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def put(name, *shape):
+        sd[name] = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    def linear(name, o, i):
+        put(f"{name}.weight", o, i)
+        put(f"{name}.bias", o)
+
+    def norm(name):
+        put(f"{name}.weight", D)
+        put(f"{name}.bias", D)
+
+    put("patch_embed_3d.proj.weight", D, 3, 2, 4, 4)
+    put("patch_embed_3d.proj.bias", D)
+    put("cls_token", 1, 1, D)
+    put("pos_embed", 1, hw + 1, D)
+    if layout == "joint":
+        put("st_embed", 1, t * hw + 1, D)
+    else:
+        put("temp_embed", 1, t, D)
+    attn = {"trajectory": (("attn.qkv", 3), ("attn.proj_q", 1),
+                           ("attn.proj_kv", 2), ("attn.proj", 1)),
+            "divided": (("timeattn.qkv", 3), ("timeattn.proj", 1),
+                        ("attn.qkv", 3), ("attn.proj", 1)),
+            "joint": (("attn.qkv", 3), ("attn.proj", 1))}[layout]
+    for i in range(depth):
+        p = f"blocks.{i}"
+        for n in ("norm1", "norm2") + (("norm3",) if layout == "divided"
+                                        else ()):
+            norm(f"{p}.{n}")
+        for name, mult in attn:
+            linear(f"{p}.{name}", mult * D, D)
+        linear(f"{p}.mlp.fc1", 4 * D, D)
+        linear(f"{p}.mlp.fc2", D, 4 * D)
+    norm("norm")
+    for agg in aggs:
+        put(f"{agg}.cls_token", 1, 1, D)
+        if agg == "global_attn_agg":
+            put(f"{agg}.pos_emb", 1, 17, D)
+        put(f"{agg}.self_attn.in_proj_weight", 3 * D, D)
+        put(f"{agg}.self_attn.in_proj_bias", 3 * D)
+        linear(f"{agg}.self_attn.out_proj", D, D)
+        linear(f"{agg}.linear1", 4 * D, D)
+        linear(f"{agg}.linear2", D, 4 * D)
+        norm(f"{agg}.norm1")
+        norm(f"{agg}.norm2")
+    return sd
+
+
+_VARIANTS = (
+    ("trajectory", ("spatial_attn_agg",), {"attn_layer": "trajectory"}),
+    ("joint", ("spatial_attn_agg",),
+     {"attn_layer": "joint", "pos_embed_type": "joint"}),
+    ("divided", ("spatial_attn_agg", "temp_attn_agg", "global_attn_agg"),
+     {"agg_time_module": "TransformerEncoderLayer", "add_global_repr": True}),
+    ("trajectory", ("temp_attn_agg", "global_attn_agg"),
+     {"attn_layer": "trajectory", "agg_space_module": "AveragePooling",
+      "agg_time_module": "TransformerEncoderLayer", "add_global_repr": True}),
+)
+
+
 def test_unported_encoder_variants_raise():
-    sd = {"blocks.0.attn.proj_q.weight": torch.zeros(1)}
-    with pytest.raises(NotImplementedError):
-        T.convert_motionformer_state_dict(sd)
-    sd = {"blocks.0.timeattn.qkv.weight": torch.zeros(1),
-          "temp_attn_agg.cls_token": torch.zeros(1)}
-    with pytest.raises(NotImplementedError):
-        T.convert_motionformer_state_dict(sd)
+    """The encoder variants that this converter once refused (trajectory
+    and joint blocks, the temporal and global aggregation layers) now
+    convert as the JAX converter + ``from_jax_params`` do, into the names of
+    the port's encoder of that configuration."""
+    from vaura_tpu_torch.models.motionformer import MotionFormer, MotionFormerConfig
+
+    for layout, aggs, cfg_kw in _VARIANTS:
+        sd = _reference_encoder_sd(layout, aggs)
+        got = T.convert_motionformer_state_dict(sd)
+        want = from_jax_params(
+            {"encoder": J.convert_motionformer_state_dict(sd)})["encoder"]
+        assert_same_state_dicts(got, want)
+        cfg = MotionFormerConfig(img_size=8, patch_size=4, embed_dim=8,
+                                 depth=2, num_heads=2, temporal_resolution=2,
+                                 **cfg_kw)
+        MotionFormer(cfg, "meta").load_state_dict(got, assign=True)
 
 
 def test_maybe_load_pretrained(experiment, tmp_path):

@@ -64,15 +64,6 @@ def instantiate_from_config(config: dict, **extra_kwargs) -> Any:
     return get_obj_from_target(config["target"])(**params)
 
 
-def _not_ported(name: str) -> Callable[..., Any]:
-    def raise_(**_):
-        raise NotImplementedError(
-            f"{name} is not ported yet (ROADMAP.md, 'Modules to port', "
-            "item 'Everything else')")
-
-    return raise_
-
-
 def _register_builtin_aliases() -> None:
     """The JAX package's alias table, resolved to the port's classes."""
     from vaura_tpu_torch.ops import patterns as _p
@@ -84,7 +75,7 @@ def _register_builtin_aliases() -> None:
         "VALLEPattern",
         "MusicLMPattern",
     ):
-        obj = getattr(_p, cls_name, None) or _not_ported(cls_name)
+        obj = getattr(_p, cls_name)
         register_alias(f"models.modules.misc.codebook_patterns.{cls_name}", obj)
         register_alias(f"vaura_tpu.ops.patterns.{cls_name}", obj)
 

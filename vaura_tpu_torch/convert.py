@@ -17,9 +17,11 @@ Layouts:
     ``vaura_tpu/models/convert.py:64``) -> ``[in, out, W]`` by the inverse
     ``transpose(1, 2, 0)``.
 Weight norm is already folded on the JAX side. The int8 weights of a
-``quantize_sampler_params`` tree (``kernel_q [in, out]`` int8, ``scale
-[out]``) become ``kernel_q [out, in]`` int8 and ``scale`` buffers, for a
-sampler built with ``quantize_weights=True``. LoRA adapters
+``quantize_sampler_params`` or ``quantize_encoder_params`` tree
+(``kernel_q [in, out]`` int8, ``scale [out]``) become ``kernel_q [out, in]``
+int8 and ``scale`` buffers, for a sampler built with
+``quantize_weights=True`` or an encoder built with ``quantize=True``. LoRA
+adapters
 (``lora_sampler``: stacked ``a [L, in, r]``, ``b [L, r, out]``) become one
 transposed pair per layer.
 
@@ -45,16 +47,16 @@ def _t(a) -> torch.Tensor:
 
 def _dense(p: Tree, out: Dict[str, torch.Tensor], prefix: str,
            index=None) -> None:
-    if "kernel_q" in p:  # int8 weights of ``quantize_sampler_params``
+    if "kernel_q" in p:  # int8 weights of ``quantize_*_params``
         q, sc = np.asarray(p["kernel_q"]), np.asarray(p["scale"])
         q, sc = (q, sc) if index is None else (q[index], sc[index])
         out[f"{prefix}.kernel_q"] = torch.from_numpy(
             np.ascontiguousarray(q.T).astype(np.int8))
         out[f"{prefix}.scale"] = _t(sc)
-        return
-    k = np.asarray(p["kernel"])
-    k = k if index is None else k[index]
-    out[f"{prefix}.weight"] = _t(k.T)
+    else:
+        k = np.asarray(p["kernel"])
+        k = k if index is None else k[index]
+        out[f"{prefix}.weight"] = _t(k.T)
     if "bias" in p:
         b = np.asarray(p["bias"])
         out[f"{prefix}.bias"] = _t(b if index is None else b[index])
@@ -90,32 +92,55 @@ def sampler_state_dict(p: Tree) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _agg_layer(p: Tree, sd: Dict[str, torch.Tensor], prefix: str) -> None:
+    sd[f"{prefix}.cls_token"] = _t(p["cls_token"])
+    if "pos_emb" in p:
+        sd[f"{prefix}.pos_emb"] = _t(p["pos_emb"])
+    for norm in ("norm1", "norm2"):
+        _ln(p[norm], sd, f"{prefix}.{norm}")
+    for dense in ("in_proj", "out_proj", "linear1", "linear2"):
+        _dense(p[dense], sd, f"{prefix}.{dense}")
+
+
+# the dense layers of each block layout (the JAX tree's names are the
+# port's): divided, trajectory, joint
+_BLOCK_DENSES = {
+    "divided": ("timeattn.qkv", "timeattn.proj", "attn.qkv", "attn.proj"),
+    "trajectory": ("attn_qkv", "attn_proj_q", "attn_proj_kv", "attn_proj"),
+    "joint": ("attn_qkv", "attn_proj"),
+}
+
+
 def encoder_state_dict(p: Tree) -> Dict[str, torch.Tensor]:
+    """Every block layout, the embeddings of both kinds, the aggregation
+    layers the tree holds; an int8 tree's ``kernel_q``/``scale`` too."""
     sd: Dict[str, torch.Tensor] = {}
     pe = p["patch_embed_3d"]
     sd["patch_embed_3d.weight"] = _t(np.asarray(pe["kernel"]).transpose(4, 3, 0, 1, 2))
     sd["patch_embed_3d.bias"] = _t(pe["bias"])
-    for name in ("cls_token", "pos_embed", "temp_embed"):
-        sd[name] = _t(p[name])
+    for name in ("cls_token", "pos_embed", "temp_embed", "st_embed"):
+        if name in p:
+            sd[name] = _t(p[name])
     bp = p["blocks"]
+    layout = ("divided" if "timeattn" in bp else
+              "trajectory" if "attn_proj_q" in bp else "joint")
+    norms = ("norm1", "norm2", "norm3") if layout == "divided" else (
+        "norm1", "norm2")
+    denses = _BLOCK_DENSES[layout] + ("mlp.fc1", "mlp.fc2")
     depth = np.asarray(bp["norm1"]["scale"]).shape[0]
     for i in range(depth):
         pre = f"blocks.{i}"
-        for norm in ("norm1", "norm2", "norm3"):
+        for norm in norms:
             _ln(bp[norm], sd, f"{pre}.{norm}", i)
-        for att in ("timeattn", "attn"):
-            _dense(bp[att]["qkv"], sd, f"{pre}.{att}.qkv", i)
-            _dense(bp[att]["proj"], sd, f"{pre}.{att}.proj", i)
-        _dense(bp["mlp"]["fc1"], sd, f"{pre}.mlp.fc1", i)
-        _dense(bp["mlp"]["fc2"], sd, f"{pre}.mlp.fc2", i)
+        for name in denses:
+            node = bp
+            for part in name.split("."):
+                node = node[part]
+            _dense(node, sd, f"{pre}.{name}", i)
     _ln(p["norm"], sd, "norm")
-    if "spatial_attn_agg" in p:
-        ap = p["spatial_attn_agg"]
-        sd["spatial_attn_agg.cls_token"] = _t(ap["cls_token"])
-        for norm in ("norm1", "norm2"):
-            _ln(ap[norm], sd, f"spatial_attn_agg.{norm}")
-        for dense in ("in_proj", "out_proj", "linear1", "linear2"):
-            _dense(ap[dense], sd, f"spatial_attn_agg.{dense}")
+    for agg in ("spatial_attn_agg", "temp_attn_agg", "global_attn_agg"):
+        if agg in p:
+            _agg_layer(p[agg], sd, agg)
     return sd
 
 

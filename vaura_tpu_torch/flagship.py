@@ -44,10 +44,13 @@ from typing import Optional
 import torch
 
 from vaura_tpu_torch.models.dac.model import config_for_sample_rate
-from vaura_tpu_torch.models.motionformer import MotionFormerConfig
+from vaura_tpu_torch.models.motionformer import MotionFormer, MotionFormerConfig
 from vaura_tpu_torch.models.sampler import Sampler, SamplerConfig
 from vaura_tpu_torch.models.vaura import VauraSystem
-from vaura_tpu_torch.ops.quantization import quantize_sampler_params
+from vaura_tpu_torch.ops.quantization import (
+    quantize_encoder_params,
+    quantize_sampler_params,
+)
 from vaura_tpu_torch.utils import DeviceLike, seeded_init_
 
 GENERATE_KW = dict(cfg_scale=6.0, top_k=128, max_new_tokens=221,
@@ -74,12 +77,17 @@ def flagship_system(device: DeviceLike = None,
                     encoder_depth: Optional[int] = None,
                     training: bool = False,
                     sampler_overrides: Optional[dict] = None,
-                    encoder_overrides: Optional[dict] = None) -> VauraSystem:
+                    encoder_overrides: Optional[dict] = None,
+                    quantize_encoder: bool = False) -> VauraSystem:
     """The flagship system; ``sampler_layers``/``encoder_depth`` cut depth
     only and the ``*_overrides`` replace fields of the two configurations
-    (``{"remat": True}``, dropout rates). With a ``generator`` the weights
-    are drawn from it (``utils.seeded_init_``); without one they are left
-    for ``load_state_dicts``. See the module docstring for ``training``."""
+    (``{"remat": True}``, dropout rates, the encoder's ``attn_layer``).
+    With a ``generator`` the weights are drawn from it
+    (``utils.seeded_init_``); without one they are left for
+    ``load_state_dicts``. ``quantize_encoder`` makes the int8 encoder
+    (``MotionFormerConfig.quantize``) from the seeded bf16 weights, as
+    ``sampler_overrides={"quantize_weights": True}`` makes the int8
+    sampler. See the module docstring for ``training``."""
     store = torch.float32 if training else torch.bfloat16
     s_cfg = dataclasses.replace(SamplerConfig(), param_dtype=store,
                                 **(sampler_overrides or {}))
@@ -107,6 +115,15 @@ def flagship_system(device: DeviceLike = None,
             sampler.load_state_dict(
                 quantize_sampler_params(system.sampler.state_dict()))
         system.sampler, system.sampler_config = sampler, q_cfg
+    if quantize_encoder:
+        if training:
+            raise ValueError("the int8 encoder is for inference")
+        q_enc = MotionFormer(dataclasses.replace(e_cfg, quantize=True),
+                             system.device)
+        if generator is not None:
+            q_enc.load_state_dict(
+                quantize_encoder_params(system.encoder.state_dict()))
+        system.encoder = q_enc
     if training:
         torch.nn.init.zeros_(system.sampler.lm_head.weight)
     else:

@@ -7,8 +7,9 @@ modules (``VauraSystem.load_state_dicts``), with no flax tree in between:
   * ``convert_dac_state_dict`` — descript-audio-codec weights, weight norm
     folded (``W = g * v / ||v||``, as the JAX converter folds it);
   * ``strip_avclip_prefix`` + ``convert_motionformer_state_dict`` — the
-    visual branch of a Synchformer stage-I (AVCLIP) checkpoint, divided
-    blocks;
+    visual branch of a Synchformer stage-I (AVCLIP) checkpoint, or a
+    Motionformer's, in any of its three block layouts with its aggregation
+    layers;
   * ``convert_sampler_state_dict`` — the reference AR decoder
     (``llama.py``), its per-codebook heads fused into one ``lm_head``;
   * ``convert_vaura_checkpoint`` — a reference Lightning ``.ckpt`` into
@@ -162,54 +163,67 @@ def strip_avclip_prefix(sd: Dict[str, Any]) -> Dict[str, Any]:
     return out if out else sd
 
 
+def _agg_layer(sd, src: str, out: StateDict) -> None:
+    """A CLS aggregation layer (reference ``BaseEncoderLayer``,
+    ``motionformer.py:367-462``): the spatial, temporal and global ones
+    share one layout, the global one with ``pos_emb``."""
+    out[f"{src}.cls_token"] = _t(_np(sd[f"{src}.cls_token"]))
+    if f"{src}.pos_emb" in sd:
+        out[f"{src}.pos_emb"] = _t(_np(sd[f"{src}.pos_emb"]))
+    out[f"{src}.in_proj.weight"] = _t(_np(sd[f"{src}.self_attn.in_proj_weight"]))
+    out[f"{src}.in_proj.bias"] = _t(_np(sd[f"{src}.self_attn.in_proj_bias"]))
+    _copy(sd, f"{src}.self_attn.out_proj", out, f"{src}.out_proj")
+    _copy(sd, f"{src}.linear1", out, f"{src}.linear1")
+    _copy(sd, f"{src}.linear2", out, f"{src}.linear2")
+    _layernorm(sd, f"{src}.norm1", out, f"{src}.norm1")
+    _layernorm(sd, f"{src}.norm2", out, f"{src}.norm2")
+
+
+# (reference name, port name) of each block layout's attention layers:
+# trajectory (``vit_helper.py:174``: ``attn.proj_q``/``proj_kv``), divided
+# (``:392``: a separate ``timeattn``), joint (neither)
+_BLOCK_LAYERS = {
+    "trajectory": (("attn.qkv", "attn_qkv"), ("attn.proj_q", "attn_proj_q"),
+                   ("attn.proj_kv", "attn_proj_kv"), ("attn.proj", "attn_proj")),
+    "divided": (("timeattn.qkv", "timeattn.qkv"),
+                ("timeattn.proj", "timeattn.proj"), ("attn.qkv", "attn.qkv"),
+                ("attn.proj", "attn.proj")),
+    "joint": (("attn.qkv", "attn_qkv"), ("attn.proj", "attn_proj")),
+}
+
+
 def convert_motionformer_state_dict(
     sd: Dict[str, Any], depth: Optional[int] = None
 ) -> StateDict:
     """Motionformer/Synchformer visual encoder -> the port's
-    ``MotionFormer`` state dict (divided blocks, the spatial aggregation
-    layer). ``depth`` defaults to the block count the key set encodes. The
-    joint and trajectory blocks and the temporal and global aggregation
-    layers are not ported and raise."""
-    if "blocks.0.timeattn.qkv.weight" not in sd:
-        raise NotImplementedError(
-            "only the divided space-time encoder is ported (the joint and "
-            "trajectory blocks: ROADMAP.md, 'Modules to port', item "
-            "'Everything else')")
-    for agg in ("temp_attn_agg", "global_attn_agg"):
-        if f"{agg}.cls_token" in sd:
-            raise NotImplementedError(
-                f"the {agg} layer is not ported (ROADMAP.md, 'Modules to "
-                "port', item 'Everything else')")
-    if "st_embed" in sd:
-        raise NotImplementedError("joint positional embeddings are not ported")
+    ``MotionFormer`` state dict: the block layout read off the key set
+    (trajectory, divided or joint), separate or joint positional
+    embeddings, and the spatial, temporal and global aggregation layers the
+    checkpoint holds. ``depth`` defaults to the block count the key set
+    encodes."""
     if depth is None:
         depth = _max_index(sd, "blocks.")
+    layout = ("trajectory" if "blocks.0.attn.proj_q.weight" in sd else
+              "divided" if "blocks.0.timeattn.qkv.weight" in sd else "joint")
     out: StateDict = {}
     _copy(sd, "patch_embed_3d.proj", out, "patch_embed_3d")
-    for name in ("cls_token", "pos_embed", "temp_embed"):
-        out[name] = _t(_np(sd[name]))
+    for name in ("cls_token", "pos_embed", "temp_embed", "st_embed"):
+        if name in sd:
+            out[name] = _t(_np(sd[name]))
+    norms = ("norm1", "norm2", "norm3") if layout == "divided" else (
+        "norm1", "norm2")
+    layers = _BLOCK_LAYERS[layout] + (("mlp.fc1", "mlp.fc1"),
+                                      ("mlp.fc2", "mlp.fc2"))
     for i in range(depth):
         p = f"blocks.{i}"
-        for norm in ("norm1", "norm2", "norm3"):
+        for norm in norms:
             _layernorm(sd, f"{p}.{norm}", out, f"{p}.{norm}")
-        for att in ("timeattn", "attn"):
-            _copy(sd, f"{p}.{att}.qkv", out, f"{p}.{att}.qkv")
-            _copy(sd, f"{p}.{att}.proj", out, f"{p}.{att}.proj")
-        _copy(sd, f"{p}.mlp.fc1", out, f"{p}.mlp.fc1")
-        _copy(sd, f"{p}.mlp.fc2", out, f"{p}.mlp.fc2")
+        for src, dst in layers:
+            _copy(sd, f"{p}.{src}", out, f"{p}.{dst}")
     _layernorm(sd, "norm", out, "norm")
-    # the per-frame CLS aggregation (reference BaseEncoderLayer,
-    # motionformer.py:367-462)
-    p = "spatial_attn_agg"
-    if f"{p}.cls_token" in sd:
-        out[f"{p}.cls_token"] = _t(_np(sd[f"{p}.cls_token"]))
-        out[f"{p}.in_proj.weight"] = _t(_np(sd[f"{p}.self_attn.in_proj_weight"]))
-        out[f"{p}.in_proj.bias"] = _t(_np(sd[f"{p}.self_attn.in_proj_bias"]))
-        _copy(sd, f"{p}.self_attn.out_proj", out, f"{p}.out_proj")
-        _copy(sd, f"{p}.linear1", out, f"{p}.linear1")
-        _copy(sd, f"{p}.linear2", out, f"{p}.linear2")
-        _layernorm(sd, f"{p}.norm1", out, f"{p}.norm1")
-        _layernorm(sd, f"{p}.norm2", out, f"{p}.norm2")
+    for agg in ("spatial_attn_agg", "temp_attn_agg", "global_attn_agg"):
+        if f"{agg}.cls_token" in sd:
+            _agg_layer(sd, agg, out)
     return out
 
 

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 from typing import Dict, Optional, Tuple, Union
 
@@ -43,13 +44,44 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from vaura_tpu_torch.ops.decode_attention import decode_attention
 from vaura_tpu_torch.ops.dropout import drop_path, dropout
 from vaura_tpu_torch.ops.quantization import quant_dense, quantize_kv
 from vaura_tpu_torch.ops.rope import apply_rotary_emb, precompute_freqs_cis
 from vaura_tpu_torch.utils import ANY, drop_unported_fields
+
+
+_aten = torch.ops.aten
+# the ops whose outputs a remat policy keeps for the backward pass: the
+# block's dense layers reach ``mm``/``addmm`` (one matrix, no batch
+# dimension), its attention products ``bmm``/``baddbmm``
+REMAT_SAVED_OPS = {
+    None: frozenset(),
+    "dots": frozenset({_aten.mm.default, _aten.addmm.default,
+                       _aten.bmm.default, _aten.baddbmm.default}),
+    "dots_no_batch": frozenset({_aten.mm.default, _aten.addmm.default}),
+}
+
+
+def remat_context_fn(policy: Optional[str]):
+    """The ``context_fn`` of ``torch.utils.checkpoint`` for a remat policy:
+    selective checkpointing that keeps the policy's ops' outputs."""
+    saved = REMAT_SAVED_OPS[policy]
+    if not saved:
+        return noop_context_fn
+
+    def policy_fn(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return functools.partial(create_selective_checkpoint_contexts, policy_fn)
 
 
 def find_multiple(n: int, k: int) -> int:
@@ -83,12 +115,22 @@ class SamplerConfig:
     codebook_dim: int = 8
     # recompute each block in the backward pass instead of keeping its
     # activations (torch.utils.checkpoint per block): memory and time
-    # change, numbers do not.
+    # change, numbers do not. ``remat_policy`` keeps some outputs of the
+    # block for the backward pass (``REMAT_SAVED_OPS``): None recomputes
+    # everything, "dots" keeps every matmul's output, "dots_no_batch" those
+    # of the products without a batch dimension (the dense layers, not the
+    # attention products), as JAX's checkpoint policies of those names.
     remat: bool = False
+    remat_policy: Optional[str] = None
     quantize_weights: bool = False  # int8 weight-only matmuls (inference)
     quantize_cache: bool = False  # int8 KV cache with per-(position, head) scales
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32  # storage of the matmul weights
+
+    def __post_init__(self):
+        if self.remat_policy not in REMAT_SAVED_OPS:
+            raise ValueError(f"remat_policy {self.remat_policy!r}: one of "
+                             f"{sorted(map(str, REMAT_SAVED_OPS))}")
 
     @property
     def block_size(self) -> int:
@@ -138,7 +180,6 @@ _JAX_ONLY_FIELDS = {
     "scan_unroll": ANY,
     "use_visual_conditioning": ANY,
     "dac_factored_embeddings": True,
-    "remat_policy": None,
     "cache_bits": 8,
     "int8_dots": False,
 }
@@ -543,7 +584,8 @@ class Sampler(nn.Module):
                     return layer(x, freqs, mask, train, g)
 
             h = checkpoint(run, h, use_reentrant=False,
-                           preserve_rng_state=False)
+                           preserve_rng_state=False,
+                           context_fn=remat_context_fn(cfg.remat_policy))
         if probs is not None:
             return self._logits(h), torch.stack(probs)
         return self._logits(h)

@@ -1,11 +1,12 @@
 """The composite V-AURA system.
 
 Generation: frames -> MotionFormer features -> bridge -> conditioning
-sequence (with the CFG null stream) -> delayed codebook pattern -> KV-cache
-decode loop -> pattern revert -> DAC waveform.
+sequence (with the CFG null stream) -> codebook pattern (delayed by
+default, or any provider of ``ops/patterns.py``) -> KV-cache decode loop ->
+pattern revert -> DAC waveform.
 
 Training (``train_forward``): audio -> DAC codes (frozen, no graph) ->
-delayed pattern with the implicit BOS shift -> MotionFormer (``train=True``:
+the pattern with the implicit BOS shift -> MotionFormer (``train=True``:
 the unfused, differentiable blocks) -> bridge -> teacher-forced sampler ->
 logits reverted to the codes' timesteps (NaN at the slots no step
 predicts) -> masked per-codebook cross entropy.
@@ -56,7 +57,10 @@ from vaura_tpu_torch.models.sampler import (
     use_weights,
 )
 from vaura_tpu_torch.ops.losses import masked_codebook_cross_entropy
-from vaura_tpu_torch.ops.patterns import DelayedPatternProvider
+from vaura_tpu_torch.ops.patterns import (
+    CodebooksPatternProvider,
+    DelayedPatternProvider,
+)
 from vaura_tpu_torch.ops.sampling import cfg_blend, sample_tokens
 from vaura_tpu_torch.train.lora import (
     DEFAULT_TARGETS,
@@ -102,7 +106,7 @@ class VauraSystem(nn.Module):
         sampler_config: SamplerConfig,
         dac_config: DacConfig,
         encoder_config: Optional[MotionFormerConfig] = None,
-        pattern_provider: Optional[DelayedPatternProvider] = None,
+        pattern_provider: Optional[CodebooksPatternProvider] = None,
         bridge: Optional[nn.Module] = None,
         use_visual_conditioning: bool = True,
         freeze_feature_extractor: bool = False,

@@ -1,6 +1,7 @@
-"""Codebook interleave patterns: ``Pattern`` and ``DelayedPatternProvider``.
+"""Codebook interleave patterns: ``Pattern`` and the five providers
+(delayed, parallel, unrolled, VALL-E, MusicLM).
 
-Counterpart of ``vaura_tpu/ops/patterns.py:38-290``. The layout is lowered
+Counterpart of ``vaura_tpu/ops/patterns.py``. The layout is lowered
 once on the host (numpy) into static index tables; ``build`` and ``revert``
 are then single gathers on the device. The host code is a copy of the JAX
 package's, kept here so that this package imports nothing of it.
@@ -50,6 +51,10 @@ class Pattern:
             ts = np.array([t for t, _ in coords])
             assert (ts >= frontier[qs]).all(), f"Past timesteps found at step {s}"
             frontier[qs] = ts
+
+    @property
+    def num_sequence_steps(self) -> int:
+        return len(self.layout) - 1
 
     @property
     def max_delay(self) -> int:
@@ -170,28 +175,54 @@ class Pattern:
         return self._gather(logits, np_idx, special_token), np_idx, np_mask
 
 
-class DelayedPatternProvider:
-    """Delay codebook ``k`` by ``delays[k]`` steps (default ``k``). The JAX
-    provider's ``flatten_first``/``empty_initial`` variants are not ported
-    (no configuration of the generation path sets them)."""
+class CodebooksPatternProvider:
+    """Base of the providers: ``get_pattern(timesteps)``, cached per
+    instance."""
 
-    def __init__(self, n_q: int, delays: Optional[Sequence[int]] = None):
+    def __init__(self, n_q: int):
         if n_q <= 0:
             raise ValueError(f"n_q must be positive, got {n_q}")
         self.n_q = n_q
-        self.delays = list(range(n_q)) if delays is None else list(delays)
-        if len(self.delays) != n_q or sorted(self.delays) != self.delays:
-            raise ValueError(f"delays must be {n_q} non-decreasing values")
         self.get_pattern = functools.lru_cache(100)(self.get_pattern)
 
     def get_pattern(self, timesteps: int) -> Pattern:
-        """After the BOS row, row ``r`` carries ``(r - delays[q], q)`` for
-        every codebook whose delay has elapsed."""
+        raise NotImplementedError
+
+
+def _non_decreasing(values, n: int, what: str) -> list:
+    values = list(values)
+    if len(values) != n or sorted(values) != values:
+        raise ValueError(f"{what} must be {n} non-decreasing values")
+    return values
+
+
+class DelayedPatternProvider(CodebooksPatternProvider):
+    """Delay codebook ``k`` by ``delays[k]`` steps (default ``k``), after
+    ``empty_initial`` blank steps and ``flatten_first`` timesteps written
+    one coordinate a step."""
+
+    def __init__(self, n_q: int, delays: Optional[Sequence[int]] = None,
+                 flatten_first: int = 0, empty_initial: int = 0):
+        super().__init__(n_q)
+        self.delays = _non_decreasing(
+            range(n_q) if delays is None else delays, n_q, "delays")
+        self.flatten_first = flatten_first
+        self.empty_initial = empty_initial
+
+    def get_pattern(self, timesteps: int) -> Pattern:
+        """After the BOS row and ``empty_initial`` blank rows, the first
+        ``flatten_first`` timesteps one ``(t, q)`` a row (row-major); then
+        row ``r`` of the delayed body carries ``(flatten_first + r -
+        delays[q], q)`` for every codebook whose delay has elapsed."""
+        ff, n_q = self.flatten_first, self.n_q
+        head: PatternLayout = [[]] * (1 + self.empty_initial)
+        flat: PatternLayout = [[(t, q)] for t in range(min(timesteps, ff))
+                               for q in range(n_q)]
         body: PatternLayout = [
-            [(r - d, q) for q, d in enumerate(self.delays) if 0 <= r - d]
-            for r in range(timesteps + max(self.delays))
+            [(ff + r - d, q) for q, d in enumerate(self.delays) if 0 <= r - d]
+            for r in range(timesteps + max(self.delays) - ff)
         ]
-        return Pattern([[]] + body, timesteps=timesteps, n_q=self.n_q)
+        return Pattern(head + flat + body, timesteps=timesteps, n_q=n_q)
 
 
 class ParallelPatternProvider(DelayedPatternProvider):
@@ -199,3 +230,89 @@ class ParallelPatternProvider(DelayedPatternProvider):
 
     def __init__(self, n_q: int):
         super().__init__(n_q, [0] * n_q)
+
+
+class UnrolledPatternProvider(CodebooksPatternProvider):
+    """Codebooks flattened onto inner steps (``flattening[q]``, default
+    each its own), each group of an inner step delayed by its shared
+    ``delays[q]`` (default 0)."""
+
+    def __init__(self, n_q: int, flattening: Optional[Sequence[int]] = None,
+                 delays: Optional[Sequence[int]] = None):
+        super().__init__(n_q)
+        flattening = _non_decreasing(
+            range(n_q) if flattening is None else flattening, n_q,
+            "flattening")
+        delays = _non_decreasing([0] * n_q if delays is None else delays,
+                                 n_q, "delays")
+        self._flattened: dict = {}
+        for q, (inner, delay) in enumerate(zip(flattening, delays)):
+            grp = self._flattened.setdefault(inner, {"codebooks": [],
+                                                     "delay": delay})
+            if grp["delay"] != delay:
+                raise ValueError("codebooks flattened to the same step must "
+                                 "share a delay")
+            grp["codebooks"].append(q)
+        self.max_delay = max(delays)
+
+    @property
+    def _num_inner_steps(self) -> int:
+        return max(self._flattened) + 1
+
+    def num_virtual_steps(self, timesteps: int) -> int:
+        return timesteps * self._num_inner_steps + 1
+
+    def get_pattern(self, timesteps: int) -> Pattern:
+        """Each timestep expands into one row per inner step; an inner
+        step's row carries its codebooks, scheduled ``delay`` rows later
+        (rows past the horizon dropped), an inner step without codebooks a
+        blank row at its own time. Rows merge in schedule order: on ties
+        blank rows first, then lower timesteps."""
+        horizon = timesteps + self.max_delay
+        rows: list = [(-1, [])]  # the BOS row sorts first
+        for i in range(self._num_inner_steps):
+            grp = self._flattened.get(i)
+            if grp is None:
+                rows += [(t, []) for t in range(horizon)]
+            else:
+                rows += [(t + grp["delay"],
+                          [(t, q) for q in grp["codebooks"]])
+                         for t in range(horizon - grp["delay"])]
+        return Pattern([coords for _, coords in sorted(rows)],
+                       timesteps=timesteps, n_q=self.n_q)
+
+
+class VALLEPattern(CodebooksPatternProvider):
+    """Codebook 0 alone over every timestep, then the others as one delayed
+    block (``delays`` of codebooks 1.., default 0)."""
+
+    def __init__(self, n_q: int, delays: Optional[Sequence[int]] = None):
+        super().__init__(n_q)
+        self.delays = _non_decreasing(
+            [0] * (n_q - 1) if delays is None else delays, n_q - 1, "delays")
+
+    def get_pattern(self, timesteps: int) -> Pattern:
+        solo: PatternLayout = [[(t, 0)] for t in range(timesteps)]
+        block: PatternLayout = [
+            [(r - d, q + 1) for q, d in enumerate(self.delays) if r >= d]
+            for r in range(timesteps + max(self.delays, default=0))
+        ]
+        return Pattern([[]] + solo + block, timesteps=timesteps, n_q=self.n_q)
+
+
+class MusicLMPattern(CodebooksPatternProvider):
+    """Flattened one coordinate a row, group-major: every timestep of the
+    codebooks ``[g, g + group_by)`` before the next group."""
+
+    def __init__(self, n_q: int, group_by: int = 2):
+        super().__init__(n_q)
+        self.group_by = group_by
+
+    def get_pattern(self, timesteps: int) -> Pattern:
+        layout: PatternLayout = [[]] + [
+            [(t, q)]
+            for g in range(0, self.n_q, self.group_by)
+            for t in range(timesteps)
+            for q in range(g, g + self.group_by)
+        ]
+        return Pattern(layout, timesteps=timesteps, n_q=self.n_q)

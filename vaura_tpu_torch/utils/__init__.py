@@ -56,8 +56,8 @@ class StageClock:
         return out
 
 
-_EMBEDDINGS = ("emb", "cls_token", "pos_embed", "temp_embed",
-               "empty_video_emb")
+_EMBEDDINGS = ("emb", "cls_token", "pos_embed", "temp_embed", "st_embed",
+               "pos_emb", "empty_video_emb")
 # fan-in of tensors whose input axis is not everything after the first
 _FAN_IN = {"proj_v": lambda s: s[-1], "out_proj_w": lambda s: s[1]}
 
