@@ -214,10 +214,20 @@ def test_specs_reject_what_the_port_lacks():
     cfg = SamplerSpec(num_layers=2, use_pallas_decode=True, scan_unroll=2,
                       initializer_range=0.01, dim_feedforward=7)
     assert cfg.num_layers == 2
-    for bad in ({"cache_bits": 4}, {"int8_dots": True},
-                {"dac_factored_embeddings": False}):
-        with pytest.raises(NotImplementedError):
-            SamplerSpec(**bad)
+    # the last sampler modes build, equal to the JAX package's spec in
+    # every field the two share
+    from vaura_tpu.models.sampler import SamplerSpec as JSamplerSpec
+
+    for kw in ({"cache_bits": 4}, {"int8_dots": True},
+               {"dac_factored_embeddings": False},
+               {"quantize_cache": True, "cache_bits": 4, "int8_dots": True}):
+        got, want = _fields(SamplerSpec(**kw)), _fields(JSamplerSpec(**kw))
+        assert all(got[k] == v for k, v in kw.items()), kw
+        for name, value in got.items():
+            if not name.endswith("dtype"):
+                assert want[name] == value, (kw, name)
+    with pytest.raises(ValueError):
+        SamplerSpec(cache_bits=2)
     assert SamplerSpec(remat=True, remat_policy="dots").remat_policy == "dots"
     with pytest.raises(TypeError):
         SamplerSpec(no_such_key=1)

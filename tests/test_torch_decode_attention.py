@@ -186,7 +186,7 @@ def test_int8_tile_rows_avoid_bank_conflicts(hd):
     from vaura_tpu_torch.ops.decode_attention import tile_row_bytes
 
     for int8 in (False, True):
-        rb = tile_row_bytes(hd, int8)
+        rb = tile_row_bytes(hd, 8 if int8 else 16)
         assert rb % 16 == 0 and (rb // 32) % 2 == 1 and rb % 32 == 0
         assert rb >= hd * (1 if int8 else 2)
         slots = {(r * rb + h * 16) % 128 for r in range(4) for h in range(2)}
@@ -200,10 +200,10 @@ def test_int8_shared_memory_plan():
     from vaura_tpu_torch.ops.decode_attention import SMEM_LIMIT, smem_bytes
 
     floats = 4 * (96 + 4 * 98 + 98 + 2 + 4 * 98)
-    assert smem_bytes(96, 1, 4, int8=True) == 2 * (64 * 96 + 192) + 16 + floats
-    assert smem_bytes(64, 1, 4, int8=True) == (
+    assert smem_bytes(96, 1, 4, cache_bits=8) == 2 * (64 * 96 + 192) + 16 + floats
+    assert smem_bytes(64, 1, 4, cache_bits=8) == (
         2 * (64 * 96 + 128) + 16 + 4 * (64 + 4 * 66 + 66 + 2 + 4 * 66))
     for hd in (32, 64, 96, 128):
-        assert smem_bytes(hd, 4, 8, int8=True) < smem_bytes(hd, 4, 8)
-    assert smem_bytes(128, 4, 8, int8=True) < SMEM_LIMIT
-    assert smem_bytes(128, 64, 8, int8=True) > SMEM_LIMIT
+        assert smem_bytes(hd, 4, 8, cache_bits=8) < smem_bytes(hd, 4, 8)
+    assert smem_bytes(128, 4, 8, cache_bits=8) < SMEM_LIMIT
+    assert smem_bytes(128, 64, 8, cache_bits=8) > SMEM_LIMIT

@@ -2,9 +2,9 @@
 teacher-forced forward of training and the decode path of generation.
 
 Counterpart of ``vaura_tpu/models/sampler.py``: per-codebook token
-embeddings (DAC-factored, weight-normed), AVCLIP visual features projected
-and fused by channel concatenation, interleaved RoPE, RMSNorm + SwiGLU
-blocks, one fused LM head for all codebooks.
+embeddings (DAC-factored and weight-normed, or a plain table), AVCLIP visual
+features projected and fused by channel concatenation, interleaved RoPE,
+RMSNorm + SwiGLU blocks, one fused LM head for all codebooks.
 
 Compute runs in ``config.dtype`` (bf16 by default). The matmul weights are
 stored in ``config.param_dtype`` (float32 by default, what the optimizer
@@ -19,8 +19,15 @@ feed-forward dropout, attention dropout, stochastic depth, the CFG
 
 The KV cache is one preallocated ``[L, B, S, H_kv, hd]`` buffer per key and
 value: bf16, or int8 with float32 ``k_scale``/``v_scale [L, B, S, H_kv]``
-(``quantize_cache``; ``ops/quantization.py::quantize_kv``). A layer never
-writes it: it reads the rows below the current one through
+(``quantize_cache``; ``ops/quantization.py::quantize_kv``), or int4 packed
+two a byte into ``[L, B, S, H_kv, hd / 2]`` int8 with the same scales
+(``cache_bits=4``; ``quantize_kv4``). ``int8_dots`` reads a quantized cache
+with int8 x int8 attention products, whose probabilities are quantized per
+group of cache rows: the groups' first rows are the cache dict's
+``chunk_starts`` (an int32 tensor; ``init_cache`` and ``prefill`` make one
+group, ``[0]``), which ``VauraSystem``'s decode loops set to the JAX
+package's chunk buffers. A
+layer never writes the cache: it reads the rows below the current one through
 ``ops.decode_attention`` and returns the current position's K/V, which
 ``decode_step`` commits in place after the step, quantized for an int8
 cache (the JAX package's contract, ``sampler.py:228-238,864-883``; in place
@@ -53,7 +60,11 @@ from torch.utils.checkpoint import (
 
 from vaura_tpu_torch.ops.decode_attention import decode_attention
 from vaura_tpu_torch.ops.dropout import drop_path, dropout
-from vaura_tpu_torch.ops.quantization import quant_dense, quantize_kv
+from vaura_tpu_torch.ops.quantization import (
+    quant_dense,
+    quantize_kv,
+    quantize_kv4,
+)
 from vaura_tpu_torch.ops.rope import apply_rotary_emb, precompute_freqs_cis
 from vaura_tpu_torch.utils import ANY, drop_unported_fields
 
@@ -124,6 +135,14 @@ class SamplerConfig:
     remat_policy: Optional[str] = None
     quantize_weights: bool = False  # int8 weight-only matmuls (inference)
     quantize_cache: bool = False  # int8 KV cache with per-(position, head) scales
+    # the quantized cache's width: 8 (int8) or 4 (int4, two values a byte)
+    cache_bits: int = 8
+    # int8 x int8 attention products over a quantized cache (q and the
+    # probabilities quantized on the fly; without quantize_cache no effect)
+    int8_dots: bool = False
+    # token embeddings: per codebook a [V+1, codebook_dim] table and a
+    # weight-normed projection (True), or a [V+1, token_dim] table (False)
+    dac_factored_embeddings: bool = True
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32  # storage of the matmul weights
 
@@ -131,6 +150,8 @@ class SamplerConfig:
         if self.remat_policy not in REMAT_SAVED_OPS:
             raise ValueError(f"remat_policy {self.remat_policy!r}: one of "
                              f"{sorted(map(str, REMAT_SAVED_OPS))}")
+        if self.cache_bits not in (8, 4):
+            raise ValueError(f"cache_bits {self.cache_bits}: 8 or 4")
 
     @property
     def block_size(self) -> int:
@@ -179,9 +200,6 @@ _JAX_ONLY_FIELDS = {
     "use_pallas_decode": ANY,
     "scan_unroll": ANY,
     "use_visual_conditioning": ANY,
-    "dac_factored_embeddings": True,
-    "cache_bits": 8,
-    "int8_dots": False,
 }
 
 
@@ -341,14 +359,15 @@ class Attention(nn.Module):
 
     def decode(self, x: torch.Tensor, freqs_cis: torch.Tensor,
                cache_layer: Tuple[torch.Tensor, ...],
-               row: Union[int, torch.Tensor]
+               row: Union[int, torch.Tensor],
+               chunk_starts: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         """``x [B, 1, d_model]`` whose RoPE row is ``freqs_cis``;
         ``cache_layer`` one layer's ``(k, v)`` ``[B, S, H_kv, hd]`` (and, for
-        an int8 cache, ``(k_scale, v_scale) [B, S, H_kv]``), read below
+        a quantized cache, ``(k_scale, v_scale) [B, S, H_kv]``), read below
         ``row`` only (an ``int`` or a one-element int32 tensor on ``x``'s
-        device). Returns the output and this position's ``(k, v) [B, H_kv,
-        hd]``."""
+        device); ``chunk_starts`` the quantization groups of ``int8_dots``.
+        Returns the output and this position's ``(k, v) [B, H_kv, hd]``."""
         cfg = self.cfg
         B = x.shape[0]
         H, Hkv, hd = cfg.nhead, cfg.n_kv_heads, cfg.head_dim
@@ -357,8 +376,11 @@ class Attention(nn.Module):
         k = apply_rotary_emb(k.reshape(B, 1, Hkv, hd), freqs_cis)[:, 0]
         v = v.reshape(B, Hkv, hd).contiguous()
         k_cache, v_cache, *scales = cache_layer
-        out = decode_attention(q.contiguous(), k_cache, v_cache,
-                               k.contiguous(), v, row, *scales)
+        out = decode_attention(
+            q.contiguous(), k_cache, v_cache, k.contiguous(), v, row, *scales,
+            cache_bits=cfg.cache_bits,
+            int8_dots=cfg.int8_dots and cfg.quantize_cache,
+            chunk_starts=chunk_starts)
         return self.wo(out.reshape(B, 1, H * hd).to(cfg.dtype)), (k, v)
 
 
@@ -388,22 +410,28 @@ class TransformerBlock(nn.Module):
         h = x + a
         return h + self.feed_forward(self.ffn_norm(h)), kv
 
-    def decode(self, x, freqs_cis, cache_layer, row):
+    def decode(self, x, freqs_cis, cache_layer, row, chunk_starts=None):
         a, kv = self.attention.decode(self.attention_norm(x), freqs_cis,
-                                      cache_layer, row)
+                                      cache_layer, row, chunk_starts)
         h = x + a
         return h + self.feed_forward(self.ffn_norm(h)), kv
 
 
 class MultiCodebookEmbedding(nn.Module):
-    """Sum of per-codebook token embeddings, DAC-factored: per codebook a
-    ``[V+1, codebook_dim]`` table, then a weight-normed 1x1 projection to
-    ``token_dim``. (The JAX package's plain-table variant is not ported.)"""
+    """Sum of per-codebook token embeddings, all codebooks gathered from one
+    flattened table. DAC-factored (``dac_factored_embeddings``, the
+    default): per codebook a ``[V+1, codebook_dim]`` table, then a
+    weight-normed 1x1 projection to ``token_dim``. Plain: per codebook a
+    ``[V+1, token_dim]`` table (``emb [K*(V+1), token_dim]``)."""
 
     def __init__(self, cfg: SamplerConfig, device=None):
         super().__init__()
         self.cfg = cfg
         K, V1, cd = cfg.num_codebooks, cfg.vocab_with_special, cfg.codebook_dim
+        if not cfg.dac_factored_embeddings:
+            self.emb = nn.Parameter(torch.empty(K * V1, cfg.token_dim,
+                                                device=device))
+            return
         self.emb = nn.Parameter(torch.empty(K * V1, cd, device=device))
         self.proj_v = nn.Parameter(torch.empty(K, cfg.token_dim, cd,
                                                device=device))
@@ -420,6 +448,8 @@ class MultiCodebookEmbedding(nn.Module):
                    * cfg.vocab_with_special)[None, :, None]
         flat = (tokens.long() + offsets).reshape(-1)
         e = self.emb.index_select(0, flat).reshape(B, K, S, -1)
+        if not cfg.dac_factored_embeddings:
+            return e.sum(1).to(cfg.dtype)
         norm = torch.sqrt((self.proj_v ** 2).sum(-1, keepdim=True) + 1e-12)
         W = (self.proj_g * self.proj_v / norm).to(cfg.dtype).float()
         out = torch.einsum("bksc,ktc->bst", e.to(cfg.dtype).float(), W)
@@ -601,18 +631,21 @@ class Sampler(nn.Module):
     def init_cache(self, batch: int, max_seq: int,
                    dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
         """A zero cache of ``max_seq`` rows: bf16 (or ``dtype``) ``k``/``v``,
-        or with ``quantize_cache`` int8 ``k``/``v`` and float32
-        ``k_scale``/``v_scale`` (``dtype`` is then not read); and the rows'
-        ``positions``."""
+        or with ``quantize_cache`` int8 ``k``/``v`` (``hd / 2`` bytes a row
+        with ``cache_bits=4``) and float32 ``k_scale``/``v_scale``
+        (``dtype`` is then not read); and the rows' ``positions`` (and,
+        under ``int8_dots``, one quantization group: ``chunk_starts``)."""
         cfg = self.cfg
         shape = (cfg.num_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
         dev = self.freqs_cis.device
         if cfg.quantize_cache:
-            return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
-                    "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+            packed = shape[:-1] + (cfg.head_dim // 2 if cfg.cache_bits == 4
+                                   else cfg.head_dim,)
+            return {"k": torch.zeros(packed, dtype=torch.int8, device=dev),
+                    "v": torch.zeros(packed, dtype=torch.int8, device=dev),
                     "k_scale": torch.zeros(shape[:-1], device=dev),
                     "v_scale": torch.zeros(shape[:-1], device=dev),
-                    "positions": self._positions(max_seq, dev)}
+                    **self._cache_rows(max_seq, dev)}
         dtype = dtype or cfg.dtype
         return {"k": torch.zeros(shape, dtype=dtype, device=dev),
                 "v": torch.zeros(shape, dtype=dtype, device=dev),
@@ -625,11 +658,23 @@ class Sampler(nn.Module):
         for decode attention, a view that costs no launch."""
         return torch.arange(max_seq, dtype=torch.int32, device=device)
 
+    def _cache_rows(self, max_seq: int, device) -> Dict[str, torch.Tensor]:
+        """A quantized cache's ``positions`` and, under ``int8_dots``, its
+        one quantization group (``chunk_starts`` ``[0]``), which the decode
+        loops replace by the JAX package's chunks."""
+        rows = {"positions": self._positions(max_seq, device)}
+        if self.cfg.int8_dots:
+            rows["chunk_starts"] = torch.zeros(1, dtype=torch.int32,
+                                               device=device)
+        return rows
+
     def _store(self, k: torch.Tensor, v: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """K/V as the cache stores them: quantized for an int8 cache."""
+        """K/V as the cache stores them: quantized for an int8 or int4
+        cache."""
         if self.cfg.quantize_cache:
-            kq, ks = quantize_kv(k)
-            vq, vs = quantize_kv(v)
+            qfn = quantize_kv4 if self.cfg.cache_bits == 4 else quantize_kv
+            kq, ks = qfn(k)
+            vq, vs = qfn(v)
             return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
         return {"k": k.to(self.cfg.dtype), "v": v.to(self.cfg.dtype)}
 
@@ -640,7 +685,8 @@ class Sampler(nn.Module):
         the per-position conditioning ``cond_seq [B, S, cond_dim]``: returns
         the logits ``[B, K, S, vocab]`` and a fresh cache of ``S`` rows
         holding every position's K/V (int8 with ``quantize_cache``), with
-        its ``positions``. Positions past the prompt hold K/V of whatever
+        its ``positions`` (and one ``chunk_starts`` group under
+        ``int8_dots``). Positions past the prompt hold K/V of whatever
         the padding was; decode attention never reads a row at or past its
         own, and the decode steps rewrite them first (JAX
         ``sampler.py:773-804``)."""
@@ -656,7 +702,8 @@ class Sampler(nn.Module):
             ks.append(k)
             vs.append(v)
         cache = self._store(torch.stack(ks), torch.stack(vs))
-        cache["positions"] = self._positions(S, h.device)
+        cache.update(self._cache_rows(S, h.device) if cfg.quantize_cache
+                     else {"positions": self._positions(S, h.device)})
         return self._logits(h), cache
 
     @torch.no_grad()
@@ -671,7 +718,9 @@ class Sampler(nn.Module):
         which differ in the rolling cache of ``generate_long_kv``. Decode
         attention takes the row from device memory (a one-element view of
         the cache's ``positions``, added to a cache that lacks it); RoPE and
-        the cache write index with the host ``int``."""
+        the cache write index with the host ``int``. Under ``int8_dots`` the
+        cache's ``chunk_starts`` are the probabilities' quantization
+        groups."""
         pos = int(pos)
         row = pos if row is None else int(row)
         if "positions" not in cache:
@@ -684,8 +733,10 @@ class Sampler(nn.Module):
         names = ("k", "v", "k_scale", "v_scale") if self.cfg.quantize_cache \
             else ("k", "v")
         ks, vs = [], []
+        starts = cache.get("chunk_starts")
         for layer, *cache_layer in zip(self.layers, *(cache[n] for n in names)):
-            h, (k, v) = layer.decode(h, freqs, tuple(cache_layer), row_t)
+            h, (k, v) = layer.decode(h, freqs, tuple(cache_layer), row_t,
+                                     starts)
             ks.append(k)
             vs.append(v)
         for name, t in self._store(torch.stack(ks), torch.stack(vs)).items():

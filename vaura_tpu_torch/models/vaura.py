@@ -30,6 +30,11 @@ keeps ONE preallocated cache ``[L, 2B, S, H_kv, hd]``: the decode-attention
 kernel reads only the rows below the current one, which is what
 ``decode_buckets`` achieved with chunk buffers on the TPU. The rolling cache
 of ``generate_long_kv`` is one buffer too (see ``_stream_kv_segments``).
+JAX's chunk buffers are more than a regrouping under ``int8_dots``: there
+the attention probabilities are quantized per chunk, so the chunks change
+the numbers, and the port hands JAX's chunk boundaries to the kernel as the
+cache's ``chunk_starts`` (``chunk_bounds``, the kept chunks' rows of the
+rolling cache).
 Sampling draws from the caller's ``torch.Generator``, one generator for the
 whole call where JAX splits its key per chunk.
 """
@@ -75,6 +80,19 @@ UNKNOWN_TOKEN = -1
 
 def _largest_divisor(n: int, cap: int) -> int:
     return next(c for c in range(min(cap, n), 0, -1) if n % c == 0)
+
+
+def chunk_bounds(S: int, decode_buckets: int, start_step: int = 1) -> list:
+    """The cache rows at which the JAX package's bucketed decode splits its
+    cache into chunk buffers (``vaura_tpu/models/vaura.py:515-525``): the
+    step range ``[start_step, S)`` in ``decode_buckets`` segments whose ends
+    are rounded up to multiples of 8; chunk ``j`` holds the rows segment
+    ``j`` writes. Returns ``[0, ..., S]``, one more entry than chunks."""
+    n_b = max(int(decode_buckets), 1)
+    bounds = sorted({min(-(-((i + 1) * S) // n_b // 8) * 8, S)
+                     for i in range(n_b)})
+    eff = [hi for hi in bounds if hi > start_step]
+    return [0] + [h - 1 for h in eff[:-1]] + [S]
 
 
 def _merges_lora(fn):
@@ -181,13 +199,23 @@ class VauraSystem(nn.Module):
             module.load_state_dict(sd)
         return self
 
+    def _quantizes_probs(self) -> bool:
+        """Whether decode attention quantizes its probabilities per chunk
+        group (``int8_dots`` over a quantized cache)."""
+        cfg = self.sampler_config
+        return cfg.int8_dots and cfg.quantize_cache
+
     # ------------------------------------------------------------------ #
     @torch.no_grad()
     def load_dac_embeddings_into_sampler(self) -> bool:
         """Initialise the sampler's factored token embeddings from the DAC
         quantizer: each codebook table (plus a seeded random special row)
         and the folded out-projection as ``v`` with gain ``||v||``. Returns
-        False, and changes nothing, when the geometries differ."""
+        False, and changes nothing, when the geometries differ. Plain token
+        tables (``dac_factored_embeddings: false``) raise ``ValueError`` when
+        the geometries agree: the JAX package writes the ``[K*(V+1),
+        codebook_dim]`` codebooks over the ``[K*(V+1), token_dim]`` table
+        there, and its next forward fails on the shape."""
         cfg, dcfg = self.sampler_config, self.dac.cfg
         K, V, cd = cfg.num_codebooks, cfg.d_codebook, cfg.codebook_dim
         if (dcfg.codebook_dim != cd or dcfg.codebook_size != V
@@ -199,6 +227,13 @@ class VauraSystem(nn.Module):
                 V, cd, cfg.token_dim, dcfg.codebook_size, dcfg.codebook_dim,
                 dcfg.resolved_latent_dim)
             return False
+        if not cfg.dac_factored_embeddings:
+            raise ValueError(
+                "load_dac_embeddings_into_sampler: the DAC codebooks "
+                "initialise DAC-factored token embeddings only; this sampler "
+                "has plain tables (dac_factored_embeddings: false), which the "
+                "JAX package's loader overwrites with a table of the wrong "
+                "shape")
         q, tok = self.dac.quantizer, self.sampler.tok_embeddings
         special = np.random.default_rng(0).standard_normal(
             (K, 1, cd)).astype(np.float32) * 0.02
@@ -394,15 +429,21 @@ class VauraSystem(nn.Module):
         the cache to continue, in place; by default a zero cache of ``S``
         rows.
 
-        ``decode_buckets`` is accepted for call compatibility with the JAX
-        package and has no effect: the decode-attention kernel reads only
-        the cache positions below each step's position from the one
-        preallocated cache, which is what the chunk buffers did there. The
-        results differ from JAX's chunked cache only in how the float32
-        sums are grouped."""
-        del decode_buckets
+        ``decode_buckets`` is the JAX package's split of the cache into
+        chunk buffers. The decode-attention kernel reads only the cache
+        positions below each step's position from the one preallocated
+        cache, which is what the chunk buffers did there, so without
+        ``int8_dots`` the split changes only how float32 sums are grouped
+        and is not made. Under ``int8_dots`` (with a quantized cache) the
+        attention probabilities are quantized per chunk, and the chunks'
+        first rows (``chunk_bounds``) become the cache's
+        ``chunk_starts``."""
         cache = (initial_cache if initial_cache is not None else
                  self.sampler.init_cache(cond_seq.shape[0], S, dtype=cache_dtype))
+        if self._quantizes_probs():
+            cache["chunk_starts"] = torch.tensor(
+                chunk_bounds(S, decode_buckets, start_step)[:-1],
+                dtype=torch.int32, device=cache["k"].device)
         gen_seq = gen_seq_init.clone()
         vm = torch.as_tensor(valid_mask, device=gen_seq.device)
         for s in range(start_step, S):
@@ -443,8 +484,9 @@ class VauraSystem(nn.Module):
         sequence step 16 is ingested by one ``Sampler.prefill`` and the
         decode loop starts at that step; a shorter one runs through the
         decode steps, which keep its tokens. ``remove_prompts`` drops the
-        prompt's timesteps from the codes. ``decode_buckets`` has no effect
-        (see ``generate_tokens``). ``stage_ms`` holds the milliseconds of
+        prompt's timesteps from the codes. ``decode_buckets`` matters only
+        under ``int8_dots`` (see ``generate_tokens``). ``stage_ms`` holds the
+        milliseconds of
         the encoder, decode loop and DAC stages."""
         K = self.num_codebooks
         dev = self.device
@@ -732,6 +774,11 @@ class VauraSystem(nn.Module):
         final (it is the one buffer the loop fills: consume it before
         resuming).
 
+        Under ``int8_dots`` the kept chunks' first buffer rows are the
+        cache's ``chunk_starts`` for the segment (padded with the buffer's
+        length, empty groups, to the most chunks any segment keeps), as the
+        JAX package quantizes the probabilities per kept chunk.
+
         The segments and the chunks each attends are
         ``rolling_cache_plan``'s, as in the JAX package (JAX
         ``vaura.py:555-711``), which carries a tuple of chunk buffers and
@@ -752,7 +799,9 @@ class VauraSystem(nn.Module):
         rows = max(sum(size(i) for i in kept) for kept in kept_per_seg)
         cache = self.sampler.init_cache(cond_seq.shape[0], rows,
                                         dtype=cache_dtype)
-        buffers = [t for n, t in cache.items() if n != "positions"]
+        buffers = [t for n, t in cache.items()
+                   if n not in ("positions", "chunk_starts")]
+        n_groups = max(len(kept) for kept in kept_per_seg)
         gen_seq = gen_seq_init.clone()
         vm = torch.as_tensor(valid_mask, device=gen_seq.device)
         offset: Dict[int, int] = {}  # chunk -> its first buffer row
@@ -769,6 +818,11 @@ class VauraSystem(nn.Module):
                     t[:, :, dst:dst + n] = t[:, :, src:src + n].clone()
             offset = dict(packed)
             offset[j] = sum(size(i) for i in carried)
+            if self._quantizes_probs():
+                starts = [offset[i] for i in kept_per_seg[j]]
+                cache["chunk_starts"] = torch.tensor(
+                    starts + [rows] * (n_groups - len(starts)),
+                    dtype=torch.int32, device=cache["k"].device)
             for s in range(lo, hi):
                 self.generation_step(
                     cache, gen_seq, cond_seq, s, vm, generator,

@@ -29,11 +29,39 @@ layout, so the cache compares with JAX's as it is: the kernel loads a row's
 two scales with plain loads from the lane that reads the row, beside the
 tile's bulk copies, rather than giving them a layout of their own.
 
+The int4 cache (``cache_bits=4``): two values a byte, half-split (byte
+``j`` holds element ``j`` in its low nibble and ``j + hd/2`` in its high
+one, ``ops/quantization.py::quantize_kv4``), the same scales; the JAX
+package unpacks and then computes what the int8 cache computes
+(``sampler.py:317-321``), and so does the plain version. On the card the
+kernel's third instantiation reads the packed tiles and widens the nibbles
+in registers.
+
+The int8 x int8 products (``int8_dots``, over an int8 or int4 cache; JAX
+``sampler.py:306-391``): q is quantized per query head
+(``quantize_rows``), a cache score is the exact int32 product ``q8 . k8``
+times ``scale * q_scale * k_scale``, the current position's score stays
+``q . k_cur * scale``, one float32 softmax; then for each quantization group
+of cache rows the probabilities times ``v_scale`` are quantized
+(``quantize_rows`` over the group's rows: rows at or past ``pos`` count as
+0, the 1e-8 floor holds), multiplied with the int8 values in int32 and
+rescaled, and the current position's ``p * v_cur`` is added last. The groups
+are the JAX package's chunk buffers: ``chunk_starts``, the first cache row
+of each group in increasing order (rows below the second start belong to
+the first group; ``[0]`` is one group), an int32 tensor on ``q``'s device
+that the kernel reads, so the launch is the same at every step; it is
+required with ``int8_dots``. The groups change the numbers: the quantization scale of a
+probability is its group's. On the card a kernel of its own (the softmax's
+max and sum must be known before any int8 probability exists): one block
+per (batch row, KV head), see ``csrc/decode_attention.cu``.
+
 Layouts (JAX's, kept at the public function):
   q, k_cur, v_cur  [B, H, hd] / [B, H_kv, hd]
   k_cache, v_cache [B, S, H_kv, hd]  (one layer of the [L, B, S, H_kv, hd]
-                                      cache; stale at positions >= pos)
-  k_scale, v_scale [B, S, H_kv]      (int8 cache only)
+                                      cache; stale at positions >= pos;
+                                      hd / 2 int8 bytes for the int4 cache)
+  k_scale, v_scale [B, S, H_kv]      (int8 and int4 caches)
+  chunk_starts     [G] int32         (int8_dots only)
 """
 
 from __future__ import annotations
@@ -44,23 +72,32 @@ from typing import Union
 import torch
 
 from vaura_tpu_torch.kernels import build
+from vaura_tpu_torch.ops.quantization import quantize_rows, unpack_int4
 
-# launches of the CUDA kernel (one per call on a CUDA tensor), how many of
-# them took ``pos`` from device memory and how many read int8 tiles
+# launches of the CUDA kernels (one per call on a CUDA tensor), how many of
+# them took ``pos`` from device memory, how many read int8 tiles, int4 tiles
+# and how many took the int8 x int8 products (over either cache)
 launches = 0
 device_pos_launches = 0
 int8_launches = 0
+int4_launches = 0
+int8_dots_launches = 0
 
 TILE = 64          # cache positions per block
 MAX_CLUSTER = 8    # blocks of one cluster (the portable limit)
 SMEM_LIMIT = 227 * 1024
+MAX_GROUPS = 64    # quantization groups the int8 x int8 kernel takes
 _SUPPORTED_HD = (32, 64, 96, 128)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIG = {
     "vt_decode_attention": [_P] * 6 + [_I] * 6 + [_P, _P],
     "vt_decode_attention_int8": [_P] * 8 + [_I] * 6 + [_P, _P],
-    "vt_decode_attention_empty": [_I] * 8 + [_P],
+    "vt_decode_attention_int4": [_P] * 8 + [_I] * 6 + [_P, _P],
+    "vt_decode_attention_dots": [_P] * 9 + [_I] * 8 + [_P, _P],
+    "vt_decode_attention_empty": [_I] * 9 + [_P],
 }
+# the entry point of each kind of cache, and its code for the empty launch
+_KINDS = {"bf16": 0, "int8": 1, "int4": 2, "dots": 3}
 
 Pos = Union[int, torch.Tensor]
 
@@ -76,40 +113,66 @@ def launch_plan(S: int, pos: int, pos_on_device: bool) -> dict:
             "tiles_per_block": -(-tiles // cluster)}
 
 
-def tile_row_bytes(hd: int, int8: bool = False) -> int:
-    """Bytes between two rows of a tile in shared memory: an odd multiple of
-    32, so that the two lanes of a row read without bank conflicts (bf16
-    rows padded by 32 bytes, int8 rows by 32 where ``hd / 32`` is even)."""
-    if int8:
+def tile_row_bytes(hd: int, cache_bits: int = 16) -> int:
+    """Bytes between two rows of a tile in shared memory. bf16 and int8
+    rows: an odd multiple of 32, so that the two lanes of a row, each taking
+    every other 16-byte vector, read without bank conflicts (bf16 rows
+    padded by 32 bytes, int8 rows by 32 where ``hd / 32`` is even). Int4
+    rows (``hd / 2`` bytes) are read whole by both lanes: padded by 16 bytes
+    where ``hd / 32`` is a multiple of 4, so that the four rows of a quarter
+    warp meet distinct banks."""
+    if cache_bits == 8:
         return hd + (0 if (hd // 32) % 2 else 32)
+    if cache_bits == 4:
+        return hd // 2 + (16 if (hd // 32) % 4 == 0 else 0)
     return 2 * hd + 32
 
 
 def smem_bytes(hd: int, rep: int, cluster: int = MAX_CLUSTER,
-               int8: bool = False) -> int:
+               cache_bits: int = 16) -> int:
     """Dynamic shared memory of one block: the K and V tiles (``TILE`` rows
-    and the current position's, which is bf16 in an int8 tile too), two
-    mbarriers and, per query head of the KV head (``rep`` of them), q, the
-    four warps' partials of a tile, the block's running partial and rank 0's
-    inbox of one partial per block of the cluster. Mirrors ``DecodeSmem`` in
-    ``csrc/decode_attention.cu``."""
+    and the current position's, which is bf16 in an int8 or int4 tile too),
+    two mbarriers and, per query head of the KV head (``rep`` of them), q,
+    the four warps' partials of a tile, the block's running partial and
+    rank 0's inbox of one partial per block of the cluster. Mirrors
+    ``DecodeSmem`` in ``csrc/decode_attention.cu``."""
     partial = hd + 2
     floats = rep * (hd + 4 * partial + partial + 2 + cluster * partial)
-    rb = tile_row_bytes(hd, int8)
-    tile = TILE * rb + 2 * hd if int8 else (TILE + 1) * rb
+    rb = tile_row_bytes(hd, cache_bits)
+    tile = TILE * rb + 2 * hd if cache_bits != 16 else (TILE + 1) * rb
     return 2 * tile + 16 + 4 * floats
 
 
+def dots_smem_bytes(hd: int, rep: int, S: int, groups: int) -> int:
+    """Dynamic shared memory of one block of the int8 x int8 kernel: q and
+    the probabilities of its ``rep`` query heads as int8 and float32 (``S``
+    rows rounded up to 4), each group's scale and max, the integer sums
+    ``[rep, groups, hd]``, two floats a head and the group starts, each
+    part rounded up to 16 bytes. Mirrors ``DotsLayout``."""
+    up = lambda n: -(-n // 16) * 16
+    sp = max(4, -(-S // 4) * 4)
+    return (up(rep * hd) + up(rep * sp) + up(4 * rep * hd) + up(4 * rep * sp)
+            + up(4 * rep * groups) + up(8 * rep) + up(4 * rep * groups * hd)
+            + up(4 * rep * groups) + up(4 * groups))
+
+
 def decode_attention_plain(q, k_cache, v_cache, k_cur, v_cur, pos: Pos,
-                           k_scale=None, v_scale=None):
+                           k_scale=None, v_scale=None, *, cache_bits: int = 8,
+                           int8_dots: bool = False, chunk_starts=None):
     """Dense reference: float32 scores over the positions ``< pos`` and the
     current one, one softmax, float32 value sum, cast to ``q.dtype``. A
     ``pos`` tensor is read back to the host and clamped as the kernel
-    clamps it. With ``k_scale``/``v_scale`` the cache is int8 (see the
-    module docstring)."""
+    clamps it. With ``k_scale``/``v_scale`` the cache is int8 (int4 with
+    ``cache_bits=4``), and ``int8_dots`` takes the int8 x int8 products over
+    ``chunk_starts``' groups (see the module docstring)."""
     if isinstance(pos, torch.Tensor):
         pos = max(0, min(int(pos.item()), k_cache.shape[1]))
     if k_scale is not None:
+        if cache_bits == 4:
+            k_cache, v_cache = unpack_int4(k_cache), unpack_int4(v_cache)
+        if int8_dots:
+            return _plain_dots(q, k_cache, v_cache, k_cur, v_cur, pos,
+                               k_scale, v_scale, chunk_starts)
         return _plain_int8(q, k_cache, v_cache, k_cur, v_cur, pos, k_scale,
                            v_scale)
     B, H, hd = q.shape
@@ -154,6 +217,61 @@ def _plain_int8(q, k_cache, v_cache, k_cur, v_cur, pos: int, k_scale,
     return out.to(q.dtype)
 
 
+def group_bounds(chunk_starts, pos: int) -> list:
+    """The row ranges ``[lo, hi)`` of the quantization groups below ``pos``:
+    group ``g`` runs from its start to the next one, the first from row 0,
+    the last to ``pos``; empty ranges are kept (they add nothing)."""
+    starts = [int(x) for x in (chunk_starts.tolist()
+                               if isinstance(chunk_starts, torch.Tensor)
+                               else chunk_starts)]
+    edges = [0] + [min(max(x, 0), pos) for x in starts[1:]] + [pos]
+    return list(zip(edges[:-1], edges[1:]))
+
+
+def dots_probs(q, k_cache, k_cur, pos: int, k_scale):
+    """The float32 softmax of the int8 x int8 scores, ``[B, H, pos + 1]``
+    (the cache rows below ``pos``, then the current position), as
+    ``int8_dots`` computes it; ``k_cache`` int8 (an int4 cache unpacked)."""
+    rep = q.shape[1] // k_cache.shape[2]
+    rp = lambda t, dim: t.repeat_interleave(rep, dim) if rep != 1 else t
+    scale = q.shape[-1] ** -0.5
+    q8, q_s = quantize_rows(q)                            # [B, H, hd], [B, H]
+    kc = rp(k_cache[:, :pos].to(torch.int32), 2)          # [B, pos, H, hd]
+    ks = rp(k_scale[:, :pos].float(), 2).transpose(1, 2)  # [B, H, pos]
+    kcur = rp(k_cur.float(), 1)
+    dots = (q8.to(torch.int32)[:, None] * kc).sum(-1).transpose(1, 2)
+    scores = torch.cat(
+        [dots.float() * (scale * q_s)[..., None] * ks,
+         (q.float() * kcur).sum(-1, keepdim=True) * scale],
+        dim=-1,
+    )
+    e = torch.exp(scores - scores.amax(-1, keepdim=True))
+    return e / e.sum(-1, keepdim=True)
+
+
+def _plain_dots(q, k_cache, v_cache, k_cur, v_cur, pos: int, k_scale,
+                v_scale, chunk_starts):
+    """The JAX package's ``int8_dots`` einsums, in its order: integer
+    products exact in int32, float32 elsewhere, the probabilities quantized
+    per group (``group_bounds``)."""
+    rep = q.shape[1] // k_cache.shape[2]
+    rp = lambda t, dim: t.repeat_interleave(rep, dim) if rep != 1 else t
+    vc = rp(v_cache[:, :pos].to(torch.int32), 2)          # [B, pos, H, hd]
+    vs = rp(v_scale[:, :pos].float(), 2).transpose(1, 2)  # [B, H, pos]
+    vcur = rp(v_cur.float(), 1)
+    probs = dots_probs(q, k_cache, k_cur, pos, k_scale)
+    out = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    for lo, hi in group_bounds(chunk_starts, pos):
+        if hi <= lo:
+            continue
+        p8, p_s = quantize_rows(probs[..., lo:hi] * vs[..., lo:hi])
+        acc = (p8.to(torch.int32)[..., None]
+               * vc[:, lo:hi].transpose(1, 2)).sum(2)     # [B, H, hd]
+        out = out + acc.float() * p_s[..., None]
+    out = out + probs[..., pos:] * vcur
+    return out.to(q.dtype)
+
+
 def _check_pos(pos: Pos, S: int, device) -> None:
     if isinstance(pos, torch.Tensor):
         if pos.dtype != torch.int32:
@@ -170,17 +288,26 @@ def _check_pos(pos: Pos, S: int, device) -> None:
 
 
 def _check(q, k_cache, v_cache, k_cur, v_cur, pos: Pos, k_scale=None,
-           v_scale=None):
+           v_scale=None, cache_bits: int = 8, int8_dots: bool = False,
+           chunk_starts=None):
     B, H, hd = q.shape
     _, S, Hkv, hd_c = k_cache.shape
-    int8 = k_scale is not None
-    cache_dtype = torch.int8 if int8 else torch.bfloat16
+    quant = k_scale is not None
+    if cache_bits not in (8, 4):
+        raise ValueError(f"decode_attention: cache_bits {cache_bits} not in "
+                         "(8, 4)")
+    if int8_dots and not quant:
+        raise ValueError("decode_attention: int8_dots needs a quantized cache "
+                         "(k_scale, v_scale)")
+    cache_dtype = torch.int8 if quant else torch.bfloat16
     tensors = [("q", q, torch.bfloat16), ("k_cache", k_cache, cache_dtype),
                ("v_cache", v_cache, cache_dtype), ("k_cur", k_cur, torch.bfloat16),
                ("v_cur", v_cur, torch.bfloat16)]
-    if int8 or v_scale is not None:
+    if quant or v_scale is not None:
         tensors += [("k_scale", k_scale, torch.float32),
                     ("v_scale", v_scale, torch.float32)]
+    if int8_dots:
+        tensors += [("chunk_starts", chunk_starts, torch.int32)]
     for name, t, dtype in tensors:
         if t is None:
             raise ValueError(f"decode_attention: {name} is missing")
@@ -191,12 +318,13 @@ def _check(q, k_cache, v_cache, k_cur, v_cur, pos: Pos, k_scale=None,
                              f"got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"decode_attention: {name} must be contiguous")
-    if hd not in _SUPPORTED_HD or hd_c != hd:
+    packed = quant and cache_bits == 4
+    if hd not in _SUPPORTED_HD or hd_c != (hd // 2 if packed else hd):
         raise ValueError(f"decode_attention: head dim {hd} not in "
-                         f"{_SUPPORTED_HD}")
+                         f"{_SUPPORTED_HD}, or a cache row of {hd_c} values")
     if v_cache.shape != k_cache.shape or k_cache.shape[0] != B:
         raise ValueError("decode_attention: cache shapes disagree")
-    if int8 and (k_scale.shape != (B, S, Hkv) or v_scale.shape != (B, S, Hkv)):
+    if quant and (k_scale.shape != (B, S, Hkv) or v_scale.shape != (B, S, Hkv)):
         raise ValueError("decode_attention: k_scale/v_scale must be "
                          "[B, S, H_kv]")
     if k_cur.shape != (B, Hkv, hd) or v_cur.shape != (B, Hkv, hd):
@@ -205,9 +333,23 @@ def _check(q, k_cache, v_cache, k_cur, v_cur, pos: Pos, k_scale=None,
         raise ValueError(f"decode_attention: H={H} not a multiple of "
                          f"H_kv={Hkv}")
     _check_pos(pos, S, q.device)
+    if int8_dots:
+        groups = chunk_starts.numel()
+        if chunk_starts.dim() != 1:
+            raise ValueError("decode_attention: chunk_starts must be 1-D")
+        if not 1 <= groups <= MAX_GROUPS:
+            raise ValueError(f"decode_attention: {groups} groups, the kernel "
+                             f"takes 1 .. {MAX_GROUPS}")
+        if dots_smem_bytes(hd, H // Hkv, S, groups) > SMEM_LIMIT:
+            raise ValueError(
+                f"decode_attention: int8_dots over {S} rows, {groups} groups "
+                f"and {H // Hkv} query heads per KV head of dim {hd} does not "
+                "fit a block's shared memory")
+        return
     plan = launch_plan(S, 0 if isinstance(pos, torch.Tensor) else int(pos),
                        isinstance(pos, torch.Tensor))
-    if smem_bytes(hd, H // Hkv, plan["cluster"], int8) > SMEM_LIMIT:
+    if smem_bytes(hd, H // Hkv, plan["cluster"],
+                  cache_bits if quant else 16) > SMEM_LIMIT:
         raise ValueError(
             f"decode_attention: {H // Hkv} query heads per KV head of dim "
             f"{hd} over a cluster of {plan['cluster']} blocks do not fit a "
@@ -215,53 +357,81 @@ def _check(q, k_cache, v_cache, k_cur, v_cur, pos: Pos, k_scale=None,
 
 
 def decode_attention_cuda(q, k_cache, v_cache, k_cur, v_cur, pos: Pos,
-                          k_scale=None, v_scale=None):
-    """Launch the kernel (its int8 instantiation when ``k_scale`` and
-    ``v_scale`` are given); raises on any input outside its contract."""
-    global launches, device_pos_launches, int8_launches
-    _check(q, k_cache, v_cache, k_cur, v_cur, pos, k_scale, v_scale)
+                          k_scale=None, v_scale=None, *, cache_bits: int = 8,
+                          int8_dots: bool = False, chunk_starts=None):
+    """Launch the kernel: its int8 or int4 instantiation when ``k_scale``
+    and ``v_scale`` are given (``cache_bits``), the int8 x int8 kernel with
+    ``int8_dots``; raises on any input outside its contract."""
+    global launches, device_pos_launches, int8_launches, int4_launches
+    global int8_dots_launches
+    _check(q, k_cache, v_cache, k_cur, v_cur, pos, k_scale, v_scale,
+           cache_bits, int8_dots, chunk_starts)
     B, H, hd = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     on_device = isinstance(pos, torch.Tensor)
-    int8 = k_scale is not None
+    quant = k_scale is not None
     out = torch.empty_like(q)
     lib = build.load("decode_attention", _SIG)
-    scales = (build.ptr(k_scale), build.ptr(v_scale)) if int8 else ()
-    fn = lib.vt_decode_attention_int8 if int8 else lib.vt_decode_attention
-    rc = fn(
-        build.ptr(q), build.ptr(k_cache), build.ptr(v_cache), *scales,
-        build.ptr(k_cur), build.ptr(v_cur), build.ptr(out), B, H, Hkv, S, hd,
-        0 if on_device else int(pos), build.ptr(pos) if on_device else None,
-        build.stream_ptr(q.device),
-    )
+    pos_args = (0 if on_device else int(pos),
+                build.ptr(pos) if on_device else None,
+                build.stream_ptr(q.device))
+    if int8_dots:
+        rc = lib.vt_decode_attention_dots(
+            build.ptr(q), build.ptr(k_cache), build.ptr(v_cache),
+            build.ptr(k_scale), build.ptr(v_scale), build.ptr(k_cur),
+            build.ptr(v_cur), build.ptr(out), build.ptr(chunk_starts),
+            chunk_starts.numel(), B, H, Hkv, S, hd, cache_bits, *pos_args)
+    else:
+        scales = (build.ptr(k_scale), build.ptr(v_scale)) if quant else ()
+        fn = (lib.vt_decode_attention if not quant else
+              lib.vt_decode_attention_int4 if cache_bits == 4 else
+              lib.vt_decode_attention_int8)
+        rc = fn(build.ptr(q), build.ptr(k_cache), build.ptr(v_cache), *scales,
+                build.ptr(k_cur), build.ptr(v_cur), build.ptr(out), B, H, Hkv,
+                S, hd, *pos_args)
     build.check(lib, rc, "decode_attention")
     launches += 1
     device_pos_launches += on_device
-    int8_launches += int8
+    int8_dots_launches += int8_dots
+    int8_launches += quant and not int8_dots and cache_bits == 8
+    int4_launches += quant and not int8_dots and cache_bits == 4
     return out
 
 
 def empty_launch(B: int, H: int, Hkv: int, S: int, hd: int, pos: int,
-                 pos_on_device: bool, device, int8: bool = False) -> None:
+                 pos_on_device: bool, device, kind: str = "bf16",
+                 groups: int = 1) -> None:
     """An empty kernel with the grid, cluster and shared memory
-    ``decode_attention_cuda`` would launch for these sizes: a yardstick for
-    what one launch costs. Not counted as a launch of the kernel."""
+    ``decode_attention_cuda`` would launch for these sizes and this kind of
+    cache (``bf16``, ``int8``, ``int4`` or ``dots``: the int8 x int8 kernel
+    over ``groups`` groups): a yardstick for what one launch costs. Not
+    counted as a launch of the kernel."""
     lib = build.load("decode_attention", _SIG)
     rc = lib.vt_decode_attention_empty(B, H, Hkv, S, hd, int(pos),
-                                       int(pos_on_device), int(int8),
-                                       build.stream_ptr(device))
+                                       int(pos_on_device), _KINDS[kind],
+                                       int(groups), build.stream_ptr(device))
     build.check(lib, rc, "decode_attention_empty")
 
 
 def decode_attention(q, k_cache, v_cache, k_cur, v_cur, pos: Pos,
-                     k_scale=None, v_scale=None):
+                     k_scale=None, v_scale=None, *, cache_bits: int = 8,
+                     int8_dots: bool = False, chunk_starts=None):
     """Attention of position ``pos`` (an ``int`` or a one-element int32
     tensor on ``q``'s device) over the cache prefix and itself, over an int8
-    cache when ``k_scale``/``v_scale`` are given: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    (or, with ``cache_bits=4``, int4) cache when ``k_scale``/``v_scale`` are
+    given, with the int8 x int8 products over ``chunk_starts``' groups when
+    ``int8_dots``: the CUDA kernels for CUDA tensors, the plain version for
+    CPU tensors."""
+    kw = dict(cache_bits=cache_bits, int8_dots=int8_dots,
+              chunk_starts=chunk_starts)
     if q.is_cuda:
         return decode_attention_cuda(q, k_cache, v_cache, k_cur, v_cur, pos,
-                                     k_scale, v_scale)
+                                     k_scale, v_scale, **kw)
     _check_pos(pos, k_cache.shape[1], q.device)
+    if int8_dots and k_scale is None:
+        raise ValueError("decode_attention: int8_dots needs a quantized cache "
+                         "(k_scale, v_scale)")
+    if int8_dots and chunk_starts is None:
+        raise ValueError("decode_attention: int8_dots needs chunk_starts")
     return decode_attention_plain(q, k_cache, v_cache, k_cur, v_cur, pos,
-                                  k_scale, v_scale)
+                                  k_scale, v_scale, **kw)

@@ -2,9 +2,8 @@
 
 Counterpart of ``vaura_tpu/ops/quantization.py`` (``quantize_weight``,
 ``quantize_sampler_params``, ``quant_dense``, ``quantize_kv``,
-``quantize_rows``, ``quantize_encoder_params``); the int4 cache and the
-int8 x int8 attention products (``cache_bits=4``, ``int8_dots``) are not
-ported.
+``quantize_rows``, ``quantize_encoder_params``, ``quantize_kv4``,
+``unpack_int4``).
 
 Weights: symmetric per output channel, ``W ~ q * scale`` with ``scale =
 max|W| / 127`` over the input axis, in the port's ``[out, in]`` layout
@@ -12,7 +11,9 @@ max|W| / 127`` over the input axis, in the port's ``[out, in]`` layout
 symmetric int8 over ``head_dim`` with one float32 scale per (position, KV
 head); the scales fold outside the attention products (scores times
 ``k_scale``, probabilities times ``v_scale``). Rounding is half to even, as
-``jnp.round``.
+``jnp.round``. The int4 cache (``cache_bits=4``): symmetric in [-7, 7] with
+``scale = max|x| / 7``, two values a byte, half-split: byte ``j`` holds
+value ``j`` in its low nibble and value ``j + hd/2`` in its high nibble.
 
 The int8 encoder (``MotionFormerConfig.quantize``): the divided blocks'
 matmul weights and the MLP's as above, and each activation row quantized on
@@ -107,6 +108,24 @@ def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 over the last axis (head_dim): ``(q int8, scale
     float32 [...])`` with ``x ~ q * scale[..., None]``."""
     return _symmetric(x, dim=-1)
+
+
+def quantize_kv4(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int4 over the last axis, two values a byte: ``(packed int8
+    [..., hd/2], scale float32 [...])``; packed byte ``j`` holds value ``j``
+    in its low nibble and value ``j + hd/2`` in its high nibble."""
+    hd = x.shape[-1]
+    if hd % 2:
+        raise ValueError(f"quantize_kv4: head_dim {hd} is odd")
+    q, scale = _symmetric(x, dim=-1, levels=7.0)
+    lo, hi = q[..., :hd // 2], q[..., hd // 2:]
+    return (lo & 0x0F) | (hi << 4), scale
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``quantize_kv4``'s packing: int8 ``[..., hd/2]`` -> int8
+    ``[..., hd]``, both nibbles sign-extended (the low ones first)."""
+    return torch.cat([(packed << 4) >> 4, packed >> 4], dim=-1)
 
 
 def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,7 +1,8 @@
 """Where the time of one flagship generation goes on the card.
 
     python3 -m vaura_tpu_torch.profile_generate [--batch 2] [--out chiprun_out]
-        [--quantize-cache] [--quantize-weights] [--long {reprefill,stream_kv}]
+        [--quantize-cache] [--cache-bits {8,4}] [--int8-dots]
+        [--quantize-weights] [--long {reprefill,stream_kv}]
 
 Runs the flagship path (``flagship.py``: frames -> codes -> audio, CFG 6.0,
 top-k 128, 221 tokens) once to warm up and once timed with CUDA events per
@@ -9,7 +10,9 @@ stage, then once more under ``torch.profiler`` and reports, per stage, the
 wall time, the device time summed over kernels, the device busy share and
 the launches, plus the kernels that take the most device time.
 ``--quantize-cache`` runs it with the int8 KV cache (the JAX package's
-serving default), ``--quantize-weights`` with int8 sampler weights. ``--long``
+serving default), ``--cache-bits 4`` with the int4 cache, ``--int8-dots``
+with the int8 x int8 attention products (both imply a quantized cache),
+``--quantize-weights`` with int8 sampler weights. ``--long``
 runs ``flagship.py``'s long-horizon configuration instead (``bench.py``'s
 long-mode defaults: 10.24 s from 16 segments of frames, ``generate_long`` at
 a 0.64 s stride or ``generate_long_kv`` with a window of 4 x 56 steps). Writes
@@ -103,14 +106,19 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--out", default="chiprun_out")
     ap.add_argument("--quantize-cache", action="store_true")
+    ap.add_argument("--cache-bits", type=int, choices=[8, 4], default=8)
+    ap.add_argument("--int8-dots", action="store_true")
     ap.add_argument("--quantize-weights", action="store_true")
     ap.add_argument("--long", choices=["reprefill", "stream_kv"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_generate needs a CUDA card")
 
-    overrides = {"quantize_cache": args.quantize_cache,
-                 "quantize_weights": args.quantize_weights}
+    quantize_cache = (args.quantize_cache or args.cache_bits == 4
+                      or args.int8_dots)
+    overrides = {"quantize_cache": quantize_cache,
+                 "quantize_weights": args.quantize_weights,
+                 "cache_bits": args.cache_bits, "int8_dots": args.int8_dots}
     if args.long:
         overrides.update(LONG_SAMPLER)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -172,7 +180,8 @@ def main() -> int:
             system.decode_audio(out["codes"])
             torch.cuda.synchronize()
 
-    mode = ("int8_cache" if args.quantize_cache else "") + (
+    mode = (f"int{args.cache_bits}_cache" if quantize_cache else "") + (
+        "_int8_dots" if args.int8_dots else "") + (
         "_int8_weights" if args.quantize_weights else "")
     if args.long:
         mode = f"{mode}_long_{args.long}"

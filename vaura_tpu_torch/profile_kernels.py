@@ -53,7 +53,7 @@ STAMPS: Dict[str, Tuple[str, str, List[Tuple[str, str]]]] = {
         [
             ("start", "  // pos and the block's query heads (scaled, in float32) are requested"),
             ("pos and q requested, barriers set up, q in shared memory",
-             "  const size_t row = static_cast<size_t>(Hkv) * HD;  // stride of a position"),
+             "  const size_t row = static_cast<size_t>(Hkv) * RD;  // bytes between positions"),
             ("tile requested", "  int phase = 0;"),
             ("tile landed", "    if (last) cluster_wait();  // rank 0 has started"),
             ("cluster barrier", "    // a warp's 16 rows: two lanes a row"),

@@ -36,8 +36,9 @@ Usage::
 The server runs on ``cuda`` unless ``trainer.platform=cpu``, on one card:
 with several cards visible (``mesh_serving``) it says so in a log line.
 ``aot_export`` / ``aot_load`` raise (eager PyTorch has no graph to export);
-``compilation_cache_dir`` is logged and ignored; ``decode_buckets`` is
-accepted and has no effect (``VauraSystem.generate_tokens``). A LoRA
+``compilation_cache_dir`` is logged and ignored; ``decode_buckets`` (8 by
+default) matters only under ``int8_dots``, whose probabilities are quantized
+per chunk (``VauraSystem.generate_tokens``). A LoRA
 experiment serves its adapters merged into its base (the run's ``frozen/``
 save, else its ``finetune.init_from``:
 ``scripts/generate.py::load_lora_base_``); a reload

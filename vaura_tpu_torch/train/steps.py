@@ -40,7 +40,8 @@ def split_params(system: VauraSystem
 
 def array_batch(batch: dict) -> dict:
     """The array leaves the step functions consume."""
-    return {k: batch[k] for k in ("frames", "audio", "codes") if k in batch}
+    return {k: batch[k] for k in ("frames", "audio", "codes", "vis_feats")
+            if k in batch}
 
 
 def batch_to_device(batch: dict, device, non_blocking: bool = False) -> dict:
@@ -83,8 +84,9 @@ def prefetch_to_device(iterator, size: int = 2, device=None):
 
 def make_train_step(system: VauraSystem) -> Callable:
     """Returns ``train_step(state, batch, generator=None, clock=None) ->
-    (state, metrics)``. ``batch`` holds ``frames`` and ``audio`` (or
-    ``codes``); the dropout masks come from ``generator``. The parameters
+    (state, metrics)``. ``batch`` holds ``frames`` (or visual features
+    ``vis_feats``) and ``audio`` (or ``codes``); the dropout masks come from
+    ``generator``. The parameters
     in ``state`` are updated in place. ``clock.mark(name)``, when given, is
     called after the forward, the backward and the optimizer."""
 
@@ -94,7 +96,7 @@ def make_train_step(system: VauraSystem) -> Callable:
         mark = clock.mark if clock is not None else (lambda name: None)
         loss, aux = system.train_forward(
             batch.get("frames"), batch.get("audio"), generator, train=True,
-            codes=batch.get("codes"))
+            vis_feats=batch.get("vis_feats"), codes=batch.get("codes"))
         mark("forward")
         names = list(state.params)
         grads = torch.autograd.grad(loss, [state.params[k] for k in names],
@@ -122,7 +124,7 @@ def make_eval_step(system: VauraSystem) -> Callable:
         batch = array_batch(batch)
         loss, aux = system.train_forward(
             batch.get("frames"), batch.get("audio"), None, train=False,
-            codes=batch.get("codes"))
+            vis_feats=batch.get("vis_feats"), codes=batch.get("codes"))
         return {"loss": loss, "loss_per_codebook": aux["loss_per_codebook"]}
 
     return eval_step
