@@ -13,8 +13,10 @@ result line):
              PyTorch library call's time where one computes the same
              function, and its bound (bytes over 3.35 TB/s or operations
              over 989 TFLOP/s, the H100 SXM's published peaks). Decode
-             attention (one launch: the tiles of a cache are the blocks of a
-             thread-block cluster) is held with ``pos`` on the host and in
+             attention (one launch, in the form the plan picks from the
+             shapes: the tiles of a cache as the blocks of a thread-block
+             cluster, or one block per (batch row, KV head) at serving
+             batches) is held in both forms with ``pos`` on the host and in
              device memory, with GQA and on a 1,024-position cache, and
              timed beside an empty kernel of the same launch; its int8
              instantiation (int8 cache, per-(position, head) scales) the
@@ -23,7 +25,8 @@ result line):
              int4 instantiation (packed nibble tiles) and the int8 x int8
              kernel (over the int8 and the int4 cache, in one quantization
              group and in the flagship's 8) the same way, beside the int8 and
-             bf16 kernels, SDPA on the bf16 values and an empty launch; the
+             bf16 kernels, SDPA on the bf16 values and an empty launch; each
+             decode kernel's two forms also timed at B2 = 4, 32, 64, 256; the
              encoder attention sublayer (three launches: row statistics,
              group attention, projection) also at B' = 2 and on ragged
              packs; the MLP sublayer (three launches: layer norm, fc1, fc2)
@@ -127,14 +130,17 @@ result line):
  14. quant_modes  the last sampler modes at full width and depth, batch 2:
              generation with the int4 cache, with the int8 x int8
              products and with both (5,496 launches of the mode's kernel,
-             no other decode kernel), a 150-token prompt through
+             no other decode kernel, all in the cluster form), the products
+             at a serving batch of 8 clips (every launch in the serving
+             form), a 150-token prompt through
              ``prefill`` and ``generate_long_kv`` (5.12 s, window 4 x 56,
              one sink chunk) under int4 + products, the generate action
              from a config written to a temporary directory
              (``generate_vgg.yaml`` with the flagship model and
              ``cache_bits: 4``) with ``quantize=true``, and each mode's
              decode logits card against CPU at cut depth within
-             ``TOL_REF_REL`` (``quant_modes: {...}``; WAVs under
+             ``TOL_REF_REL``, the card's two forms on one cache within
+             ``TOL_DECODE`` (``quant_modes: {...}``; WAVs under
              ``chiprun_out/quant_modes/``).
  15. quant_quality  ``scripts/int8_margin_check.py`` (int4 cache + int8
              products) and ``scripts/quant_quality_fad.py`` at ``--mid``
@@ -262,22 +268,27 @@ def check_decode_attention(gen):
     rnd = lambda *s: torch.randn(*s, generator=gen, device=dev, dtype=bf)
 
     def hold(tag, q, kc, vc, kcur, vcur, positions):
-        """The kernel with ``pos`` as an int and as a device scalar against
-        the plain version; the two forms must agree to the last bit."""
+        """The kernel in each form with ``pos`` as an int and as a device
+        scalar against the plain version; ``pos`` on the host and in device
+        memory must agree to the last bit."""
         pos_t = torch.arange(kc.shape[1] + 1, dtype=torch.int32, device=dev)
         worst = 0.0
-        for pos in positions:
-            want = da.decode_attention_plain(q, kc, vc, kcur, vcur, pos)
-            got = da.decode_attention(q, kc, vc, kcur, vcur, pos)
-            got_t = da.decode_attention(q, kc, vc, kcur, vcur,
-                                        pos_t[pos:pos + 1])
-            torch.cuda.synchronize()
-            e = max(max_err(got, want), max_err(got_t, want))
-            log(f"[decode_attention] {tag} pos={pos:4d} max_abs_err={e:.3e}")
-            if not torch.equal(got, got_t):
-                raise AssertionError(f"{tag} pos={pos}: pos on the host and "
-                                     "in device memory give different outputs")
-            worst = max(worst, e)
+        for form in da.FORMS:
+            for pos in positions:
+                want = da.decode_attention_plain(q, kc, vc, kcur, vcur, pos)
+                got = da.decode_attention_cuda(q, kc, vc, kcur, vcur, pos,
+                                               form=form)
+                got_t = da.decode_attention_cuda(q, kc, vc, kcur, vcur,
+                                                 pos_t[pos:pos + 1], form=form)
+                torch.cuda.synchronize()
+                e = max(max_err(got, want), max_err(got_t, want))
+                log(f"[decode_attention] {tag} {form} pos={pos:4d} "
+                    f"max_abs_err={e:.3e}")
+                if not torch.equal(got, got_t):
+                    raise AssertionError(
+                        f"{tag} {form} pos={pos}: pos on the host and in "
+                        "device memory give different outputs")
+                worst = max(worst, e)
         return worst
 
     # one cache per layer so a sweep streams from HBM as the decode loop does
@@ -338,6 +349,9 @@ def check_decode_attention(gen):
     log(f"[decode_attention] ms per call: pos in device memory {ms:.5f}, pos "
         f"on the host {ms_host_pos:.5f}; an empty kernel of the same launch "
         f"{floor_ms:.5f} / {floor_host_pos:.5f}")
+    del kc, vc, cur
+    torch.cuda.empty_cache()
+    form_ms = _form_times(gen, "bf16", FORM_B2)
     return {
         "name": "decode_attention", "route": "cuda",
         "source": "vaura_tpu_torch/csrc/decode_attention.cu",
@@ -346,11 +360,67 @@ def check_decode_attention(gen):
         "bound_ms": bound, "bound_by": "bytes", "library_ms": library_ms,
         "library": "F.scaled_dot_product_attention",
         "ms_host_pos": ms_host_pos, "empty_launch_ms": floor_ms,
-        "empty_launch_ms_host_pos": floor_host_pos,
+        "empty_launch_ms_host_pos": floor_host_pos, "form_ms": form_ms,
         "launches_per_call": 1,
         "shape": f"B2={B} H={H} hd={hd} S={S}, mean over pos 0..{S - 2}, pos "
                  "read from device memory",
     }
+
+
+# the batches at which both forms of each decode kernel are timed (the plan
+# picks the cluster form at the first, the serving form at the last)
+FORM_B2 = (4, 32, 64, 256)
+
+
+def _form_times(gen, kind, b2s, H=16, hd=96, S=230, L=24):
+    """ms a call of both forms of one decode kernel (``bf16``, ``int8``,
+    ``int4`` or ``dots``: the int8 x int8 kernel over the int8 cache in the
+    flagship's 8 groups) at each B2 of ``b2s``, the mean over the main path's
+    positions 0 .. 228 read from device memory, layers cycled over ``L``
+    caches: ``{B2: {"plan": form, "cluster": ms, "serve": ms}}``."""
+    import torch
+
+    from vaura_tpu_torch.ops import decode_attention as da
+
+    groups8 = torch.tensor(dots_groups_s230(), dtype=torch.int32,
+                           device="cuda")
+    pos_t = torch.arange(S, dtype=torch.int32, device="cuda")
+    positions = range(S - 1)
+    bits = {"bf16": "bf16", "int8": 8, "int4": 4, "dots": 8}[kind]
+    out = {}
+    for B2 in b2s:
+        rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda",
+                                     dtype=torch.bfloat16)
+        q, k1, v1 = rnd(B2, H, hd), rnd(B2, H, hd), rnd(B2, H, hd)
+        widths = () if bits == "bf16" else (bits,)
+        kc = _quant_caches(gen, (L, B2, S, H, hd), widths)
+        vc = _quant_caches(gen, (L, B2, S, H, hd), widths)
+        plan = da.kernel_plan(B2, H, H, S, hd, 0, True, kind=kind,
+                              groups=groups8.numel())
+        row = {"plan": plan["form"]}
+        for form in da.FORMS:
+            if bits == "bf16":
+                call = lambda i, p: da.decode_attention_cuda(
+                    q, kc["bf16"][i], vc["bf16"][i], k1, v1, pos_t[p:p + 1],
+                    form=form)
+            else:
+                call = lambda i, p: da.decode_attention_cuda(
+                    q, kc[bits][0][i], vc[bits][0][i], k1, v1, pos_t[p:p + 1],
+                    kc[bits][1][i], vc[bits][1][i], cache_bits=bits,
+                    int8_dots=kind == "dots",
+                    chunk_starts=groups8 if kind == "dots" else None,
+                    form=form)
+
+            def run():
+                for p in positions:
+                    call(p % L, p)
+            row[form] = cuda_ms(run, 10) / len(positions)
+        out[str(B2)] = row
+        log(f"[{kind} forms] B2={B2:3d}: cluster {row['cluster']:.5f} ms, "
+            f"serve {row['serve']:.5f} ms; the plan takes {row['plan']}")
+        del kc, vc
+        torch.cuda.empty_cache()
+    return out
 
 
 def check_decode_attention_int8(gen):
@@ -414,12 +484,14 @@ def _quant_caches(gen, shape, bits_list=(8, 4)):
 
 def _check_quant_decode(gen, tag, bits, dots):
     """One quantized instantiation of decode attention (``bits`` 4 or 8
-    cache, ``dots``: the int8 x int8 kernel) against its plain version at
-    the flagship shapes over positions 0..228 and 230 with ``pos`` on the
-    host and in device memory, with GQA and at S = 1,024 (with ``dots``:
-    one group and the flagship's 8 groups, and over both cache widths);
-    timed at B2 = 4 and 256 beside the int8 and bf16 kernels on the same
-    values, SDPA on the bf16 values, an empty launch and the byte bound."""
+    cache, ``dots``: the int8 x int8 kernel), in each form (cluster,
+    serving), against its plain version at the flagship shapes over
+    positions 0..228 and 230 with ``pos`` on the host and in device memory,
+    with GQA and at S = 1,024 (with ``dots``: one group and the flagship's 8
+    groups, and over both cache widths); timed in the plan's form at B2 = 4
+    and 256 beside the int8 and bf16 kernels on the same values, SDPA on the
+    bf16 values, an empty launch and the byte bound, and in both forms at
+    each B2 of ``FORM_B2``."""
     import torch
     import torch.nn.functional as F
 
@@ -447,9 +519,10 @@ def _check_quant_decode(gen, tag, bits, dots):
         p_s = ((probs * vsr).amax(-1, keepdim=True) / 127).clamp_min(1e-8)
         return p_s * (7 if cbits == 4 else 127)
 
-    def hold(name, q, kv, kcur, vcur, positions, cbits, starts):
-        """The kernel against its plain version at ``positions``; with
-        ``dots`` also against the two controls (``DOTS_SEPARATION``)."""
+    def hold(name, q, kv, kcur, vcur, positions, cbits, starts, form):
+        """The kernel in ``form`` against its plain version at
+        ``positions``; with ``dots`` also against the two controls
+        (``DOTS_SEPARATION``)."""
         k, v = kv
         (kq, ks), (vq, vs) = k[cbits], v[cbits]
         kw = dict(cache_bits=cbits, int8_dots=dots, chunk_starts=starts)
@@ -459,9 +532,11 @@ def _check_quant_decode(gen, tag, bits, dots):
         for pos in positions:
             want = da.decode_attention_plain(q, kq, vq, kcur, vcur, pos, ks,
                                              vs, **kw)
-            got = da.decode_attention(q, kq, vq, kcur, vcur, pos, ks, vs, **kw)
-            got_t = da.decode_attention(q, kq, vq, kcur, vcur,
-                                        pos_t[pos:pos + 1], ks, vs, **kw)
+            got = da.decode_attention_cuda(q, kq, vq, kcur, vcur, pos, ks, vs,
+                                           form=form, **kw)
+            got_t = da.decode_attention_cuda(q, kq, vq, kcur, vcur,
+                                             pos_t[pos:pos + 1], ks, vs,
+                                             form=form, **kw)
             torch.cuda.synchronize()
             if not torch.equal(got, got_t):
                 raise AssertionError(f"{tag} {name} pos={pos}: pos on the host "
@@ -530,19 +605,22 @@ def _check_quant_decode(gen, tag, bits, dots):
     err = 0.0
     group_sets = ((one, "one group"), (groups8, "8 groups")) if dots else \
         ((None, ""),)
-    for cbits in widths:
-        for starts, gname in group_sets:
-            sfx = f" int{cbits} {gname}".rstrip()
-            err = max(err, hold("flagship" + sfx, q, flag, kcur, vcur,
-                                list(range(S - 1)) + [S], cbits, starts))
-            err = max(err, hold(f"GQA H_kv={Hkv}" + sfx, q, gqa,
-                                rnd(B, Hkv, hd), rnd(B, Hkv, hd), edge, cbits,
-                                starts))
-        long_starts = (torch.tensor([0, 100, 513], dtype=torch.int32,
-                                    device=dev) if dots else None)
-        err = max(err, hold(f"S=1024 int{cbits}", q[:2], long, kcur[:2],
-                            vcur[:2], [0, 64, 511, 512, 513, 1000, 1024],
-                            cbits, long_starts))
+    gqa_cur = (rnd(B, Hkv, hd), rnd(B, Hkv, hd))
+    for form in da.FORMS:
+        for cbits in widths:
+            for starts, gname in group_sets:
+                sfx = f" int{cbits} {gname}".rstrip() + f" {form}"
+                err = max(err, hold("flagship" + sfx, q, flag, kcur, vcur,
+                                    list(range(S - 1)) + [S], cbits, starts,
+                                    form))
+                err = max(err, hold(f"GQA H_kv={Hkv}" + sfx, q, gqa,
+                                    *gqa_cur, edge, cbits, starts, form))
+            long_starts = (torch.tensor([0, 100, 513], dtype=torch.int32,
+                                        device=dev) if dots else None)
+            err = max(err, hold(f"S=1024 int{cbits} {form}", q[:2], long,
+                                kcur[:2], vcur[:2],
+                                [0, 64, 511, 512, 513, 1000, 1024], cbits,
+                                long_starts, form))
     limit = int(DOTS_OVER_TOL_RATE * res["outputs"]) if dots else 0
     log(f"[{tag}] outputs beyond {TOL_DECODE}: {res['over_tol_decode']} of "
         f"{res['outputs']} (at most {limit})")
@@ -593,7 +671,10 @@ def _check_quant_decode(gen, tag, bits, dots):
         empty = lambda i, p: da.empty_launch(
             B2, H, H, S, hd, 0, True, dev, kind=kind,
             groups=groups8.numel() if dots else 1)
-        out = {"ms": cuda_ms(sweep(mine), 20) / n}
+        # the form the plan picks at this batch (shapes only)
+        form = da.kernel_plan(B2, H, H, S, hd, 0, True, kind=kind,
+                              groups=groups8.numel())["form"]
+        out = {"form": form, "ms": cuda_ms(sweep(mine), 20) / n}
         if kind != "int8":
             out["int8_ms"] = cuda_ms(sweep(int8), 20) / n
         out.update({"bf16_ms": cuda_ms(sweep(bf16), 20) / n,
@@ -612,17 +693,18 @@ def _check_quant_decode(gen, tag, bits, dots):
 
     small, serving = timings(B, True), timings(256, False)
     for t_tag, t in (("B2=4", small), ("B2=256", serving)):
-        log(f"[{tag}] {t_tag} ms per call: {t['ms']:.5f}, int8 kernel "
-            f"{t.get('int8_ms', t['ms']):.5f}, bf16 kernel "
+        log(f"[{tag}] {t_tag} ms per call: {t['ms']:.5f} ({t['form']} form), "
+            f"int8 kernel {t.get('int8_ms', t['ms']):.5f}, bf16 kernel "
             f"{t['bf16_ms']:.5f}, SDPA on the bf16 values "
             f"{t['sdpa_bf16_ms']:.5f}, an empty launch "
             f"{t['empty_launch_ms']:.5f}; bound {t['bound_ms']:.5f}")
+    form_ms = _form_times(gen, kind, FORM_B2)
     return {
         "route": "cuda", "source": "vaura_tpu_torch/csrc/decode_attention.cu",
         "max_abs_err": err, "tol": TOL_DECODE, "ms": small["ms"],
         "plain_ms": small["plain_ms"], "bound_ms": small["bound_ms"],
         "bound_by": "bytes", "library_ms": None, "b2_4": small,
-        "b2_256": serving, **res,
+        "b2_256": serving, "form_ms": form_ms, **res,
     }
 
 
@@ -999,6 +1081,16 @@ def _zero_counters():
     da.launches = ef.attention_launches = ef.mlp_launches = ga.launches = 0
     da.device_pos_launches = da.int8_launches = 0
     da.int4_launches = da.int8_dots_launches = 0
+    for form in da.form_launches:
+        da.form_launches[form] = 0
+
+
+def _form_counts() -> dict:
+    """The decode kernels' launches in each form since the counters were
+    zeroed."""
+    from vaura_tpu_torch.ops import decode_attention as da
+
+    return dict(da.form_launches)
 
 
 def phase_main(gen, report):
@@ -1020,7 +1112,7 @@ def phase_main(gen, report):
     out = system.generate(frames, seed=0, **GENERATE_KW)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = _counters()
+    launches, forms = _counters(), _form_counts()
     from vaura_tpu_torch.ops import decode_attention as da
     device_pos = da.device_pos_launches
     expected["grouped_cls_attention"] = 0  # inference takes the fused blocks
@@ -1028,7 +1120,7 @@ def phase_main(gen, report):
     codes, audio = out["codes"], out["audio"]
     report["main"] = {
         "wall_s": wall, "stage_ms": out["stage_ms"], "launches": launches,
-        "expected_launches": expected,
+        "expected_launches": expected, "form_launches": forms,
         "decode_attention_device_pos_launches": device_pos,
         "codes_shape": list(codes.shape),
         "audio_shape": list(audio.shape),
@@ -1037,7 +1129,7 @@ def phase_main(gen, report):
     log(f"[main] wall {wall:.2f} s, stages (ms): "
         + ", ".join(f"{k} {v:.1f}" for k, v in out["stage_ms"].items()))
     log(f"[main] launches {launches} expected {expected}; decode attention "
-        f"launches with pos in device memory: {device_pos}")
+        f"launches with pos in device memory: {device_pos}, by form {forms}")
     log(f"[main] codes {tuple(codes.shape)} in [{int(codes.min())}, "
         f"{int(codes.max())}], audio {tuple(audio.shape)} "
         f"rms {float(audio.float().pow(2).mean().sqrt()):.4f}")
@@ -1056,6 +1148,9 @@ def phase_main(gen, report):
     if device_pos != expected["decode_attention"]:
         problems.append(f"decode_attention: {device_pos} launches took pos "
                         "from device memory, expected all")
+    if forms != {"cluster": expected["decode_attention"], "serve": 0}:
+        problems.append(f"decode_attention at batch 2: launches by form "
+                        f"{forms}, expected the cluster form only")
     if problems:
         raise AssertionError("; ".join(problems))
     return launches
@@ -1107,7 +1202,8 @@ def phase_int8(gen, report):
     launches, device_pos = _counters(), da.device_pos_launches
     report["int8"] = {"wall_s": wall, "stage_ms": out["stage_ms"],
                       "launches": launches, "expected_launches": expected,
-                      "decode_attention_device_pos_launches": device_pos}
+                      "decode_attention_device_pos_launches": device_pos,
+                      "form_launches": _form_counts()}
     log(f"[int8] wall {wall:.2f} s, stages (ms): "
         + ", ".join(f"{k} {v:.1f}" for k, v in out["stage_ms"].items()))
     log(f"[int8] launches {launches} expected {expected}; with pos in device "
@@ -2975,11 +3071,11 @@ QUANT_MODES = (
 )
 
 
-def _quant_run(tag, fn, want, total, res, problems):
+def _quant_run(tag, fn, want, total, res, problems, want_forms=None):
     """One generation with every counter zeroed before and read after:
     launches held to ``want`` (kernels it names; others 0) and added to
-    ``total``; wall and stages into ``res[tag]``. Returns ``fn``'s
-    result."""
+    ``total``, the decode launches by form to ``want_forms`` where given;
+    wall and stages into ``res[tag]``. Returns ``fn``'s result."""
     import torch
 
     torch.cuda.synchronize()
@@ -2988,27 +3084,33 @@ def _quant_run(tag, fn, want, total, res, problems):
     out = fn()
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = _counters()
+    launches, forms = _counters(), _form_counts()
     for k, v in launches.items():
         total[k] = total.get(k, 0) + v
     stage_ms = out.get("stage_ms", {}) if isinstance(out, dict) else {}
     res[tag] = {"wall_s": wall, "stage_ms": stage_ms, "launches": launches,
-                "expected_launches": want}
+                "expected_launches": want, "form_launches": forms}
     log(f"[quant_modes] {tag}: wall {wall:.2f} s, stages (ms) "
         + ", ".join(f"{k} {v:.1f}" for k, v in stage_ms.items())
-        + f", launches {launches}")
+        + f", launches {launches}, by form {forms}")
     if _differs(launches, want):
         problems.append(f"{tag}: launches {launches}, expected {want}")
+    if want_forms is not None and forms != want_forms:
+        problems.append(f"{tag}: launches by form {forms}, expected "
+                        f"{want_forms}")
     return out
 
 
 def _quant_reference(gen, mode, changes, res, problems):
     """The mode at flagship widths and cut depth, card against CPU:
     ``prefill`` over 80 positions, then decode steps at 70..79 over the
-    cache it made (under ``int8_dots`` in three groups)."""
+    cache it made (under ``int8_dots`` in three groups); on the card each
+    step in both forms of the mode's kernel, whose logits must agree within
+    ``TOL_DECODE`` of their largest magnitude."""
     import torch
 
     from vaura_tpu_torch.flagship import flagship_system
+    from vaura_tpu_torch.ops import decode_attention as da
 
     kw = dict(sampler_layers=2, encoder_depth=1,
               sampler_overrides={"quantize_cache": True, **changes})
@@ -3028,18 +3130,29 @@ def _quant_reference(gen, mode, changes, res, problems):
         ca["chunk_starts"] = torch.tensor([0, 31, 63], dtype=torch.int32,
                                           device="cuda")
         cb["chunk_starts"] = ca["chunk_starts"].cpu()
-    worst = 0.0
+    worst = forms = 0.0
     for pos in range(P, T):
-        a = card.sampler.decode_step(toks[:, :, pos:pos + 1],
-                                     cond[:, pos:pos + 1], ca, pos)
+        # both forms of the mode's kernel on the one cache (each step writes
+        # the same k/v into it), then the CPU
+        step = lambda: card.sampler.decode_step(
+            toks[:, :, pos:pos + 1], cond[:, pos:pos + 1], ca, pos)
+        with da.forced_form("serve"):
+            a_serve = step()
+        with da.forced_form("cluster"):
+            a = step()
         b = cpu.sampler.decode_step(toks[:, :, pos:pos + 1].cpu(),
                                     cond[:, pos:pos + 1].cpu(), cb, pos)
         worst = max(worst, rel(a, b))
+        forms = max(forms, max_err(a_serve, a) / float(a.float().abs().max()))
     res[f"reference_{mode}_logits"] = worst
+    res[f"forms_{mode}_logits"] = forms
     log(f"[quant_modes] {mode}: decode logits card vs CPU rel err "
-        f"{worst:.3e} (tol {TOL_REF_REL})")
+        f"{worst:.3e} (tol {TOL_REF_REL}); serving form vs cluster form on "
+        f"one cache {forms:.3e} (tol {TOL_DECODE})")
     if not worst <= TOL_REF_REL:
         problems.append(f"{mode}: card and CPU logits {worst:.3e} apart")
+    if not forms <= TOL_DECODE:
+        problems.append(f"{mode}: the two forms' logits {forms:.3e} apart")
 
 
 def phase_quant_modes(gen, report):
@@ -3083,7 +3196,8 @@ def phase_quant_modes(gen, report):
                 "encoder_mlp": depth}
         out = _quant_run(mode, lambda: system.generate(frames, seed=0,
                                                        **GENERATE_KW),
-                         want, total, res, problems)
+                         want, total, res, problems,
+                         want_forms={"cluster": L * n_steps, "serve": 0})
         _check_generation(f"quant_modes {mode}", out, (2, 9, 221), problems)
         loop_s = out["stage_ms"]["decode_loop"] / 1e3
         res[mode].update(decode_loop_ms=out["stage_ms"]["decode_loop"],
@@ -3094,6 +3208,26 @@ def phase_quant_modes(gen, report):
     # a prompt through prefill, then the rolling cache with a sink chunk,
     # both under int4 + int8 products (features made once, not counted)
     feats = system.visual_features(frames)
+
+    # a serving batch of 8 clips (B2 = 16, 256 (batch row, KV head) pairs):
+    # the plan takes the serving form of the int8 x int8 kernel at every step
+    from vaura_tpu_torch.ops import decode_attention as da
+
+    feats8 = feats.repeat(4, *([1] * (feats.dim() - 1)))
+    _replace_sampler(system, quantize_cache=True, cache_bits=8, int8_dots=True)
+    scfg = system.sampler_config
+    plan = da.kernel_plan(16, scfg.nhead, scfg.n_kv_heads,
+                          system.prepare_generation(221)[2], scfg.head_dim, 0,
+                          True, kind="dots", groups=8)
+    if plan["form"] != "serve":
+        problems.append(f"batch 8: the plan takes the {plan['form']} form")
+    out = _quant_run("int8_dots_batch8_serving_form", lambda: system.generate(
+        vis_feats=feats8, seed=0, **GENERATE_KW),
+        {"decode_attention_int8_dots": L * n_steps}, total, res, problems,
+        want_forms={"cluster": 0, "serve": L * n_steps})
+    _check_generation("quant_modes int8_dots_batch8_serving_form", out,
+                      (8, 9, 221), problems)
+    del feats8
     prompt = torch.randint(0, 1024, (2, 9, 150), generator=gen, device="cuda")
     first = DelayedPatternProvider(9).get_pattern(221) \
         .get_first_step_with_timesteps(150)
@@ -3308,7 +3442,11 @@ def main() -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in kernels]}))
+    # the decode kernels also carry both forms' ms a call at each B2
+    print(json.dumps({"kernels": [
+        {**{k: e[k] for k in keys},
+         **({"form_ms": e["form_ms"]} if "form_ms" in e else {})}
+        for e in kernels]}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)

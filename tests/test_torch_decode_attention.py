@@ -207,3 +207,101 @@ def test_int8_shared_memory_plan():
         assert smem_bytes(hd, 4, 8, cache_bits=8) < smem_bytes(hd, 4, 8)
     assert smem_bytes(128, 4, 8, cache_bits=8) < SMEM_LIMIT
     assert smem_bytes(128, 64, 8, cache_bits=8) > SMEM_LIMIT
+
+
+# --------------------------------------------------------------------------
+# the two forms: the cluster form at the model's batch, the serving form at
+# serving batches, chosen from the shapes alone
+KINDS = ("bf16", "int8", "int4", "dots")
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_launch_plan_picks_the_form_from_the_shapes(kind):
+    """The flagship's B2 = 4 (64 (batch row, KV head) pairs) takes the
+    cluster form, a serving B2 = 256 (4,096 pairs) the serving form; with
+    pos in device memory the plan is the same at every position, and with
+    pos on the host the form is too."""
+    from vaura_tpu_torch.ops.decode_attention import launch_plan
+
+    small = launch_plan(230, 0, True, pairs=64, kind=kind)
+    assert small == dict(tiles=4, cluster=4, tiles_per_block=1,
+                         form="cluster")
+    big = launch_plan(230, 0, True, pairs=4096, kind=kind)
+    assert big == dict(tiles=4, cluster=1, tiles_per_block=4, form="serve")
+    for pos in range(0, 231, 7):
+        for pairs, want in ((64, small), (4096, big)):
+            assert launch_plan(230, pos, True, pairs=pairs, kind=kind) == want
+            assert launch_plan(230, pos, False, pairs=pairs,
+                               kind=kind)["form"] == want["form"]
+    # a cache of one tile keeps the cluster form; a form that does not fit
+    # a block is not taken
+    assert launch_plan(63, 0, True, pairs=4096, kind=kind)["form"] == "cluster"
+    assert launch_plan(230, 0, True, pairs=4096, kind=kind,
+                       serve_fits=False)["form"] == "cluster"
+
+
+def test_serving_form_thresholds_are_measured_crossovers():
+    """The quantized kinds take the serving form from B2 = 16 at H_kv = 16
+    (256 pairs), bf16 from B2 = 64 (1,024): below that the cluster form."""
+    from vaura_tpu_torch.ops.decode_attention import SERVE_FROM_PAIRS, launch_plan
+
+    for kind, first in (("int8", 16), ("int4", 16), ("dots", 16), ("bf16", 64)):
+        assert SERVE_FROM_PAIRS[kind] == first * 16
+        for B2 in (4, 8, 16, 32, 64, 128, 256):
+            form = launch_plan(230, 0, True, pairs=B2 * 16, kind=kind)["form"]
+            assert form == ("serve" if B2 >= first else "cluster")
+
+
+def test_kernel_plan_adds_shared_memory_and_forced_forms():
+    from vaura_tpu_torch.ops.decode_attention import kernel_plan, smem_bytes
+
+    plan = kernel_plan(4, 16, 16, 230, 96, 0, True, kind="int8")
+    assert plan["form"] == "cluster"
+    assert plan["smem"] == smem_bytes(96, 1, 4, cache_bits=8)
+    plan = kernel_plan(256, 16, 16, 230, 96, 0, True, kind="int8")
+    assert plan["form"] == "serve"
+    assert plan["smem"] == smem_bytes(96, 1, cache_bits=8, form="serve")
+    # a check forces either form at any batch
+    assert kernel_plan(4, 16, 16, 230, 96, 0, True, kind="int8",
+                       form="serve")["form"] == "serve"
+    assert kernel_plan(256, 16, 16, 230, 96, 0, True, kind="int8",
+                       form="cluster")["cluster"] == 4
+    with pytest.raises(ValueError):
+        kernel_plan(4, 16, 16, 230, 96, 0, True, kind="int8", form="tiles")
+    # the cluster form's grid is (tiles, B * H_kv): at most 65,535 pairs
+    with pytest.raises(ValueError):
+        kernel_plan(5000, 16, 16, 230, 96, 0, True, kind="bf16",
+                    form="cluster")
+    assert kernel_plan(5000, 16, 16, 230, 96, 0, True,
+                       kind="bf16")["form"] == "serve"
+
+
+@pytest.mark.parametrize("cache_bits", [16, 8, 4])
+def test_serving_form_shared_memory(cache_bits):
+    """The serving form's block: two stages of a K and a V tile, the
+    current position's bf16 rows, two mbarriers, q and each of the four
+    warps' running partials per query head; it fits 227 KB for hd 32-128
+    and 1-8 query heads per KV head, and 96 query heads of dim 128 are
+    refused."""
+    from vaura_tpu_torch.ops.decode_attention import (
+        SMEM_LIMIT,
+        kernel_plan,
+        smem_bytes,
+        tile_row_bytes,
+    )
+
+    kind = {16: "bf16", 8: "int8", 4: "int4"}[cache_bits]
+    for hd in (32, 64, 96, 128):
+        rb = tile_row_bytes(hd, cache_bits)
+        for rep in range(1, 9):
+            want = (2 * 2 * 64 * rb + 4 * hd + 16
+                    + 4 * rep * (hd + 4 * (hd + 2)))
+            assert smem_bytes(hd, rep, cache_bits=cache_bits,
+                              form="serve") == want
+            assert want <= SMEM_LIMIT
+            plan = kernel_plan(256, 16 * rep, 16, 230, hd, 0, True, kind=kind,
+                               form="serve")
+            assert plan["smem"] == want
+    assert smem_bytes(128, 96, cache_bits=cache_bits, form="serve") > SMEM_LIMIT
+    with pytest.raises(ValueError, match="shared memory"):
+        kernel_plan(256, 96, 1, 230, 128, 0, True, kind=kind, form="serve")

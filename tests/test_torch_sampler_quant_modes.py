@@ -345,3 +345,59 @@ def test_fresh_caches_hold_one_group_under_int8_dots(trees, mode):
             assert cache["chunk_starts"].tolist() == [0]
         else:
             assert "chunk_starts" not in cache
+
+
+def _one_block_dots_smem_bytes(hd, rep, S, groups):
+    """The int8 x int8 kernel's shared memory before its cluster split (one
+    block per (b, KV head) holding every row's probabilities): what the
+    kernel accepted then."""
+    up = lambda n: -(-n // 16) * 16
+    sp = max(4, -(-S // 4) * 4)
+    return (up(rep * hd) + up(rep * sp) + up(4 * rep * hd) + up(4 * rep * sp)
+            + up(4 * rep * groups) + up(8 * rep) + up(4 * rep * groups * hd)
+            + up(4 * rep * groups) + up(4 * groups))
+
+
+@pytest.mark.parametrize("hd", [32, 64, 96, 128])
+def test_int8_dots_forms_shared_memory(hd):
+    """Both forms of the int8 x int8 kernel over hd 32-128, 1-8 query heads
+    per KV head, caches up to 1,024 rows and up to 64 groups: the plan
+    takes a form whose block fits 227 KB and refuses exactly where neither
+    does; every shape the one-block kernel took still fits; the cluster
+    form holds a cluster's share of the rows, the serving form all of
+    them."""
+    from vaura_tpu_torch.ops.decode_attention import (
+        SMEM_LIMIT,
+        dots_smem_bytes,
+        kernel_plan,
+    )
+
+    for cache_bits in (8, 4):
+        for rep in range(1, 9):
+            for S in (1, 24, 63, 64, 230, 511, 512, 1024):
+                for groups in (1, 8, 33, 64):
+                    cl = dots_smem_bytes(hd, rep, S, groups, form="cluster",
+                                         cache_bits=cache_bits)
+                    sv = dots_smem_bytes(hd, rep, S, groups, form="serve",
+                                         cache_bits=cache_bits)
+                    assert cl <= sv
+                    for B in (2, 128):
+                        kw = dict(kind="dots", cache_bits=cache_bits,
+                                  groups=groups)
+                        if min(cl, sv) > SMEM_LIMIT:
+                            with pytest.raises(ValueError, match="shared"):
+                                kernel_plan(B, 16 * rep, 16, S, hd, 0, True,
+                                            **kw)
+                            continue
+                        plan = kernel_plan(B, 16 * rep, 16, S, hd, 0, True,
+                                           **kw)
+                        assert plan["smem"] <= SMEM_LIMIT
+                        assert plan["smem"] == (cl if plan["form"] == "cluster"
+                                                else sv)
+                    if _one_block_dots_smem_bytes(hd, rep, S, groups) <= SMEM_LIMIT:
+                        assert cl <= SMEM_LIMIT
+    # the flagship's block in either form, and a shape no form holds
+    assert dots_smem_bytes(hd, 1, 230, 8, form="cluster") < 32 * 1024
+    assert dots_smem_bytes(hd, 1, 230, 8) < 48 * 1024
+    with pytest.raises(ValueError, match="shared"):
+        kernel_plan(2, 128, 8, 1024, 128, 0, True, kind="dots", groups=64)

@@ -1,6 +1,7 @@
 """Where one block of a hand-written kernel spends its cycles on the card.
 
     python3 -m vaura_tpu_torch.profile_kernels [encoder] [decode] [mlp] [grouped]
+        [serve] [dots] [forms]
 
 ``nvcc`` builds a copy of a kernel's library in which one file of ``csrc/``
 (the ``.cu`` itself, or the shared header that holds the kernel) carries
@@ -12,9 +13,14 @@ cycles between stamps and, for the encoder sublayers, the kernels' device
 time by name under ``torch.profiler`` (of the stamped build: the stamps cost
 a few stores). Decode attention is stamped at four positions with ``pos`` on
 the host and in device memory, the layers' caches cycled so that tiles come
-from device memory; the MLP sublayer's GEMM once as fc1 and once as fc2; the
-grouped attention on both axes. Times per call are ``chip_smoke.py``'s to
-measure. Needs a CUDA card; builds into ``--out``.
+from device memory; its serving form (``serve``, the int8 cache) and the int8
+x int8 kernel (``dots``, 8 groups) in both forms at B2 = 4 and 256 (the
+stamping block is the first: rank 0 of the first cluster); the MLP
+sublayer's GEMM once as fc1 and once as fc2; the grouped attention on both
+axes. ``forms`` times both forms of every decode kernel over B2 = 4 ... 256
+(mean over the flagship's positions, CUDA-graph replay): the crossover that
+``ops/decode_attention.py::SERVE_FROM_PAIRS`` encodes. Other times per call
+are ``chip_smoke.py``'s to measure. Needs a CUDA card; builds into ``--out``.
 """
 
 from __future__ import annotations
@@ -62,6 +68,40 @@ STAMPS: Dict[str, Tuple[str, str, List[Tuple[str, str]]]] = {
             ("(rank 0 stays)", "  // rank 0: merge the blocks that had a tile"),
         ],
     ),
+    # the serving form of decode attention; the stamp inside the tile loop
+    # is the last tile's
+    "decode_serve": (
+        "decode_attention.cu",
+        "tid == 0 && blockIdx.x == 0",
+        [
+            ("start", "  // serve: pos and the query heads requested"),
+            ("pos and q requested, stages and partials set up, q in shared memory",
+             "  // Tile j (rows 64 j .. 64 j + 63) goes to stage"),
+            ("first tiles requested, tiles up to the last landed and computed",
+             "    // serve: a warp's 16 rows, merged into its running partial"),
+            ("last tile's rows", "  // serve: the four warps merged"),
+            ("warps merged, output", "  // serve: done"),
+        ],
+    ),
+    "decode_dots": (
+        "decode_attention.cu",
+        "tid == 0 && blockIdx.x == 0",
+        [
+            ("start", "  // dots 1. the stages' mbarriers"),
+            ("mbarriers, first copies issued, q, k/v_cur and starts loaded",
+             "  // dots 2. q per query head"),
+            ("q quantized, the current position's score, scales landed",
+             "  // dots 3. the scores"),
+            ("K tiles landed, scores", "  // dots 4. the block's max"),
+            ("block max and sum, cluster barrier 1", "  // dots 5. the softmax's max M"),
+            ("the blocks' (max, sum) fetched, M and Z", "  // dots 6. each group's max"),
+            ("group maxima, cluster barrier 2", "  // dots 7. p8 of the block's rows"),
+            ("p8", "  // dots 8. p8 . v8"),
+            ("V tiles landed, value products", "  // dots 9. the block's integer sums"),
+            ("sums into rank 0, cluster barrier 3", "  // dots 10. out = sum over groups"),
+            ("output", "  // dots 11. done"),
+        ],
+    ),
     # the GEMM of both products; a block in the middle of the grid
     "encoder_mlp": (
         "gemm.cuh",
@@ -88,6 +128,9 @@ STAMPS: Dict[str, Tuple[str, str, List[Tuple[str, str]]]] = {
         ],
     ),
 }
+
+# the library a stamped kernel lives in, where not its own name
+LIBRARY = {"decode_serve": "decode_attention", "decode_dots": "decode_attention"}
 
 _PROLOGUE = (
     "__device__ long long vt_prof[32];\n"
@@ -116,14 +159,16 @@ def stamped_source(name: str) -> str:
 
 def build_stamped(name: str, signatures, out_dir: str) -> ctypes.CDLL:
     """Copy ``csrc/`` into ``out_dir/<name>``, stamp the one file, build the
-    library ``name`` there and make the wrappers launch it."""
+    library that holds the kernel there and make the wrappers launch it."""
     from vaura_tpu_torch.kernels import build
 
+    lib_name = LIBRARY.get(name, name)
     src_dir = os.path.join(out_dir, name)
     shutil.copytree(CSRC, src_dir, dirs_exist_ok=True)
     with open(os.path.join(src_dir, STAMPS[name][0]), "w") as f:
         f.write(stamped_source(name))
-    cu, so = os.path.join(src_dir, f"{name}.cu"), os.path.join(src_dir, f"{name}.so")
+    cu = os.path.join(src_dir, f"{lib_name}.cu")
+    so = os.path.join(src_dir, f"{lib_name}.so")
     done = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, f"-I{src_dir}",
                            "-o", so, cu], capture_output=True, text=True)
     if done.returncode:
@@ -135,7 +180,7 @@ def build_stamped(name: str, signatures, out_dir: str) -> ctypes.CDLL:
     for fn, argtypes in signatures.items():
         getattr(lib, fn).argtypes = list(argtypes)
         getattr(lib, fn).restype = ctypes.c_int
-    build._libs[name] = lib  # the wrappers now launch the stamped build
+    build._libs[lib_name] = lib  # the wrappers now launch the stamped build
     return lib
 
 
@@ -201,6 +246,149 @@ def profile_decode(gen, out_dir: str) -> None:
                   "rank 0 of one cluster: " + read_stamps(lib, "decode_attention"))
 
 
+def _quant_layers(gen, shape, bits):
+    """A quantized cache of ``shape`` (int8, or int4 with ``bits`` 4), a
+    layer at a time."""
+    import torch
+
+    from vaura_tpu_torch.ops.quantization import quantize_kv, quantize_kv4
+
+    fn = quantize_kv4 if bits == 4 else quantize_kv
+    parts = [fn(torch.randn(*shape[1:], generator=gen, device="cuda",
+                            dtype=torch.bfloat16)) for _ in range(shape[0])]
+    return torch.stack([p[0] for p in parts]), torch.stack([p[1] for p in parts])
+
+
+def _flagship_groups(device):
+    import torch
+
+    from vaura_tpu_torch.models.vaura import chunk_bounds
+
+    return torch.tensor(chunk_bounds(230, 8)[:-1], dtype=torch.int32,
+                        device=device)
+
+
+def profile_quant(gen, out_dir: str, name: str) -> None:
+    """Stamps of the serving form over the int8 cache (``decode_serve``) or
+    of the int8 x int8 kernel over it in 8 groups, both forms
+    (``decode_dots``), at B2 = 4 and 256, pos in device memory."""
+    import torch
+
+    from vaura_tpu_torch.ops import decode_attention as da
+
+    lib = build_stamped(name, da._SIG, out_dir)
+    H, hd, S, layers = 16, 96, 230, 24
+    groups = _flagship_groups("cuda")
+    pos_t = torch.arange(S, dtype=torch.int32, device="cuda")
+    forms = ("serve",) if name == "decode_serve" else da.FORMS
+    for B2 in (4, 256):
+        rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda",
+                                     dtype=torch.bfloat16)
+        q, kcur, vcur = rnd(B2, H, hd), rnd(B2, H, hd), rnd(B2, H, hd)
+        kq, ks = _quant_layers(gen, (layers, B2, S, H, hd), 8)
+        vq, vs = _quant_layers(gen, (layers, B2, S, H, hd), 8)
+        dots = name == "decode_dots"
+        for form in forms:
+            for pos in (0, 63, 100, 228):
+                for i in range(layers):
+                    da.decode_attention_cuda(
+                        q, kq[i], vq[i], kcur, vcur, pos_t[pos:pos + 1], ks[i],
+                        vs[i], int8_dots=dots,
+                        chunk_starts=groups if dots else None, form=form)
+                torch.cuda.synchronize()
+                print(f"[{name}] B2={B2} {form} form, pos {pos:3d}, cycles of "
+                      "block 0: " + read_stamps(lib, name))
+        del kq, vq, ks, vs
+        torch.cuda.empty_cache()
+
+
+def _graph_ms(fn, reps: int) -> float:
+    """Device ms of one ``fn()``, replayed as a CUDA graph ``reps`` times."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+FORM_SWEEP_B2 = (4, 16, 32, 64, 128, 256)
+
+
+def profile_forms(gen, out_dir: str) -> Dict[str, dict]:
+    """ms a call of both forms of each decode kernel (bf16, int8, int4
+    caches; the int8 x int8 kernel over the int8 cache in the flagship's 8
+    groups) at H = 16, hd = 96, S = 230 over ``FORM_SWEEP_B2``, the mean
+    over positions 0 .. 228 read from device memory, layers cycled over 24
+    caches; written to ``out_dir/forms.json``."""
+    import json
+
+    import torch
+
+    from vaura_tpu_torch.ops import decode_attention as da
+
+    from vaura_tpu_torch.kernels import build
+
+    build._libs.pop("decode_attention", None)  # the library without stamps
+    H, hd, S, layers = 16, 96, 230, 24
+    positions = range(S - 1)
+    groups = _flagship_groups("cuda")
+    pos_t = torch.arange(S, dtype=torch.int32, device="cuda")
+    res: Dict[str, dict] = {}
+    for B2 in FORM_SWEEP_B2:
+        rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda",
+                                     dtype=torch.bfloat16)
+        q, kcur, vcur = rnd(B2, H, hd), rnd(B2, H, hd), rnd(B2, H, hd)
+        caches = {"bf16": (rnd(layers, B2, S, H, hd), rnd(layers, B2, S, H, hd))}
+        for bits in (8, 4):
+            caches[bits] = (_quant_layers(gen, (layers, B2, S, H, hd), bits),
+                            _quant_layers(gen, (layers, B2, S, H, hd), bits))
+        for kind in ("bf16", "int8", "int4", "dots"):
+            plan = da.kernel_plan(B2, H, H, S, hd, 0, True, kind=kind,
+                                  groups=groups.numel())
+            row = res.setdefault(kind, {}).setdefault(str(B2), {"plan": plan["form"]})
+            for form in da.FORMS:
+                if kind == "bf16":
+                    k, v = caches["bf16"]
+                    call = lambda i, p: da.decode_attention_cuda(
+                        q, k[i], v[i], kcur, vcur, pos_t[p:p + 1], form=form)
+                else:
+                    bits = 4 if kind == "int4" else 8
+                    (kq, ks), (vq, vs) = caches[bits]
+                    call = lambda i, p: da.decode_attention_cuda(
+                        q, kq[i], vq[i], kcur, vcur, pos_t[p:p + 1], ks[i], vs[i],
+                        cache_bits=bits, int8_dots=kind == "dots",
+                        chunk_starts=groups if kind == "dots" else None, form=form)
+
+                def run():
+                    for p in positions:
+                        call(p % layers, p)
+                row[form] = _graph_ms(run, 10) / len(positions)
+            print(f"[forms] {kind:5s} B2={B2:3d}: cluster {row['cluster']:.5f} ms, "
+                  f"serve {row['serve']:.5f} ms; the plan takes {row['plan']}",
+                  flush=True)
+        del caches
+        torch.cuda.empty_cache()
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "forms.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    return res
+
+
 def profile_mlp(gen, out_dir: str) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -257,7 +445,8 @@ def profile_grouped(gen, out_dir: str) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("which", nargs="*",
-                    default=["encoder", "decode", "mlp", "grouped"])
+                    default=["encoder", "decode", "serve", "dots", "mlp",
+                             "grouped", "forms"])
     ap.add_argument("--out", default=os.path.join("chiprun_out", "profile_kernels"))
     args = ap.parse_args()
     import torch
@@ -269,8 +458,12 @@ def main() -> int:
 
     print(f"{torch.cuda.get_device_name(0)} ({nvidia_smi()})")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for which, fn in (("encoder", profile_encoder), ("decode", profile_decode),
-                      ("mlp", profile_mlp), ("grouped", profile_grouped)):
+    for which, fn in (
+            ("encoder", profile_encoder), ("decode", profile_decode),
+            ("serve", lambda g, o: profile_quant(g, o, "decode_serve")),
+            ("dots", lambda g, o: profile_quant(g, o, "decode_dots")),
+            ("mlp", profile_mlp), ("grouped", profile_grouped),
+            ("forms", profile_forms)):
         if which in args.which:
             fn(gen, args.out)
     return 0
