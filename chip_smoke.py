@@ -254,16 +254,18 @@ def phase_build(report):
                 log(f"[build] {name}: {line.strip()}")
 
 
-def check_decode_attention(gen):
-    """Flagship decode: B2 = 2 clips x 2 (CFG), H = 16, hd = 96, S = 230,
-    with ``pos`` on the host and in device memory; then GQA (H_kv = H / 4)
-    and a cache of 1,024 positions (more tiles than one cluster holds)."""
+def check_decode_attention(gen, H=16, timed=True):
+    """Flagship decode: B2 = 2 clips x 2 (CFG), H = 16 (or a model rank's
+    ``H``), hd = 96, S = 230, with ``pos`` on the host and in device memory;
+    then GQA (H_kv = H / 4) and a cache of 1,024 positions (more tiles than
+    one cluster holds); with ``timed``, timed over the main path's
+    positions."""
     import torch
     import torch.nn.functional as F
 
     from vaura_tpu_torch.ops import decode_attention as da
 
-    B, H, hd, S, L = 4, 16, 96, 230, 24
+    B, hd, S, L = 4, 96, 230, 24
     dev, bf = "cuda", torch.bfloat16
     rnd = lambda *s: torch.randn(*s, generator=gen, device=dev, dtype=bf)
 
@@ -306,6 +308,8 @@ def check_decode_attention(gen):
     err = max(err, hold(
         f"S={S_long}", q[:2], rnd(2, S_long, H, hd), rnd(2, S_long, H, hd),
         kcur[:2], vcur[:2], edge + (511, 512, 513, 1000, S_long)))
+    if not timed:
+        return {"max_abs_err": err}
 
     # the main path's positions: one launch per step at pos = 0 .. 228,
     # layers cycled, pos read from device memory as decode_step passes it;
@@ -441,11 +445,16 @@ def check_decode_attention_int8(gen):
 # on the card (device exp, other sum orders) than in the plain version,
 # which moves an output by p_s times the value's integer (at most 127; 7 in
 # an int4 cache): one p8 step, at most the row's largest p * v_scale (times
-# 7 / 127 for int4). Every output is held to TOL_DECODE; at most
-# DOTS_OVER_TOL_RATE of them may pass it, each by no more than one p8 step
-# of its (batch row, head) plus one bf16 ulp of the output (both sides
-# round to bf16)
-DOTS_OVER_TOL_RATE = 1e-5
+# 7 / 127 for int4). Every output is held to TOL_DECODE; an output may pass
+# it only by no more than one p8 step of its (batch row, head) plus one bf16
+# ulp of the output (both sides round to bf16). One such flip moves a clump
+# of the (batch row, head, pos) outputs at once, so the flips are counted as
+# edge events, one a distinct (values, batch row, head, pos) over both forms
+# (which read the same values), and one check may hold at most
+# DOTS_EDGE_EVENTS of them, however large its sweep (on the H100: at most
+# one in each of 18 sweeps of 0.7-2.8 million outputs over 6 seeds at 16, 8
+# and 4 heads)
+DOTS_EDGE_EVENTS = 4
 # and the check must see the groups and the quantization of p: over every
 # sweep, the kernel's mean distance from the plain version with other groups
 # (one group against 8) and from the plain int8 (or int4) cache without the
@@ -482,42 +491,50 @@ def _quant_caches(gen, shape, bits_list=(8, 4)):
     return out
 
 
-def _check_quant_decode(gen, tag, bits, dots):
+def _p8_step(q, kq, vs, kcur, ks, pos, cbits):
+    """One p8 step of the int8 x int8 products for each (batch row, head)
+    at ``pos``, ``[B, H, 1]``: its largest p * v_scale over the cache rows
+    (the scale p_s of the group that holds it) times the largest value
+    integer."""
+    import torch
+
+    from vaura_tpu_torch.ops import decode_attention as da
+    from vaura_tpu_torch.ops.quantization import unpack_int4
+
+    if pos == 0:
+        return torch.zeros(q.shape[0], q.shape[1], 1, device=q.device)
+    k8 = unpack_int4(kq) if cbits == 4 else kq
+    probs = da.dots_probs(q, k8, kcur, pos, ks)[..., :pos]
+    rep = q.shape[1] // kq.shape[2]
+    vsr = vs[:, :pos].float().repeat_interleave(rep, 2).transpose(1, 2)
+    p_s = ((probs * vsr).amax(-1, keepdim=True) / 127).clamp_min(1e-8)
+    return p_s * (7 if cbits == 4 else 127)
+
+
+def _check_quant_decode(gen, tag, bits, dots, H=16, timed=True):
     """One quantized instantiation of decode attention (``bits`` 4 or 8
     cache, ``dots``: the int8 x int8 kernel), in each form (cluster,
-    serving), against its plain version at the flagship shapes over
-    positions 0..228 and 230 with ``pos`` on the host and in device memory,
-    with GQA and at S = 1,024 (with ``dots``: one group and the flagship's 8
-    groups, and over both cache widths); timed in the plan's form at B2 = 4
-    and 256 beside the int8 and bf16 kernels on the same values, SDPA on the
+    serving), against its plain version at the flagship shapes (``H``
+    query heads: 16, or a model rank's) over positions 0..228 and 230 with
+    ``pos`` on the host and in device memory, with GQA and at S = 1,024
+    (with ``dots``: one group and the flagship's 8 groups, and over both
+    cache widths); with ``timed``, timed in the plan's form at B2 = 4 and
+    256 beside the int8 and bf16 kernels on the same values, SDPA on the
     bf16 values, an empty launch and the byte bound, and in both forms at
     each B2 of ``FORM_B2``."""
     import torch
     import torch.nn.functional as F
 
     from vaura_tpu_torch.ops import decode_attention as da
-    from vaura_tpu_torch.ops.quantization import unpack_int4
 
-    H, hd, S, L = 16, 96, 230, 24
+    hd, S, L = 96, 230, 24
     dev, bf = "cuda", torch.bfloat16
     rnd = lambda *s: torch.randn(*s, generator=gen, device=dev, dtype=bf)
     groups8 = torch.tensor(dots_groups_s230(), dtype=torch.int32, device=dev)
     one = torch.zeros(1, dtype=torch.int32, device=dev)
     res = {"over_tol_decode": 0, "outputs": 0, "separation": {},
            "max_err_limit": TOL_DECODE}
-
-    def p8_step(q, kq, vs, kcur, ks, pos, cbits):
-        """One p8 step of each (batch row, head) at ``pos``, ``[B, H,
-        1]``: its largest p * v_scale over the cache rows (the scale p_s
-        of the group that holds it) times the largest value integer."""
-        if pos == 0:
-            return torch.zeros(q.shape[0], q.shape[1], 1, device=dev)
-        k8 = unpack_int4(kq) if cbits == 4 else kq
-        probs = da.dots_probs(q, k8, kcur, pos, ks)[..., :pos]
-        rep = q.shape[1] // kq.shape[2]
-        vsr = vs[:, :pos].float().repeat_interleave(rep, 2).transpose(1, 2)
-        p_s = ((probs * vsr).amax(-1, keepdim=True) / 127).clamp_min(1e-8)
-        return p_s * (7 if cbits == 4 else 127)
+    events = set()  # (values, batch row, head, pos) of the flips
 
     def hold(name, q, kv, kcur, vcur, positions, cbits, starts, form):
         """The kernel in ``form`` against its plain version at
@@ -552,8 +569,8 @@ def _check_quant_decode(gen, tag, bits, dots):
             if over.any():
                 ulp = torch.exp2(torch.floor(torch.log2(
                     want.float().abs().clamp_min(2.0 ** -126))) - 7)
-                limit = TOL_DECODE + p8_step(q, kq, vs, kcur, ks, pos,
-                                             cbits) + ulp
+                limit = TOL_DECODE + _p8_step(q, kq, vs, kcur, ks, pos,
+                                              cbits) + ulp
                 res["max_err_limit"] = max(res["max_err_limit"],
                                            float(limit[over].max()))
                 if (diff > limit).any():
@@ -561,6 +578,13 @@ def _check_quant_decode(gen, tag, bits, dots):
                         f"{tag} {name} pos={pos}: an output "
                         f"{float(diff.max()):.3e} from the plain version, "
                         "more than 1e-2 plus one p8 step and one bf16 ulp")
+                rows = {tuple(i[:2]) for i in over.nonzero().tolist()}
+                values = name.rsplit(" ", 1)[0]  # the name less the form
+                events.update((values, b, h, pos) for b, h in rows)
+                log(f"[{tag}] {name} pos={pos}: {int(over.sum())} outputs "
+                    f"past {TOL_DECODE} in (batch row, head) {sorted(rows)}, "
+                    f"at most {float(diff.max()):.3e}, each within one p8 "
+                    "step and one bf16 ulp")
             other = da.decode_attention_plain(
                 q, kq, vq, kcur, vcur, pos, ks, vs, cache_bits=cbits,
                 int8_dots=True, chunk_starts=one if starts.numel() > 1
@@ -621,15 +645,17 @@ def _check_quant_decode(gen, tag, bits, dots):
                                 kcur[:2], vcur[:2],
                                 [0, 64, 511, 512, 513, 1000, 1024], cbits,
                                 long_starts, form))
-    limit = int(DOTS_OVER_TOL_RATE * res["outputs"]) if dots else 0
+    limit = DOTS_EDGE_EVENTS if dots else 0
     log(f"[{tag}] outputs beyond {TOL_DECODE}: {res['over_tol_decode']} of "
-        f"{res['outputs']} (at most {limit})")
-    if res["over_tol_decode"] > limit:
-        raise AssertionError(f"{tag}: {res['over_tol_decode']} outputs beyond "
+        f"{res['outputs']}, in {len(events)} edge events (at most {limit})")
+    if len(events) > limit or (not dots and res["over_tol_decode"]):
+        raise AssertionError(f"{tag}: {len(events)} edge events beyond "
                              f"{TOL_DECODE}, more than {limit}")
-    res["over_tol_limit"] = limit
+    res["edge_events"], res["edge_event_limit"] = len(events), limit
     del flag, gqa, long
     torch.cuda.empty_cache()
+    if not timed:
+        return {"max_abs_err": err, **res}
 
     positions = list(range(S - 1))
     n = len(positions)
@@ -1052,18 +1078,9 @@ def check_grouped_cls_attention(gen):
 
 # ---------------------------------------------------------------------------
 def _counters():
-    from vaura_tpu_torch.ops import decode_attention as da
-    from vaura_tpu_torch.ops import divided_attention as ga
-    from vaura_tpu_torch.ops import encoder_fused as ef
+    from vaura_tpu_torch.dryrun import launch_counts
 
-    return {"decode_attention": da.launches - da.int8_launches
-            - da.int4_launches - da.int8_dots_launches,
-            "decode_attention_int8": da.int8_launches,
-            "decode_attention_int4": da.int4_launches,
-            "decode_attention_int8_dots": da.int8_dots_launches,
-            "encoder_attention": ef.attention_launches,
-            "encoder_mlp": ef.mlp_launches,
-            "grouped_cls_attention": ga.launches}
+    return launch_counts()
 
 
 def _differs(launches, want) -> bool:
@@ -3343,6 +3360,247 @@ def phase_quant_quality(gen, report):
 
 
 # ---------------------------------------------------------------------------
+# the mesh phase: a sharded run at 1 x 1 x 1 (one card, NCCL) against the
+# same run in one process without a mesh. The training step's loss is a
+# forward of the same weights, batch and dropout masks through the same
+# kernels (FSDP2's gather copies the weights): 1e-5 relative is about a
+# thousandth of a bf16 ulp at ln 1024 (measured: see PERF.md)
+MESH_LOSS_REL = 1e-5
+MESH_TIMEOUT_S = 600
+# the local head counts a model axis of 2 and 4 hands the decode kernels
+LOCAL_HEADS = (8, 4)
+
+
+def _torchrun(tag, args, root):
+    """``args`` under ``python -m torch.distributed.run --standalone
+    --nproc_per_node=1`` (NCCL on this card), its output into
+    ``<root>/<tag>.log``; returns the wall seconds."""
+    t0 = time.time()
+    r = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node=1", *args], cwd=ROOT, capture_output=True,
+        text=True, timeout=MESH_TIMEOUT_S)
+    wall = time.time() - t0
+    with open(os.path.join(root, f"{tag}.log"), "w") as f:
+        f.write(r.stdout + r.stderr)
+    if r.returncode != 0:
+        raise AssertionError(f"{tag}: exit {r.returncode}: "
+                             f"{(r.stdout + r.stderr)[-3000:]}")
+    return wall
+
+
+def check_decode_local_heads(gen):
+    """Each decode kernel at the head counts a model axis of 2 and 4 leaves
+    a rank (H = 8, 4; hd 96, S 230), in both forms, against its plain
+    version through the checks of the 16-head kernels at ``H`` heads
+    (``check_decode_attention``, ``_check_quant_decode`` with its edge
+    events). Then each kernel's ms a call in the plan's form over the main
+    path's positions at B2 = 4 beside the byte bound."""
+    import torch
+
+    from vaura_tpu_torch.ops import decode_attention as da
+
+    B2, hd, S, L = 4, 96, 230, 24
+    groups8 = torch.tensor(dots_groups_s230(), dtype=torch.int32,
+                           device="cuda")
+    pos_t = torch.arange(S + 1, dtype=torch.int32, device="cuda")
+    kinds = (("bf16", None, False), ("int8", 8, False), ("int4", 4, False),
+             ("dots", 8, True))
+    out = {}
+    for H in LOCAL_HEADS:
+        rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda",
+                                     dtype=torch.bfloat16)
+        q, k1, v1 = rnd(B2, H, hd), rnd(B2, H, hd), rnd(B2, H, hd)
+        kc = _quant_caches(gen, (L, B2, S, H, hd))
+        vc = _quant_caches(gen, (L, B2, S, H, hd))
+        for kind, bits, dots in kinds:
+            if bits is None:
+                args = lambda i: (kc["bf16"][i], vc["bf16"][i])
+                tail, kw = lambda i: (), {}
+                row = check_decode_attention(gen, H=H, timed=False)
+            else:
+                args = lambda i: (kc[bits][0][i], vc[bits][0][i])
+                tail = lambda i: (kc[bits][1][i], vc[bits][1][i])
+                kw = dict(cache_bits=bits, int8_dots=dots,
+                          chunk_starts=groups8 if dots else None)
+                checked = _check_quant_decode(gen, f"decode {kind} H={H}",
+                                              bits, dots, H=H, timed=False)
+                row = {k: checked[k] for k in (
+                    "max_abs_err", "over_tol_decode", "outputs",
+                    "edge_events", "edge_event_limit", "max_err_limit")}
+            form = da.kernel_plan(B2, H, H, S, hd, 0, True, kind=kind,
+                                  groups=groups8.numel())["form"]
+
+            def sweep():
+                for pos in range(S - 1):
+                    i = pos % L
+                    da.decode_attention_cuda(q, *args(i), k1, v1,
+                                             pos_t[pos:pos + 1], *tail(i),
+                                             form=form, **kw)
+            row["form"] = form
+            row["ms"] = cuda_ms(sweep, 10) / (S - 1)
+            cached = 2 * hd if bits is None else (
+                hd // 2 if bits == 4 else hd) + 4
+            row["bound_ms"] = sum(
+                (8 * B2 * H * hd + 2 * B2 * p * H * cached) / HBM_BYTES_PER_S
+                for p in range(S - 1)) / (S - 1) * 1e3
+            out[f"{kind} H={H}"] = row
+            log(f"[mesh] decode {kind} H={H}: max_abs_err "
+                f"{row['max_abs_err']:.3e}, {row['ms']:.5f} ms a call "
+                f"({form} form), bound {row['bound_ms']:.5f}")
+        del kc, vc
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh(gen, report):
+    """The multi-device path on this card: (a) the flagship dry run
+    (``vaura_tpu_torch.dryrun --system flagship``: greedy generation of 221
+    tokens for 2 clips, then one training step) under ``torchrun`` with
+    NCCL at a mesh of 1 x 1 x 1, against the same run in this process
+    without a mesh (loss within ``MESH_LOSS_REL``, codes equal); (b) the
+    generate action from ``configs/generate_vgg.yaml`` at its batch of 16,
+    greedy, under ``torchrun`` (its batch on a data mesh), against the same
+    action in this process (codes equal, each WAV written once); (c) the
+    demo on a synthetic ``--frames`` file, 2.56 s and 5.12 s, random
+    flagship weights (finite WAVs of the right length, the decode and fused
+    encoder kernels launched); (d) the decode kernels at the head counts a
+    model axis of 2 and 4 leaves a rank. Returns the launches of the dry
+    run on the mesh, the demo and the one-process greedy action."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from vaura_tpu_torch import demo, dryrun
+    from vaura_tpu_torch.main import main
+    from vaura_tpu_torch.ops.audio import read_wav
+
+    root = os.path.join(OUT_DIR, "mesh")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    res, problems, total = {"walls_s": {}}, [], {}
+    walls = res["walls_s"]
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    # (a) the flagship dry run on the mesh and in one process
+    out = os.path.join(root, "dryrun.pt")
+    walls["dryrun_mesh"] = _torchrun("dryrun", [
+        "-m", "vaura_tpu_torch.dryrun", "--system", "flagship", "--mesh",
+        "1x1x1", "--out", out], root)
+    meshed = torch.load(out, weights_only=False)
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    one = dryrun.run(None, "cuda", "flagship")
+    walls["dryrun_one_process"] = time.time() - t0
+    rel = abs(meshed["loss"] - one["loss"]) / abs(one["loss"])
+    same = torch.equal(meshed["codes"], one["codes"].cpu())
+    steps = 24 * 229  # 221 tokens: 229 decode steps of 24 layers
+    want = {"decode_attention": steps, "encoder_attention": 24,
+            "encoder_mlp": 12, "grouped_cls_attention": 24}
+    add(meshed["launches"])
+    res["dryrun"] = {"loss_mesh": meshed["loss"], "loss_one": one["loss"],
+                     "loss_rel": rel, "codes_equal": same,
+                     "codes": list(meshed["codes"].shape),
+                     "launches": meshed["launches"]}
+    log(f"[mesh] dryrun flagship 1x1x1: loss {meshed['loss']:.7f} (one "
+        f"process {one['loss']:.7f}, rel {rel:.2e}), greedy codes "
+        f"{tuple(meshed['codes'].shape)} equal: {same}; launches "
+        f"{meshed['launches']}")
+    if not rel <= MESH_LOSS_REL:
+        problems.append(f"dryrun loss rel {rel:.2e} > {MESH_LOSS_REL}")
+    if not same:
+        problems.append("dryrun greedy codes differ from one process")
+    if _differs(meshed["launches"], want):
+        problems.append(f"dryrun launches {meshed['launches']}, expected "
+                        f"{want}")
+    if not bool(torch.isfinite(meshed["audio"]).all()):
+        problems.append("dryrun audio not finite")
+    del one, meshed
+    torch.cuda.empty_cache()
+
+    # (b) the generate action: a data mesh under torchrun, one process here
+    argv = [f"config={os.path.join(ROOT, 'configs/generate_vgg.yaml')}",
+            "dataloader.dataset_type=dummy", "dataloader.num_workers=0",
+            "max_batches=1", "return_sampled_indices=true",
+            "use_sampling=false"]
+    dirs = {k: os.path.join(root, f"action_{k}") for k in ("one", "mesh")}
+    _zero_counters()
+    t0 = time.time()
+    main(argv + [f"output_dir={dirs['one']}"])
+    torch.cuda.synchronize()
+    walls["action_one_process"] = time.time() - t0
+    action_launches = _counters()
+    add(action_launches)
+    walls["action_mesh"] = _torchrun("action", [
+        "-m", "vaura_tpu_torch", *argv, f"output_dir={dirs['mesh']}"], root)
+    files = {k: sorted(os.listdir(d)) for k, d in dirs.items()}
+    n_codes = sum(f.endswith(".codes.npy") for f in files["mesh"])
+    differ = [f for f in files["one"] if f.endswith(".codes.npy") and not
+              np.array_equal(np.load(os.path.join(dirs["one"], f)),
+                             np.load(os.path.join(dirs["mesh"], f)))]
+    wav_err = max(float(np.abs(read_wav(os.path.join(dirs["one"], f))[0]
+                               - read_wav(os.path.join(dirs["mesh"], f))[0]
+                               ).max())
+                  for f in files["one"] if f.endswith(".wav"))
+    res["action"] = {"files_equal": files["one"] == files["mesh"],
+                     "clips": n_codes, "codes_differ": differ,
+                     "wav_max_abs_diff": wav_err,
+                     "launches_one_process": action_launches}
+    log(f"[mesh] generate action, batch 16 greedy: {n_codes} clips on the "
+        f"mesh, codes differ in {len(differ)}, WAVs at most {wav_err:.3e} "
+        f"apart; one-process launches {action_launches}")
+    if files["one"] != files["mesh"] or n_codes != 16 or differ:
+        problems.append(f"generate action on the mesh: files "
+                        f"{files['mesh'][:4]}..., codes differ in {differ}")
+
+    # (c) the demo from a frames file: 8 segments of 240 x 320 frames
+    frames = np.random.default_rng(0).integers(
+        0, 256, (8 * 16, 240, 320, 3)).astype(np.uint8)
+    path = os.path.join(root, "frames.npy")
+    np.save(path, frames)
+    _zero_counters()
+    t0 = time.time()
+    demo.main(["--frames", path, "--long-duration", "5.12", "--out",
+               os.path.join(root, "demo")])
+    torch.cuda.synchronize()
+    walls["demo"] = time.time() - t0
+    demo_launches = _counters()
+    add(demo_launches)
+    wavs = {}
+    for name, tokens in (("generated.wav", int(2.56 * 86)),
+                         ("generated_long.wav", int(5.12 * 86))):
+        wav, sr = read_wav(os.path.join(root, "demo", name))
+        wavs[name] = list(wav.shape)
+        if (sr != 44100 or wav.shape != (1, tokens * 512)
+                or not np.isfinite(wav).all() or float(wav.std()) == 0.0):
+            problems.append(f"demo {name}: {wav.shape} at {sr} Hz")
+    # the encoder once per call (4 segments, then all 8 for the long run)
+    if (demo_launches["encoder_attention"], demo_launches["encoder_mlp"]) != (
+            48, 24) or demo_launches["decode_attention"] <= steps:
+        problems.append(f"demo launches {demo_launches}")
+    res["demo"] = {"wavs": wavs, "launches": demo_launches}
+    log(f"[mesh] demo: {wavs}, launches {demo_launches}")
+    os.remove(path)
+
+    # (d) the decode kernels at local head counts
+    t0 = time.time()
+    res["local_heads"] = check_decode_local_heads(gen)
+    walls["decode_local_heads"] = time.time() - t0
+    report["mesh"] = res
+    print("mesh: " + json.dumps({
+        "walls_s": walls, "loss_rel": res["dryrun"]["loss_rel"],
+        "decode_ms": {k: v["ms"] for k, v in res["local_heads"].items()}}),
+        flush=True)
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return total
+
+
 def main() -> int:
     try:
         import torch
@@ -3415,6 +3673,7 @@ def main() -> int:
                            report) or {}
     quant_launches = run("quant_modes", phase_quant_modes, gen, report) or {}
     run("quant_quality", phase_quant_quality, gen, report)
+    mesh_launches = run("mesh", phase_mesh, gen, report) or {}
 
     # each kernel's count on the main paths that run it: generation for the
     # decode and fused encoder kernels, generation with the int8 cache for
@@ -3433,7 +3692,8 @@ def main() -> int:
             + serve_launches.get(name, 0)
             + finetune_launches.get(name, 0)
             + variant_launches.get(name, 0)
-            + quant_launches.get(name, 0))
+            + quant_launches.get(name, 0)
+            + mesh_launches.get(name, 0))
     report["kernels"] = kernels
     report["failed"] = failed
     os.makedirs(OUT_DIR, exist_ok=True)

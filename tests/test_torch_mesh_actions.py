@@ -1,0 +1,113 @@
+"""The train and generate actions as a user starts them on several
+processes (``python -m torch.distributed.run --nproc_per_node=2 -m
+vaura_tpu_torch ...``), on the CPU with gloo and the tiny model of
+``configs/experiments/dummy.yaml``:
+
+  * the train action on a mesh of fsdp 2 writes one run directory, one
+    TensorBoard file and its checkpoints from rank 0 only; its checkpoint
+    equals the one-process run's within 1e-6 (the same seeds and batches)
+    and loads into a one-process ``TrainState``; a mesh run resumes the
+    one-process run's checkpoint;
+  * JAX's fallback: a batch not divisible by ``data * fsdp`` runs
+    unsharded with JAX's warning;
+  * the generate action shards its batch over a data mesh and writes each
+    WAV once, byte for byte the one-process run's (greedy decoding).
+
+Each launch has 180 s.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+TIMEOUT_S = 180
+TRAIN = ["config=configs/experiments/dummy.yaml", "trainer.platform=cpu"]
+GENERATE = ["config=configs/experiments/dummy.yaml", "action=generate",
+            "trainer.platform=cpu", "duration=0.15", "model_max_duration=0.64",
+            "dataloader.batch_size=4", "max_batches=2", "use_sampling=false",
+            "cfg_scale=3.0"]
+
+
+def _run(args, nproc=None):
+    launch = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
+               f"--nproc_per_node={nproc}", "-m", "vaura_tpu_torch"]
+              if nproc else [sys.executable, "-m", "vaura_tpu_torch"])
+    r = subprocess.run(launch + args, cwd=REPO, capture_output=True,
+                       text=True, timeout=TIMEOUT_S,
+                       env=dict(os.environ, OMP_NUM_THREADS="1"))
+    assert r.returncode == 0, (r.stdout + r.stderr)[-4000:]
+    return r.stdout + r.stderr
+
+
+def _run_dir(log_dir: Path) -> Path:
+    (run,) = [p for p in log_dir.iterdir() if p.is_dir()]
+    return run
+
+
+def _state(run: Path) -> dict:
+    return torch.load(run / "checkpoints" / "last" / "state.pt",
+                      weights_only=True)
+
+
+def _test_loss(text: str) -> float:
+    line = [x for x in text.splitlines() if "test: {'test_loss'" in x][-1]
+    return float(line.rsplit(":", 1)[1].strip(" }"))
+
+
+def test_train_action_on_a_mesh(tmp_path):
+    mesh_logs, one_logs = tmp_path / "mesh", tmp_path / "one"
+    text = _run(TRAIN + [f"trainer.log_dir={mesh_logs}", "trainer.mesh.data=1",
+                         "trainer.mesh.fsdp=2"], nproc=2)
+    assert "Mesh: {'data': 1, 'fsdp': 2, 'model': 1}" in text
+    one_text = _run(TRAIN + [f"trainer.log_dir={one_logs}"])
+    run, one = _run_dir(mesh_logs), _run_dir(one_logs)
+    assert len(list(run.glob("events.out.tfevents.*"))) == 1
+    entries = lambda d: sorted(p.name for p in d.iterdir()
+                               if not p.name.startswith("events."))
+    assert entries(run) == entries(one)
+    assert entries(run / "checkpoints") == entries(one / "checkpoints")
+    got, want = _state(run), _state(one)
+    assert got["step"] == want["step"] == 2
+    assert set(got["params"]) == set(want["params"])
+    for k, v in want["params"].items():
+        torch.testing.assert_close(got["params"][k], v, rtol=0, atol=1e-6)
+    assert abs(_test_loss(text) - _test_loss(one_text)) < 1e-6
+    # the mesh's checkpoint tested in one process
+    tested = _run(TRAIN + ["action=test", f"trainer.log_dir={tmp_path / 't'}",
+                           f"trainer.ckpt_path={run / 'checkpoints' / 'last'}"])
+    assert abs(_test_loss(tested) - _test_loss(text)) < 1e-6
+    # the one-process checkpoint resumed on the mesh for a second epoch
+    resumed = _run(TRAIN + [
+        f"trainer.log_dir={tmp_path / 'r'}", "trainer.mesh.data=1",
+        "trainer.mesh.fsdp=2", "trainer.fast_dev_run=false",
+        "trainer.max_epochs=2", "trainer.limit_train_batches=2",
+        "trainer.limit_val_batches=1", "trainer.limit_test_batches=1",
+        f"trainer.ckpt_path={one / 'checkpoints' / 'last'}"], nproc=2)
+    assert "Resumed from" in resumed and "(epoch 1)" in resumed
+    assert _state(_run_dir(tmp_path / "r"))["step"] == 4
+
+
+def test_indivisible_batch_runs_unsharded(tmp_path):
+    text = _run(TRAIN + [f"trainer.log_dir={tmp_path}",
+                         "dataloader.batch_size=3"], nproc=2)
+    assert "batch_size 3 not divisible by data*fsdp=2; running unsharded" in text
+    run = _run_dir(tmp_path)
+    assert len(list(run.glob("events.out.tfevents.*"))) == 1
+    assert _state(run)["step"] == 2
+
+
+def test_generate_action_shards_its_batch(tmp_path):
+    one, mesh = tmp_path / "one", tmp_path / "mesh"
+    _run(GENERATE + [f"output_dir={one}"])
+    text = _run(GENERATE + [f"output_dir={mesh}"], nproc=2)
+    assert "sharding generation batch 4 over 2 processes" in text
+    names = sorted(p.name for p in one.iterdir())
+    assert names == sorted(p.name for p in mesh.iterdir())
+    assert len([n for n in names if n.endswith(".wav")]) == 8
+    for n in names:
+        if n.endswith(".wav"):
+            assert (one / n).read_bytes() == (mesh / n).read_bytes(), n

@@ -212,3 +212,55 @@ def test_finetune_and_eval_modules_are_covered_and_need_a_device(
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True)
     assert r.returncode == 0, r.stderr
+
+
+def test_multi_device_and_demo_modules_are_covered_and_need_a_device(
+        monkeypatch, tmp_path):
+    """The mesh, the multi-process start-up, the dry run and the demo are
+    under the import rule above, load nothing of JAX or PyYAML, and run on
+    the card unless the CPU is asked: without CUDA they raise, a process
+    group of several ranks on the card never forms without it, and the dry
+    run spawns its CPU processes (``--n``) only with ``--platform cpu``."""
+    names = {str(f.relative_to(ROOT)) for f in _port_files()}
+    for mod in ("parallel/__init__.py", "parallel/mesh.py",
+                "parallel/multihost.py", "parallel/partitioning.py",
+                "parallel/tensor_parallel.py", "dryrun.py", "demo.py",
+                "utils/demo_utils.py"):
+        assert f"vaura_tpu_torch/{mod}" in names, mod
+    from vaura_tpu_torch import demo, dryrun
+    from vaura_tpu_torch.main import main
+    from vaura_tpu_torch.parallel.multihost import initialize_distributed
+
+    monkeypatch.chdir(ROOT)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        initialize_distributed("127.0.0.1:1", num_processes=2, process_id=0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dryrun.run(None)
+    # its CPU processes only when the CPU is asked, before spawning any
+    for argv in (["--n", "2"], ["--n", "2", "--platform", "cuda"]):
+        with pytest.raises(SystemExit) as exit_:
+            dryrun.main(argv)
+        assert exit_.value.code == 2
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        demo.main(["--frames", str(tmp_path / "x.npy"),
+                   "--out", str(tmp_path / "out")])
+    # the actions a run of several processes may not start
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    for action in ("serve", "finetune", "test", "eval"):
+        with pytest.raises(NotImplementedError, match="runs on one card"):
+            main(["config=configs/experiments/dummy.yaml",
+                  f"action={action}", f"trainer.log_dir={tmp_path}"])
+    assert not any(tmp_path.iterdir())
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            "import vaura_tpu_torch.parallel, vaura_tpu_torch.dryrun\n"
+            "import vaura_tpu_torch.demo, vaura_tpu_torch.utils.demo_utils\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN + ('yaml',)!r}]\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True)
+    assert r.returncode == 0, r.stderr

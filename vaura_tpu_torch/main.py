@@ -17,6 +17,17 @@ adapters); ``generate`` and ``predict`` the generate action
 ``.eval_metrics``). The device is ``cuda`` unless the config says
 ``trainer.platform=cpu``; without CUDA and without that key the action
 raises.
+
+Several processes, one per card::
+
+    torchrun --nproc_per_node=N -m vaura_tpu_torch config=... action=train
+    torchrun --nproc_per_node=N -m vaura_tpu_torch config=... action=generate
+
+join one process group (``parallel.multihost.initialize_distributed``:
+NCCL on the cards, gloo with ``trainer.platform=cpu``) before anything
+touches a device; the train action then shards over ``trainer.mesh`` and
+the generate action its batch over a data mesh. The other actions run on
+one card and refuse a run of several processes.
 """
 
 from __future__ import annotations
@@ -28,6 +39,10 @@ from pathlib import Path
 REPO_ROOT = Path(__file__).absolute().parents[1]
 
 logger = logging.getLogger("vaura_tpu_torch")
+
+
+# the actions a run of several processes (torchrun) may start
+_MULTI_PROCESS = ("train", "generate", "predict")
 
 
 def get_config(argv):
@@ -52,6 +67,14 @@ def main(argv=None) -> dict:
     action = cfg.get("action")
     logging.basicConfig(level=logging.WARNING)
     logger.setLevel(logging.INFO)
+    from vaura_tpu_torch.parallel import multihost
+    from vaura_tpu_torch.scripts.generate import config_device_type
+
+    if multihost.world_from_env() > 1 and action not in _MULTI_PROCESS:
+        raise NotImplementedError(
+            f"action={action} runs on one card; a run of several processes "
+            f"is ported for {sorted(_MULTI_PROCESS)} (ROADMAP.md)")
+    multihost.initialize_distributed(device_type=config_device_type(cfg))
     if action == "train":
         from vaura_tpu_torch.scripts.train import train
 

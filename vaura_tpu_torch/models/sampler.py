@@ -15,7 +15,9 @@ embeddings and the softmax stay float32.
 
 Every stochastic operation of ``forward(train=True)`` (token, ``wo`` and
 feed-forward dropout, attention dropout, stochastic depth, the CFG
-``token_drop``) draws its mask from the explicit ``generator``.
+``token_drop``) draws its mask from the explicit ``generator``; under a
+mesh, this rank's rows and heads of the one-process draw
+(``ops/dropout.py::batch_shard``).
 
 The KV cache is one preallocated ``[L, B, S, H_kv, hd]`` buffer per key and
 value: bf16, or int8 with float32 ``k_scale``/``v_scale [L, B, S, H_kv]``
@@ -59,13 +61,20 @@ from torch.utils.checkpoint import (
 )
 
 from vaura_tpu_torch.ops.decode_attention import decode_attention
-from vaura_tpu_torch.ops.dropout import drop_path, dropout
+from vaura_tpu_torch.ops.dropout import (
+    batch_shard,
+    current_batch_shard,
+    drop_path,
+    dropout,
+    uniform,
+)
 from vaura_tpu_torch.ops.quantization import (
     quant_dense,
     quantize_kv,
     quantize_kv4,
 )
 from vaura_tpu_torch.ops.rope import apply_rotary_emb, precompute_freqs_cis
+from vaura_tpu_torch.parallel import tensor_parallel as tp_ops
 from vaura_tpu_torch.utils import ANY, drop_unported_fields
 
 
@@ -288,7 +297,10 @@ class RMSNorm(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """SwiGLU: ``w2(silu(w1 x) * w3 x)``."""
+    """SwiGLU: ``w2(silu(w1 x) * w3 x)``. Under tensor parallelism
+    (``tp``, set by ``parallel.shard_module``) ``w1``/``w3`` hold this
+    rank's hidden rows and ``w2`` its hidden columns; the partial outputs
+    are all-reduced."""
 
     def __init__(self, cfg: SamplerConfig, device=None):
         super().__init__()
@@ -296,16 +308,22 @@ class FeedForward(nn.Module):
         self.w1 = PDense(cfg.d_model, cfg.ffn_hidden_dim, cfg, device)
         self.w3 = PDense(cfg.d_model, cfg.ffn_hidden_dim, cfg, device)
         self.w2 = PDense(cfg.ffn_hidden_dim, cfg.d_model, cfg, device)
+        self.tp = None
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        out = self.w2(F.silu(self.w1(x)) * self.w3(x))
+        x = tp_ops.enter(self.tp, x)
+        out = tp_ops.reduce(self.tp, self.w2(F.silu(self.w1(x)) * self.w3(x)))
         return dropout(out, self.dropout, train, generator)
 
 
 class Attention(nn.Module):
     """Fused-QKV attention with RoPE: ``forward`` is the full-sequence
-    masked branch (training), ``decode`` one position against the cache."""
+    masked branch (training), ``decode`` one position against the cache.
+    ``n_heads``/``n_kv`` are the heads this module computes: all of them,
+    or under tensor parallelism (``tp``, set by ``parallel.shard_module``)
+    this rank's, whose q, k and v rows ``wqkv`` holds; ``wo`` then holds
+    their input columns and the partial outputs are all-reduced."""
 
     def __init__(self, cfg: SamplerConfig, device=None):
         super().__init__()
@@ -313,6 +331,8 @@ class Attention(nn.Module):
         kv_dim = cfg.n_kv_heads * cfg.head_dim
         self.wqkv = PDense(cfg.d_model, cfg.d_model + 2 * kv_dim, cfg, device)
         self.wo = PDense(cfg.d_model, cfg.d_model, cfg, device)
+        self.n_heads, self.n_kv = cfg.nhead, cfg.n_kv_heads
+        self.tp = None
 
     def forward(self, x: torch.Tensor, freqs_cis: torch.Tensor,
                 mask: torch.Tensor, train: bool = False,
@@ -336,7 +356,8 @@ class Attention(nn.Module):
         hd]`` (after RoPE), what ``prefill`` puts into the cache."""
         cfg = self.cfg
         B, S, _ = x.shape
-        H, Hkv, hd = cfg.nhead, cfg.n_kv_heads, cfg.head_dim
+        H, Hkv, hd = self.n_heads, self.n_kv, cfg.head_dim
+        x = tp_ops.enter(self.tp, x)
         q, k, v = self.wqkv(x).split([H * hd, Hkv * hd, Hkv * hd], dim=-1)
         q = apply_rotary_emb(q.reshape(B, S, H, hd), freqs_cis)
         k = apply_rotary_emb(k.reshape(B, S, Hkv, hd), freqs_cis)
@@ -350,11 +371,16 @@ class Attention(nn.Module):
         scores = torch.where(mask[None, None], scores,
                              scores.new_full((), -1e30))
         probs = torch.softmax(scores, dim=-1)
-        if probs_out is not None:
-            probs_out.append(probs.mean(1))
-        probs = dropout(probs, cfg.attn_dropout_p, train, generator)
+        if probs_out is not None:  # the mean over every head
+            probs_out.append(probs.mean(1) if self.tp is None else
+                             tp_ops.reduce(self.tp, probs.sum(1)) / cfg.nhead)
+        # this rank's heads of a draw for all of them (ops/dropout.py)
+        probs = dropout(probs, cfg.attn_dropout_p, train, generator,
+                        None if self.tp is None else (self.tp.rank,
+                                                      self.tp.size))
         out = torch.einsum("bhst,bthd->bshd", probs.to(v.dtype), v)
-        out = self.wo(out.reshape(B, S, H * hd).to(cfg.dtype))
+        out = tp_ops.reduce(self.tp,
+                            self.wo(out.reshape(B, S, H * hd).to(cfg.dtype)))
         return dropout(out, cfg.dropout, train, generator), kv
 
     def decode(self, x: torch.Tensor, freqs_cis: torch.Tensor,
@@ -370,7 +396,7 @@ class Attention(nn.Module):
         Returns the output and this position's ``(k, v) [B, H_kv, hd]``."""
         cfg = self.cfg
         B = x.shape[0]
-        H, Hkv, hd = cfg.nhead, cfg.n_kv_heads, cfg.head_dim
+        H, Hkv, hd = self.n_heads, self.n_kv, cfg.head_dim
         q, k, v = self.wqkv(x).split([H * hd, Hkv * hd, Hkv * hd], dim=-1)
         q = apply_rotary_emb(q.reshape(B, 1, H, hd), freqs_cis)[:, 0]
         k = apply_rotary_emb(k.reshape(B, 1, Hkv, hd), freqs_cis)[:, 0]
@@ -381,7 +407,8 @@ class Attention(nn.Module):
             cache_bits=cfg.cache_bits,
             int8_dots=cfg.int8_dots and cfg.quantize_cache,
             chunk_starts=chunk_starts)
-        return self.wo(out.reshape(B, 1, H * hd).to(cfg.dtype)), (k, v)
+        out = self.wo(out.reshape(B, 1, H * hd).to(cfg.dtype))
+        return tp_ops.reduce(self.tp, out), (k, v)
 
 
 class TransformerBlock(nn.Module):
@@ -484,8 +511,8 @@ class AVCLIPEmbedder(nn.Module):
                    ) -> torch.Tensor:
         """Replace whole samples (one draw per batch row) with the null
         condition with probability ``class_dropout_prob``."""
-        drop = torch.rand(feats.shape[0], device=feats.device,
-                          generator=generator) < self.cfg.class_dropout_prob
+        drop = uniform((feats.shape[0],), feats.device,
+                       generator) < self.cfg.class_dropout_prob
         uncond = self._uncond_rows(feats.shape[1]).to(feats.dtype)
         return torch.where(drop[:, None, None], uncond.expand_as(feats), feats)
 
@@ -543,13 +570,24 @@ class Sampler(nn.Module):
         freqs = precompute_freqs_cis(cfg.block_size, cfg.head_dim, cfg.rope_base)
         self.register_buffer("freqs_cis", torch.as_tensor(freqs, device=device),
                              persistent=False)
+        # tensor parallelism over the mesh's model axis (parallel.
+        # shard_module): lm_head then holds this rank's logit rows, which
+        # are gathered whole before the loss and sampling
+        self.tp = None
+
+    @property
+    def n_kv_local(self) -> int:
+        """The KV heads of this rank's cache (all of them without tensor
+        parallelism)."""
+        return self.layers[0].attention.n_kv
 
     # ---------------------------------------------------------------- #
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         B, S, _ = h.shape
-        out = self.lm_head(self.norm(h)).reshape(B, S, cfg.num_codebooks,
-                                                 cfg.d_codebook)
+        out = tp_ops.gather(self.tp, self.lm_head(
+            tp_ops.enter(self.tp, self.norm(h))))
+        out = out.reshape(B, S, cfg.num_codebooks, cfg.d_codebook)
         return out.permute(0, 2, 1, 3)  # [B, K, S, vocab]
 
     def embed_cond(self, cond_feats: torch.Tensor, train: bool = False,
@@ -591,6 +629,7 @@ class Sampler(nn.Module):
         remat = cfg.remat and torch.is_grad_enabled() and probs is None
         stochastic = train and bool(cfg.dropout or cfg.attn_dropout_p
                                     or cfg.drop_path_rate)
+        shard = current_batch_shard()
         for layer in self.layers:
             if not remat:
                 h = layer(h, freqs, mask, train, generator, probs)
@@ -610,7 +649,7 @@ class Sampler(nn.Module):
             def run(x, layer=layer, seed=seed, merged=merged):
                 g = (None if seed is None else
                      torch.Generator(device=x.device).manual_seed(seed))
-                with use_weights(merged):
+                with use_weights(merged), batch_shard(shard):
                     return layer(x, freqs, mask, train, g)
 
             h = checkpoint(run, h, use_reentrant=False,
@@ -636,7 +675,7 @@ class Sampler(nn.Module):
         (``dtype`` is then not read); and the rows' ``positions`` (and,
         under ``int8_dots``, one quantization group: ``chunk_starts``)."""
         cfg = self.cfg
-        shape = (cfg.num_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+        shape = (cfg.num_layers, batch, max_seq, self.n_kv_local, cfg.head_dim)
         dev = self.freqs_cis.device
         if cfg.quantize_cache:
             packed = shape[:-1] + (cfg.head_dim // 2 if cfg.cache_bits == 4

@@ -37,6 +37,16 @@ cache's ``chunk_starts`` (``chunk_bounds``, the kept chunks' rows of the
 rolling cache).
 Sampling draws from the caller's ``torch.Generator``, one generator for the
 whole call where JAX splits its key per chunk.
+
+Under a mesh (``parallel.shard_module`` sets ``placement``) every rank
+calls the same entry point on its rows of the batch: training sums the
+ranks' shares of the global loss (``ops/losses.py``); generation runs on
+each rank's rows with the whole (or, over ``model``, this rank's) weights
+gathered once for the call (``gathered_weights``), the CFG null stream
+stacked after the batch was sharded, so each row's two halves stay on one
+rank, draws of the whole batch's noise (``ops/sampling.py``), and the codes
+and audio gathered to every rank or to rank 0 when the caller asks
+(``gather``).
 """
 
 from __future__ import annotations
@@ -61,6 +71,7 @@ from vaura_tpu_torch.models.sampler import (
     default_tokens_per_frame,
     use_weights,
 )
+from vaura_tpu_torch.ops.dropout import batch_shard
 from vaura_tpu_torch.ops.losses import masked_codebook_cross_entropy
 from vaura_tpu_torch.ops.patterns import (
     CodebooksPatternProvider,
@@ -95,22 +106,30 @@ def chunk_bounds(S: int, decode_buckets: int, start_step: int = 1) -> list:
     return [0] + [h - 1 for h in eff[:-1]] + [S]
 
 
-def _merges_lora(fn):
-    """Run an entry point (a function or a generator) inside
-    ``VauraSystem.lora_merged``, where the JAX package resolves its
-    parameters (``_resolve_params``)."""
-    if inspect.isgeneratorfunction(fn):
-        @functools.wraps(fn)
-        def stream(self, *args, **kwargs):
-            with self.lora_merged():
-                yield from fn(self, *args, **kwargs)
-        return stream
+def _within(context: str):
+    """A decorator that runs an entry point (a function or a generator)
+    inside the system's context manager named ``context``."""
+    def wrap(fn):
+        if inspect.isgeneratorfunction(fn):
+            @functools.wraps(fn)
+            def stream(self, *args, **kwargs):
+                with getattr(self, context)():
+                    yield from fn(self, *args, **kwargs)
+            return stream
 
-    @functools.wraps(fn)
-    def call(self, *args, **kwargs):
-        with self.lora_merged():
-            return fn(self, *args, **kwargs)
-    return call
+        @functools.wraps(fn)
+        def call(self, *args, **kwargs):
+            with getattr(self, context)():
+                return fn(self, *args, **kwargs)
+        return call
+    return wrap
+
+
+# the LoRA merge where the JAX package resolves its parameters
+# (``_resolve_params``), and a mesh's weights gathered once a generation
+_merges_lora = _within("lora_merged")
+_gathers_weights = _within("gathered_weights")
+_draws_by_rows = _within("row_draws")
 
 
 class VauraSystem(nn.Module):
@@ -157,6 +176,65 @@ class VauraSystem(nn.Module):
             self.lora_sampler = init_lora(
                 self.sampler, self.lora_rank,
                 tuple(lora_targets or DEFAULT_TARGETS))
+        # the mesh placement (parallel.shard_module); None on one device
+        self.placement = None
+        self._weights_gathered = False
+
+    @contextlib.contextmanager
+    def gathered_weights(self):
+        """Under a mesh, gather the FSDP2-sharded modules' weights (this
+        model rank's part of each) once, until the block ends: generation
+        calls the sampler's decode methods hundreds of times, and a gather
+        per call would cost a collective per layer and step. Nothing on one
+        device, or inside an enclosing block."""
+        if self.placement is None or self._weights_gathered:
+            yield
+            return
+        from torch.distributed.fsdp import FSDPModule
+
+        mods = [m for m in self.modules() if isinstance(m, FSDPModule)]
+        for m in mods:
+            m.unshard()
+        self._weights_gathered = True
+        try:
+            yield
+        finally:
+            self._weights_gathered = False
+            for m in mods:
+                m.reshard()
+
+    def row_draws(self):
+        """Under a mesh, the masks of a training forward drawn for the whole
+        batch, of which this rank keeps its rows
+        (``ops/dropout.py::batch_shard``); nothing on one device."""
+        pl = self.placement
+        return batch_shard(None if pl is None
+                           else (pl.batch_rank, pl.batch_size))
+
+    def _sample_rows(self, batch: int):
+        """``(first row, rows)`` of this rank's ``batch`` rows in the whole
+        batch under a mesh, for the draws of ``ops.sampling``; None on one
+        device."""
+        pl = self.placement
+        return None if pl is None else (pl.batch_rank * batch,
+                                        pl.batch_size * batch)
+
+    def _gather_result(self, result: Dict[str, object],
+                       gather: Optional[str]) -> Dict[str, object]:
+        """Under a mesh, ``result``'s codes and audio of the whole batch on
+        every rank (``gather="all"``) or on rank 0 (``"main"``; the other
+        ranks get None); this rank's rows when ``gather`` is None."""
+        if gather is None or self.placement is None:
+            return result
+        for key in ("codes", "audio"):
+            if key in result:
+                result[key] = self.placement.gather_rows(result[key], gather)
+        return result
+
+    def batch_total(self, x: torch.Tensor) -> torch.Tensor:
+        """A loss of this rank's rows summed over the batch's shards: the
+        whole batch's loss (``x`` itself on one device)."""
+        return x if self.placement is None else self.placement.batch_sum(x)
 
     @property
     def num_codebooks(self) -> int:
@@ -290,6 +368,7 @@ class VauraSystem(nn.Module):
         return self.dac.encode(audio.to(self.device))
 
     @_merges_lora
+    @_draws_by_rows
     def train_forward(
         self,
         frames: Optional[torch.Tensor],
@@ -335,8 +414,9 @@ class VauraSystem(nn.Module):
         mask = torch.as_tensor(logits_mask, device=self.device)[None].expand(
             B, K, Ta)
         targets = codes[:, :K]
-        loss, loss_per_cb = masked_codebook_cross_entropy(reverted, targets,
-                                                          mask)
+        loss, loss_per_cb = masked_codebook_cross_entropy(
+            reverted, targets, mask,
+            None if self.placement is None else self.placement.batch_sum)
         return loss, {"loss_per_codebook": loss_per_cb, "logits": reverted,
                       "targets": targets, "mask": mask}
 
@@ -399,7 +479,8 @@ class VauraSystem(nn.Module):
             logits = cfg_blend(logits[:B], logits[B:], cfg_scale)
         next_tok = sample_tokens(logits, generator=generator,
                                  use_sampling=use_sampling, temp=temp,
-                                 top_k=top_k, top_p=top_p)
+                                 top_k=top_k, top_p=top_p,
+                                 rows=self._sample_rows(B))
         next_tok = torch.where(valid_mask[None, :, s], next_tok,
                                self.special_token_id)
         cur = gen_seq[:, :, s]
@@ -455,6 +536,7 @@ class VauraSystem(nn.Module):
 
     @torch.no_grad()
     @_merges_lora
+    @_gathers_weights
     def generate(
         self,
         frames: Optional[torch.Tensor] = None,
@@ -476,9 +558,12 @@ class VauraSystem(nn.Module):
         encoder_chunk_size: Optional[int] = None,
         decode_buckets: int = 8,
         check: bool = False,
+        gather: Optional[str] = None,
     ) -> Dict[str, object]:
         """Frames (or features) -> ``{"codes" [B, K, max_new_tokens],
-        "audio" [B, 1, samples], "stage_ms"}``. Sampling draws from
+        "audio" [B, 1, samples], "stage_ms"}``; under a mesh of this rank's
+        rows, or with ``gather`` (``"all"``, ``"main"``) of the whole batch
+        (``_gather_result``). Sampling draws from
         ``generator`` (a new one seeded with ``seed`` on the system's device
         when none is given). A prompt whose first generated step lies past
         sequence step 16 is ingested by one ``Sampler.prefill`` and the
@@ -555,7 +640,7 @@ class VauraSystem(nn.Module):
             result["audio"] = self.decode_audio(out_codes, chunk_size=dac_chunk_size)
             clock.mark("dac")
         result["stage_ms"] = clock.ms()
-        return result
+        return self._gather_result(result, gather)
 
     # ------------------------------------------------------------------ #
     # long horizons
@@ -653,6 +738,7 @@ class VauraSystem(nn.Module):
 
     @torch.no_grad()
     @_merges_lora
+    @_gathers_weights
     def generate_long(
         self,
         frames: Optional[torch.Tensor] = None,   # [B, S_total, C, T, H, W]
@@ -670,13 +756,15 @@ class VauraSystem(nn.Module):
         dac_chunk_size: Optional[int] = None,
         encoder_chunk_size: Optional[int] = None,
         decode_buckets: int = 2,
+        gather: Optional[str] = None,
         **sampling,
     ) -> Dict[str, object]:
         """Long generation in chunks with the prompt carried over (see
         ``_long_chunk_tokens``): ``{"codes" [B, K, total_tokens], "audio",
         "stage_ms"}``. The encoder runs once over all segments. Every chunk
         after the first ingests its prompt with ``Sampler.prefill``.
-        ``sampling``: ``generate``'s sampling keywords and ``check``."""
+        ``sampling``: ``generate``'s sampling keywords and ``check``;
+        ``gather`` as ``generate``'s."""
         clock = StageClock(self.device)
         clock.mark("start")
         generator = self._generator(generator, seed)
@@ -695,7 +783,7 @@ class VauraSystem(nn.Module):
             result["audio"] = self.decode_audio(codes, chunk_size=dac_chunk_size)
             clock.mark("dac")
         result["stage_ms"] = clock.ms()
-        return result
+        return self._gather_result(result, gather)
 
     def _longkv_setup(self, frames, vis_feats_segments, *, total_tokens: int,
                       tokens_per_frame: int,
@@ -870,6 +958,7 @@ class VauraSystem(nn.Module):
 
     @torch.no_grad()
     @_merges_lora
+    @_gathers_weights
     def generate_long_kv(
         self,
         frames: Optional[torch.Tensor] = None,   # [B, S_total, C, T, H, W]
@@ -888,6 +977,7 @@ class VauraSystem(nn.Module):
         dac_chunk_size: Optional[int] = None,
         encoder_chunk_size: Optional[int] = None,
         check: bool = False,
+        gather: Optional[str] = None,
         **sampling,
     ) -> Dict[str, object]:
         """Long generation as ONE decode over the whole horizon with the
@@ -897,7 +987,8 @@ class VauraSystem(nn.Module):
         (``block_size >= S``, else ``ValueError``). With ``window_chunks *
         chunk_steps >= S`` the tokens are ``generate(max_new_tokens=
         total_tokens)``'s; with a smaller window every position's K/V keep
-        the history they were computed with (JAX ``vaura.py:1151-1233``)."""
+        the history they were computed with (JAX ``vaura.py:1151-1233``).
+        ``gather`` as ``generate``'s."""
         clock = StageClock(self.device)
         clock.mark("start")
         generator = self._generator(generator, seed)
@@ -922,7 +1013,7 @@ class VauraSystem(nn.Module):
             result["audio"] = self.decode_audio(codes, chunk_size=dac_chunk_size)
             clock.mark("dac")
         result["stage_ms"] = clock.ms()
-        return result
+        return self._gather_result(result, gather)
 
     def _emit(self, codes: torch.Tensor, emitted: int, n_known: int,
               final: bool, margin: int):
@@ -943,6 +1034,7 @@ class VauraSystem(nn.Module):
 
     @torch.no_grad()
     @_merges_lora
+    @_gathers_weights
     def generate_long_kv_stream(
         self,
         frames: Optional[torch.Tensor] = None,   # [B, S_total, C, T, H, W]
@@ -1007,6 +1099,7 @@ class VauraSystem(nn.Module):
 
     @torch.no_grad()
     @_merges_lora
+    @_gathers_weights
     def generate_long_stream(
         self,
         frames: Optional[torch.Tensor] = None,   # [B, S_total, C, T, H, W]

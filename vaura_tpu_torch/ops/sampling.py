@@ -1,27 +1,48 @@
 """Sampling primitives and the CFG blend.
 
-Counterpart of ``vaura_tpu/ops/sampling.py``. JAX samples from masked logits
-with the Gumbel trick; here the masked logits go through a float32 softmax
-and ``torch.multinomial`` with an explicit ``torch.Generator``. Both draw
-from the same distribution; they cannot draw the same tokens.
+Counterpart of ``vaura_tpu/ops/sampling.py``. Both sample from masked
+logits with the Gumbel trick (``argmax(logits + gumbel)``), here with the
+uniform noise of an explicit ``torch.Generator``; the two packages draw from
+the same distribution but cannot draw the same tokens.
+
+The noise is drawn for the WHOLE batch: under a mesh (``rows``: this rank's
+first row and the whole batch's row count) every rank draws it from the one
+generator and keeps its own rows, so that a batch draws the same tokens
+however it is sharded, and as one process draws them.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 NEG_INF = -1.0e30
 
 
+Rows = Optional[Tuple[int, int]]
+
+
+def gumbel_noise(shape, rows: Tuple[int, int],
+                 generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """Standard Gumbel noise of ``shape`` (this rank's rows): the rows
+    ``rows[0] .. rows[0] + shape[0]`` of a draw of ``rows[1]`` rows."""
+    row0, total = rows
+    u = torch.rand((total,) + tuple(shape[1:]), generator=generator,
+                   device=device)[row0:row0 + shape[0]]
+    u = u.clamp_min(torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
 def multinomial(logits: torch.Tensor,
-                generator: Optional[torch.Generator]) -> torch.Tensor:
-    """One index per distribution on the last axis of ``logits``."""
-    probs = torch.softmax(logits.float(), dim=-1)
-    flat = probs.reshape(-1, probs.shape[-1])
-    idx = torch.multinomial(flat, 1, generator=generator)
-    return idx.reshape(probs.shape[:-1])
+                generator: Optional[torch.Generator],
+                rows: Rows = None) -> torch.Tensor:
+    """One index per distribution on the last axis of ``logits``, by the
+    Gumbel trick; ``rows`` (default: ``logits`` is the whole batch) places
+    its rows in the whole batch's noise."""
+    g = gumbel_noise(logits.shape, rows or (0, logits.shape[0]), generator,
+                     logits.device)
+    return torch.argmax(logits.float() + g, dim=-1)
 
 
 def top_k_mask(logits: torch.Tensor, k: int) -> torch.Tensor:
@@ -34,12 +55,14 @@ def top_k_mask(logits: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def sample_top_k(logits: torch.Tensor, k: int,
-                 generator: Optional[torch.Generator]) -> torch.Tensor:
-    return multinomial(top_k_mask(logits, k), generator)
+                 generator: Optional[torch.Generator],
+                 rows: Rows = None) -> torch.Tensor:
+    return multinomial(top_k_mask(logits, k), generator, rows)
 
 
 def sample_top_p(logits: torch.Tensor, p: float,
-                 generator: Optional[torch.Generator]) -> torch.Tensor:
+                 generator: Optional[torch.Generator],
+                 rows: Rows = None) -> torch.Tensor:
     """Nucleus sampling: a token is kept while ``cumsum(probs) - probs <= p``
     over the descending order."""
     sorted_logits, sort_idx = torch.sort(logits, dim=-1, descending=True)
@@ -47,7 +70,7 @@ def sample_top_p(logits: torch.Tensor, p: float,
     keep = (torch.cumsum(sorted_probs, dim=-1) - sorted_probs) <= p
     masked = torch.where(keep, sorted_logits.float(),
                          torch.full_like(sorted_probs, NEG_INF))
-    choice = multinomial(masked, generator)
+    choice = multinomial(masked, generator, rows)
     return torch.gather(sort_idx, -1, choice[..., None])[..., 0]
 
 
@@ -59,14 +82,15 @@ def cfg_blend(cond_logits: torch.Tensor, uncond_logits: torch.Tensor,
 
 def sample_tokens(logits: torch.Tensor, *, generator: Optional[torch.Generator],
                   use_sampling: bool = True, temp: float = 1.0, top_k: int = 0,
-                  top_p: float = 0.0) -> torch.Tensor:
+                  top_p: float = 0.0, rows: Rows = None) -> torch.Tensor:
     """Top-p if > 0, else top-k if > 0, else plain multinomial; greedy
-    argmax (first maximum on ties) when sampling is off or ``temp == 0``."""
+    argmax (first maximum on ties) when sampling is off or ``temp == 0``.
+    ``rows`` (under a mesh): see the module docstring."""
     if use_sampling and temp > 0.0:
         scaled = logits / temp
         if top_p > 0.0:
-            return sample_top_p(scaled, top_p, generator)
+            return sample_top_p(scaled, top_p, generator, rows)
         if top_k > 0:
-            return sample_top_k(scaled, top_k, generator)
-        return multinomial(scaled, generator)
+            return sample_top_k(scaled, top_k, generator, rows)
+        return multinomial(scaled, generator, rows)
     return torch.argmax(logits, dim=-1)

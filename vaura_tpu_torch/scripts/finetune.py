@@ -22,7 +22,8 @@ import logging
 
 from vaura_tpu_torch.data import get_datamodule_from_type
 from vaura_tpu_torch.models.factory import maybe_load_pretrained
-from vaura_tpu_torch.scripts.train import init_system, training_device
+from vaura_tpu_torch.scripts.generate import config_device
+from vaura_tpu_torch.scripts.train import init_system
 from vaura_tpu_torch.train.checkpoint import load_base_
 from vaura_tpu_torch.train.lora import count_lora_params
 from vaura_tpu_torch.train.loop import Trainer
@@ -43,7 +44,7 @@ def finetune(cfg: dict) -> dict:
         if ft_cfg.get(key) is not None:
             model_cfg[key] = ft_cfg[key]
     cfg = {**cfg, "model": model_cfg}
-    device = training_device(cfg)
+    device = config_device(cfg)
 
     dirs = init_log_directory(
         trainer_cfg.get("log_dir", "./logs"),

@@ -24,9 +24,15 @@ generation; with ``quantize`` it raises ``ValueError``, as the adapters
 cannot be merged into int8 weights.
 
 The device is ``cuda`` unless the config says ``trainer.platform: cpu``
-(``config_device``); without CUDA and without that key it raises. The
-action runs on one device: the JAX action's sharding of the batch over
-several devices is not ported (ROADMAP.md).
+(``config_device``); without CUDA and without that key it raises. A run
+started by ``torchrun`` (``torchrun --nproc_per_node=N -m vaura_tpu_torch
+config=... action=generate``) shards each batch over a data mesh of its N
+processes when ``dataloader.batch_size`` is divisible by N, as the JAX
+action shards over its devices (``scripts/generate.py:246-262``): every
+rank generates its rows with the whole weights, the codes and audio are
+gathered to rank 0, and rank 0 alone writes every file, each once, with the
+name and content of a one-process run. Otherwise every rank generates the
+whole batch and rank 0 writes.
 """
 
 from __future__ import annotations
@@ -46,6 +52,8 @@ from vaura_tpu_torch.models.factory import build_system
 from vaura_tpu_torch.models.sampler import Sampler
 from vaura_tpu_torch.ops.audio import normalize_audio, write_wav
 from vaura_tpu_torch.ops.quantization import quantize_sampler_params
+from vaura_tpu_torch.parallel import multihost
+from vaura_tpu_torch.parallel.mesh import batch_rows
 from vaura_tpu_torch.train.checkpoint import (
     load_base_,
     load_trainable_,
@@ -66,16 +74,23 @@ REPO_ROOT = Path(__file__).resolve().parents[2]
 _PLATFORMS = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
 
 
-def config_device(cfg: dict) -> torch.device:
-    """The device of an action: ``trainer.platform`` (``cpu``, ``gpu`` or
-    ``cuda``, the key the JAX ``main.py`` reads), else CUDA, which raises
-    when absent (``resolve_device``)."""
+def config_device_type(cfg: dict) -> str:
+    """``"cuda"`` or ``"cpu"``: ``trainer.platform`` (``cpu``, ``gpu`` or
+    ``cuda``, the key the JAX ``main.py`` reads), else ``cuda``; touches no
+    device."""
     platform = (cfg.get("trainer") or {}).get("platform")
     if platform is not None and str(platform).lower() not in _PLATFORMS:
         raise ValueError(f"trainer.platform={platform!r}: the port runs on "
                          f"one of {sorted(_PLATFORMS)}")
-    return resolve_device(_PLATFORMS[str(platform).lower()] if platform
-                          else None)
+    return _PLATFORMS[str(platform).lower()] if platform else "cuda"
+
+
+def config_device(cfg: dict) -> torch.device:
+    """The device of an action (``config_device_type``): this process's
+    card, which raises when CUDA is absent (``resolve_device``), or the
+    CPU."""
+    kind = config_device_type(cfg)
+    return resolve_device(None if kind == "cuda" else kind)
 
 
 def scale_audio(
@@ -237,9 +252,7 @@ def generate(cfg: dict) -> dict:
     if long_mode not in ("reprefill", "stream_kv"):
         raise ValueError(f"unknown long_mode: {long_mode!r}")
     device = config_device(cfg)
-    if device.type == "cuda" and torch.cuda.device_count() > 1:
-        logger.info("%d CUDA devices are visible; the port's generate action "
-                    "runs on one (%s)", torch.cuda.device_count(), device)
+    main = multihost.is_main_process()
 
     model_cfg, ref_sds, ckpt_path = _model_config(cfg)
     # bf16 storage of the matmul weights: generation only
@@ -277,8 +290,9 @@ def generate(cfg: dict) -> dict:
             _replace_sampler(system, block_size_audio=need)
 
     out_dir = Path(cfg.get("output_dir", "./generated"))
-    out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "config.yaml").write_text(dump(cfg), encoding="utf-8")
+    if main:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / "config.yaml").write_text(dump(cfg), encoding="utf-8")
 
     # `dataset_to_use` / `samples_per_video` are action-level keys carried
     # inside the dataloader section (reference generate.py:135-137 pops
@@ -296,10 +310,30 @@ def generate(cfg: dict) -> dict:
         "validation": datamodule.val_dataloader,
     }[split]()
 
+    # multi-process generation: the batch sharded over a data mesh of the
+    # run's processes, the weights whole on each (JAX's generate action)
+    mesh = None
+    if multihost.launched():
+        world = multihost.process_count()
+        bs = int(cfg["dataloader"].get("batch_size", 1))
+        if bs % world == 0:
+            from vaura_tpu_torch.parallel import make_mesh, shard_module
+
+            mesh = make_mesh(data=-1, fsdp=1, model=1,
+                             device_type=device.type)
+            shard_module(system, mesh)
+            logger.info("sharding generation batch %d over %d processes",
+                        bs, world)
+        else:
+            logger.warning("batch_size %d not divisible by %d processes; "
+                           "every rank generates the whole batch", bs, world)
+
     sampling = dict(
         use_sampling=use_sampling, temp=temp, top_k=top_k, top_p=top_p,
         cfg_scale=cfg_scale,
     )
+    if mesh is not None:
+        sampling["gather"] = "main"
     if cfg.get("encoder_chunk_size"):
         sampling["encoder_chunk_size"] = int(cfg["encoder_chunk_size"])
     save_original_files = bool(cfg.get("save_original_files", False))
@@ -315,7 +349,10 @@ def generate(cfg: dict) -> dict:
         if max_batches is not None and bi >= int(max_batches):
             break
         try:
-            frames = torch.from_numpy(np.asarray(batch["frames"])).to(device)
+            frames = torch.from_numpy(np.asarray(batch["frames"]))
+            rows = (slice(None) if mesh is None else
+                    batch_rows(mesh, frames.shape[0]))
+            frames = frames[rows].to(device)
             gt_audio = batch.get("audio")
             if gt_audio is not None:
                 gt_audio = np.asarray(gt_audio, dtype=np.float32)
@@ -328,7 +365,7 @@ def generate(cfg: dict) -> dict:
                 n_samp = int(prompt_duration * a_sr)
                 n_tok = int(prompt_duration * COMPRESSION_MODEL_FRAME_RATE)
                 prompt_codes = system.encode_audio(
-                    torch.from_numpy(gt_audio[:, :, :n_samp]))[:, :, :n_tok]
+                    torch.from_numpy(gt_audio[rows, :, :n_samp]))[:, :, :n_tok]
             frame_step = int(cfg.get("frame_step", 1) or 1)
             if frame_step > 1:
                 # temporal subsample within each segment
@@ -364,6 +401,8 @@ def generate(cfg: dict) -> dict:
                 )
             for k, v in item["stage_ms"].items():
                 stage_ms[k] = stage_ms.get(k, 0.0) + v
+            if not main:  # rank 0 writes the whole batch
+                continue
             audio = item["audio"].float().cpu().numpy()
             codes = (
                 item["codes"].cpu().numpy()
@@ -422,6 +461,7 @@ def generate(cfg: dict) -> dict:
             logger.error("Error generating batch: %s", e)
             traceback.print_exc()
             continue
+    multihost.barrier()
     logger.info("Generated %d clips into %s", n_done, out_dir)
     return {"output_dir": str(out_dir), "num_generated": n_done,
             "stage_ms": stage_ms}

@@ -14,7 +14,8 @@ from __future__ import annotations
 import logging
 
 from vaura_tpu_torch.data import get_datamodule_from_type
-from vaura_tpu_torch.scripts.train import init_system, training_device
+from vaura_tpu_torch.scripts.generate import config_device
+from vaura_tpu_torch.scripts.train import init_system
 from vaura_tpu_torch.train.checkpoint import load_trainable_
 from vaura_tpu_torch.train.loop import Trainer
 from vaura_tpu_torch.train.steps import split_params
@@ -28,7 +29,7 @@ def test(cfg: dict) -> dict:
     logging.getLogger().setLevel(logging.INFO)
     trainer_cfg = cfg["trainer"]
     model_cfg = cfg["model"]
-    device = training_device(cfg)
+    device = config_device(cfg)
     dirs = init_log_directory(
         trainer_cfg.get("log_dir", "./logs"),
         trainer_cfg.get("experiment_name", "test"),

@@ -9,9 +9,13 @@ embeddings folded into the sampler, ``Trainer.fit`` (resuming from
 the current parameters when none can be restored.
 
 The device is ``cuda`` unless the config says ``trainer.platform: cpu``
-(``config_device``). Training runs on one device: the ``trainer.mesh`` keys
-are accepted and have no effect, and a log line says so when several cards
-are visible.
+(``config_device``). A run started by ``torchrun`` (one process per card:
+``torchrun --nproc_per_node=N -m vaura_tpu_torch config=... action=train``)
+trains on a ``(data, fsdp, model)`` mesh read from ``trainer.mesh`` as the
+JAX action reads it (``data: -1`` absorbs the ranks left), with the JAX
+action's fallback: when ``dataloader.batch_size`` is not divisible by
+``data * fsdp`` the run goes unsharded (every rank computes the whole batch)
+with the same warning. Rank 0 alone writes the run directory's files.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 
 from vaura_tpu_torch.data import get_datamodule_from_type
 from vaura_tpu_torch.models.factory import build_system, maybe_load_pretrained
+from vaura_tpu_torch.parallel import multihost
 from vaura_tpu_torch.scripts.generate import config_device
 from vaura_tpu_torch.train.loop import Trainer
 from vaura_tpu_torch.utils import seeded_init_
@@ -31,15 +36,38 @@ from vaura_tpu_torch.utils.seeding import seed_everything
 logger = logging.getLogger(__name__)
 
 
-def training_device(cfg: dict) -> torch.device:
-    """``config_device``, with the log line of a run that sees several
-    cards and trains on one."""
-    device = config_device(cfg)
-    if device.type == "cuda" and torch.cuda.device_count() > 1:
-        logger.info("%d CUDA devices are visible; the port trains on one "
-                    "(%s); trainer.mesh has no effect",
-                    torch.cuda.device_count(), device)
-    return device
+def training_mesh(cfg: dict, device: torch.device):
+    """The mesh of a launched run (``multihost.launched``), or None: the
+    JAX action's rules (``scripts/train.py:43-63``), over the processes of
+    the run where JAX counts devices."""
+    if not multihost.launched():
+        return None
+    from vaura_tpu_torch.parallel import make_mesh
+
+    mesh_cfg = cfg["trainer"].get("mesh") or {}
+    mesh = make_mesh(data=int(mesh_cfg.get("data", -1)),
+                     fsdp=int(mesh_cfg.get("fsdp", 1)),
+                     model=int(mesh_cfg.get("model", 1)),
+                     device_type=device.type)
+    batch_ways = mesh.size(0) * mesh.size(1)
+    batch_size = int(cfg["dataloader"].get("batch_size", 1))
+    if batch_size % batch_ways != 0:
+        logger.warning("batch_size %d not divisible by data*fsdp=%d; "
+                       "running unsharded", batch_size, batch_ways)
+        return None
+    logger.info("Mesh: %s", dict(zip(mesh.mesh_dim_names, mesh.shape)))
+    return mesh
+
+
+def run_directory(trainer_cfg: dict, experiment_name: str, cfg: dict) -> dict:
+    """The run directory, made (with ``hparams.yaml``) by rank 0 and named
+    alike on every rank."""
+    dirs = None
+    if multihost.is_main_process():
+        dirs = init_log_directory(trainer_cfg.get("log_dir", "./logs"),
+                                  experiment_name)
+        save_hparams(dirs["experiment"], cfg)
+    return multihost.broadcast_object(dirs)
 
 
 def init_system(cfg: dict, device: torch.device):
@@ -61,11 +89,8 @@ def train(cfg: dict) -> dict:
     logging.getLogger().setLevel(logging.INFO)
     trainer_cfg = cfg["trainer"]
     model_cfg = cfg["model"]
-    device = training_device(cfg)
-    dirs = init_log_directory(
-        trainer_cfg.get("log_dir", "./logs"), trainer_cfg["experiment_name"]
-    )
-    save_hparams(dirs["experiment"], cfg)
+    device = config_device(cfg)
+    dirs = run_directory(trainer_cfg, trainer_cfg["experiment_name"], cfg)
     logger.info("Logging to %s", dirs["root"])
 
     datamodule = get_datamodule_from_type(
@@ -77,7 +102,8 @@ def train(cfg: dict) -> dict:
     maybe_load_pretrained(system, model_cfg)
     system.load_dac_embeddings_into_sampler()
 
-    trainer = Trainer(system, trainer_cfg, model_cfg, dirs)
+    trainer = Trainer(system, trainer_cfg, model_cfg, dirs,
+                      mesh=training_mesh(cfg, device))
     try:
         trainer.fit(
             datamodule, generator, resume_path=trainer_cfg.get("ckpt_path")

@@ -82,15 +82,23 @@ def _write(path: Path, payload: Any) -> None:
 
 
 class CheckpointManager:
+    """``writes=False`` is the manager of a rank that does not write (under
+    a mesh, every rank but 0): its saves take the state's ``state_dict``,
+    which gathers a sharded state with the other ranks, and write nothing;
+    its restores read what rank 0 wrote."""
+
     def __init__(
         self,
         ckpt_dir: str | Path,
         top_k: int = 3,
         save_last: bool = True,
         async_save: bool = False,
+        writes: bool = True,
     ):
         self.ckpt_dir = Path(ckpt_dir)
-        self.ckpt_dir.mkdir(parents=True, exist_ok=True)
+        self.writes = writes
+        if writes:
+            self.ckpt_dir.mkdir(parents=True, exist_ok=True)
         self.top_k = top_k
         self.save_last = save_last
         self.async_save = async_save
@@ -99,7 +107,7 @@ class CheckpointManager:
         self._saved: list[tuple[float, Path]] = sorted(
             (
                 (float(meta["val_loss"]), p)
-                for p in self.ckpt_dir.iterdir()
+                for p in (self.ckpt_dir.iterdir() if writes else ())
                 if p.is_dir() and not p.is_symlink()
                 for meta in [self.read_meta(p)]
                 if meta is not None and "val_loss" in meta
@@ -172,6 +180,8 @@ class CheckpointManager:
     def save_frozen(self, frozen_params: Mapping[str, Any]) -> None:
         """Persist frozen submodules once per run (synchronous)."""
         self.finalize()
+        if not self.writes:
+            return
         path = self.ckpt_dir / "frozen"
         if path.exists():
             shutil.rmtree(path)
@@ -197,6 +207,9 @@ class CheckpointManager:
         complete at the next save / restore / ``finalize()``."""
         self.finalize()  # at most one save in flight
         path = self.ckpt_dir / checkpoint_name(epoch, step, val_loss)
+        if not self.writes:
+            state.state_dict()  # the gather of a sharded state
+            return path
         if path.exists():
             shutil.rmtree(path)
         self._save_raw(path, state.state_dict())
@@ -219,6 +232,9 @@ class CheckpointManager:
         self.finalize()
         name = f"e{epoch}_last_at_{timestamp_dirname(jitter=False)}{tag}"
         path = self.ckpt_dir / name
+        if not self.writes:
+            state.state_dict()  # the gather of a sharded state
+            return path
         path.mkdir(parents=True)
         _write(path, _to_host(state.state_dict()))
         meta = {"epoch": int(epoch), "epoch_complete": False}

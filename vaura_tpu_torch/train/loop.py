@@ -19,14 +19,23 @@ updated in place.
 
 The JAX loop compiles its media hooks once and caches the compiled
 functions (``cached_jit``); eager PyTorch compiles nothing, so there is
-nothing to cache and no counterpart. The port trains on one device: the
-JAX loop's mesh (batch and parameter sharding over several chips) is not
-ported, and ``scale_lr_with_device_count`` counts that one device.
+nothing to cache and no counterpart.
+
+Under a mesh (``Trainer(..., mesh=)``: one process per card, the system
+placed by ``parallel.shard_module``) every rank steps on its rows of each
+batch and validates, tests and generates the predict media with the others
+(the model is sharded); rank 0 alone writes the TensorBoard file and the
+checkpoints, which hold whole leaves (``TrainState.state_dict`` gathers
+them), and the other ranks wait for it at a barrier. The tracked training
+files are not logged under a mesh (their rows lie on some ranks only, and
+every rank must run each forward). ``scale_lr_with_device_count`` counts
+the processes of the run.
 """
 
 from __future__ import annotations
 
 import logging
+import math
 import time
 from pathlib import Path
 from typing import Any, Dict, Mapping, Optional
@@ -35,6 +44,11 @@ import numpy as np
 import torch
 
 from vaura_tpu_torch.models.vaura import VauraSystem
+from vaura_tpu_torch.parallel.multihost import (
+    barrier,
+    is_main_process,
+    process_count,
+)
 from vaura_tpu_torch.train.checkpoint import CheckpointManager
 from vaura_tpu_torch.train.state import (
     TrainState,
@@ -76,12 +90,20 @@ class EarlyStopping:
         return self.count >= self.patience
 
 
+class _NoTB:
+    """The TensorBoard logger of a rank that does not write."""
+
+    def __getattr__(self, name):
+        return lambda *args, **kwargs: None
+
+
 class Trainer:
     """``fit`` and ``test`` of a ``VauraSystem``. ``stats`` collects the
     times of the run: each train step's ``clock`` milliseconds (forward,
     backward, optimizer), each validation's milliseconds, each epoch's
     predict-media seconds, and each checkpoint save's and restore's
-    seconds."""
+    seconds. With a ``mesh`` the system (whole weights, the same on every
+    rank) is placed on it here."""
 
     def __init__(
         self,
@@ -89,17 +111,25 @@ class Trainer:
         trainer_cfg: Dict[str, Any],
         model_cfg: Dict[str, Any],
         log_dirs: Dict[str, Any],
+        mesh=None,
     ):
         self.system = system
         self.device = system.device
         self.cfg = trainer_cfg
         self.model_cfg = model_cfg
         self.dirs = log_dirs
-        self.tb = TBLogger(str(log_dirs["root"]))
+        self.mesh = mesh
+        if mesh is not None:
+            from vaura_tpu_torch.parallel import shard_module
+
+            shard_module(system, mesh)
+        self.main = is_main_process()
+        self.tb = TBLogger(str(log_dirs["root"])) if self.main else _NoTB()
         self.tb.add_custom_scalar_layout(system.num_codebooks)
         self.ckpt = CheckpointManager(
             log_dirs["checkpoints"],
             async_save=bool(trainer_cfg.get("async_checkpointing", False)),
+            writes=self.main,
         )
         self.early_stop = EarlyStopping(
             patience=int(trainer_cfg.get("early_stop_patience", 3) or 10**9)
@@ -122,7 +152,7 @@ class Trainer:
         return min(n, int(lim))
 
     def _put(self, batch: dict) -> dict:
-        return batch_to_device(batch, self.device)
+        return batch_to_device(batch, self.device, mesh=self.mesh)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -160,10 +190,11 @@ class Trainer:
         system = self.system
         trainable, frozen = split_params(system)
 
-        # scale_lr_with_device_count multiplies the rate by the square root
-        # of the device count (reference train_utils.py:282-283): 1 here,
-        # where training runs on one device
         base_lr = float(self.model_cfg.get("learning_rate", 1e-3))
+        if cfg.get("scale_lr_with_device_count") or cfg.get(
+                "scale_lr_with_gpu_count"):
+            # sqrt(world) LR scaling (reference train_utils.py:282-283)
+            base_lr *= math.sqrt(process_count())
         schedule = build_schedule(self.model_cfg.get("lr_scheduler"), base_lr)
         tx = make_optimizer(
             schedule,
@@ -175,7 +206,7 @@ class Trainer:
             mu_dtype=self.model_cfg.get("adam_mu_dtype"),
             nu_dtype=self.model_cfg.get("adam_nu_dtype"),
         )
-        state = TrainState.create(trainable, tx)
+        state = TrainState.create(trainable, tx, self.system.placement)
         start_epoch = 0
         if resume_path:
             t0 = time.time()
@@ -205,7 +236,9 @@ class Trainer:
                 resume_path, state.step, start_epoch,
             )
 
-        self.ckpt.save_frozen(frozen)
+        placement = system.placement
+        self.ckpt.save_frozen(frozen if placement is None
+                              else placement.full_tree(frozen))
         train_step = make_train_step(system)
         eval_step = make_eval_step(system)
 
@@ -240,7 +273,8 @@ class Trainer:
                 n_prefetch = int(cfg.get("prefetch_batches", 2) or 0)
                 it = iter(train_loader)
                 if n_prefetch > 1:
-                    it = prefetch_to_device(it, n_prefetch, self.device)
+                    it = prefetch_to_device(it, n_prefetch, self.device,
+                                            self.mesh)
                 for bi in range(n_batches):
                     if overfit and bi < len(cached_batches):
                         batch = cached_batches[bi]
@@ -269,7 +303,7 @@ class Trainer:
                         else schedule,
                         global_step,
                     )
-                    if tracked:
+                    if tracked and self.mesh is None:
                         self._log_tracked_files(batch, global_step)
                     # mid-epoch validation (fractional val_check_interval,
                     # reference vaura_defaults.yaml:58)
@@ -345,9 +379,11 @@ class Trainer:
             if prof is not None:
                 prof.stop()
             # commit any in-flight async save before the run returns
-            # (test action / resume may read `last` right after fit)
+            # (test action / resume may read `last` right after fit), and
+            # let no rank read it before rank 0 wrote it
             self.ckpt.finalize()
             self.tb.flush()
+            barrier()
 
         return {"state": state, "frozen": frozen, "generator": generator}
 
@@ -469,7 +505,9 @@ class Trainer:
         ``params`` (trainable leaves by name, e.g. a checkpoint's) are
         copied into the system first."""
         trainable, _ = split_params(self.system)
-        if params is not None:
+        if params is not None and self.system.placement is not None:
+            self.system.placement.load_full_(trainable, params, "params")
+        elif params is not None:
             copy_leaves(trainable, params, "params")
         eval_step = make_eval_step(self.system)
         loader = datamodule.test_dataloader()

@@ -34,6 +34,16 @@ package computes.
 
 Parameters are updated in place (JAX returns new trees): the state holds
 the system's own tensors.
+
+**Under a mesh** (``placement``, from ``parallel.shard_module``) the
+parameters and the moments are FSDP2's sharded ``DTensor``s (the moments
+made ``zeros_like`` them), and the update runs on each rank's local shards.
+A sharded leaf keeps its global shape, so the rank of the decay quirk is
+the whole leaf's. Global-norm clipping takes the norm over every shard of
+every leaf (``MeshPlacement.global_norm``), as optax's
+``clip_by_global_norm`` does over the whole tree. ``state_dict`` gathers
+every leaf whole and ``load_state_dict`` takes whole leaves, so a
+checkpoint is the one-process checkpoint whatever the mesh.
 """
 
 from __future__ import annotations
@@ -143,13 +153,19 @@ class Optimizer:
 
     @torch.no_grad()
     def update(self, grads: Mapping[str, torch.Tensor], state: OptState,
-               params: Params) -> None:
+               params: Params, placement=None) -> None:
         names = list(params)
-        g = [grads[k] for k in names]
+        labels = param_labels(params)  # on the whole leaves' ranks
+        mu_of, nu_of, acc_of = state.mu, state.nu, state.acc
+        if placement is not None:  # the local shards of every leaf
+            params = {k: _local(v) for k, v in params.items()}
+            mu_of, nu_of, acc_of = ({k: _local(v) for k, v in d.items()}
+                                    for d in (mu_of, nu_of, acc_of))
+        g = [_local(grads[k]) for k in names]
         k_acc = self.accumulate_grad_batches
         if k_acc > 1:
             # running mean of the micro-gradients
-            acc = [state.acc[k] for k in names]
+            acc = [acc_of[k] for k in names]
             diff = torch._foreach_sub(g, acc)
             torch._foreach_add_(acc, diff, alpha=1.0 / (state.mini_step + 1))
             if state.mini_step < k_acc - 1:
@@ -164,8 +180,9 @@ class Optimizer:
                 g = torch._foreach_clamp_min(g, -clip)
                 torch._foreach_clamp_max_(g, clip)
             elif self.gradient_clip_algorithm == "norm":
-                norm = torch.linalg.vector_norm(
+                norm = (torch.linalg.vector_norm(
                     torch.stack(torch._foreach_norm(g)))
+                    if placement is None else placement.global_norm(names, g))
                 scale = torch.where(norm < clip, torch.ones_like(norm),
                                     clip / norm)
                 g = torch._foreach_mul(g, scale)
@@ -176,15 +193,14 @@ class Optimizer:
         b1, b2 = self.betas
         bc1, bc2 = 1.0 - b1 ** state.count, 1.0 - b2 ** state.count
         grad_of = dict(zip(names, g))
-        labels = param_labels(params)
         for label, wd in (("decay", self.weight_decay), ("nodecay", 0.0)):
             keys = [k for k in names if labels[k] == label]
             if not keys:
                 continue
             p = [params[k] for k in keys]
             gk = [grad_of[k] for k in keys]
-            mu = [state.mu[k] for k in keys]
-            nu = [state.nu[k] for k in keys]
+            mu = [mu_of[k] for k in keys]
+            nu = [nu_of[k] for k in keys]
             if self.nu_dtype is not None:
                 step = self._moments_upcast(gk, mu, nu, state.count)
             else:
@@ -249,6 +265,11 @@ class Optimizer:
         return step
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor``'s local shard (the same storage), else ``t``."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
 def make_optimizer(
     learning_rate: LearningRate,
     weight_decay: float = 0.0,
@@ -291,28 +312,43 @@ class TrainState:
     params: Dict[str, torch.Tensor]
     opt_state: OptState
     tx: Optimizer
+    placement: object = None  # parallel.MeshPlacement under a mesh
 
     @classmethod
-    def create(cls, params: Params, tx: Optimizer) -> "TrainState":
+    def create(cls, params: Params, tx: Optimizer,
+               placement=None) -> "TrainState":
         params = dict(params)
-        return cls(0, params, tx.init(params), tx)
+        return cls(0, params, tx.init(params), tx, placement)
 
     def state_dict(self) -> dict:
-        """``{"params", "opt_state", "step"}``: what a checkpoint holds."""
-        return {"params": dict(self.params),
-                "opt_state": self.opt_state.state_dict(), "step": self.step}
+        """``{"params", "opt_state", "step"}``: what a checkpoint holds.
+        Under a mesh every leaf is gathered whole (a collective: every rank
+        calls it)."""
+        sd = {"params": dict(self.params),
+              "opt_state": self.opt_state.state_dict(), "step": self.step}
+        return sd if self.placement is None else self.placement.full_tree(sd)
 
     def load_state_dict(self, sd: Mapping) -> None:
-        """Copy a ``state_dict()`` into the parameters and the optimizer's
-        state, in place (``tx`` is the caller's, rebuilt from the config)."""
-        copy_leaves(self.params, sd["params"], "params")
-        self.opt_state.load_state_dict(sd["opt_state"])
+        """Copy a ``state_dict()`` (whole leaves) into the parameters and
+        the optimizer's state, in place (``tx`` is the caller's, rebuilt
+        from the config); under a mesh each rank takes its part."""
+        if self.placement is None:
+            copy_leaves(self.params, sd["params"], "params")
+            self.opt_state.load_state_dict(sd["opt_state"])
+        else:
+            pl = self.placement
+            pl.load_full_(self.params, sd["params"], "params")
+            for key in ("mu", "nu", "acc"):
+                pl.load_full_(getattr(self.opt_state, key),
+                              sd["opt_state"][key], f"opt_state.{key}")
+            self.opt_state.count = int(sd["opt_state"]["count"])
+            self.opt_state.mini_step = int(sd["opt_state"]["mini_step"])
         self.step = int(sd["step"])
 
     def apply_gradients(self, grads: Mapping[str, torch.Tensor]
                         ) -> "TrainState":
         """One optimizer call on the parameters, in place."""
-        self.tx.update(grads, self.opt_state, self.params)
+        self.tx.update(grads, self.opt_state, self.params, self.placement)
         self.step += 1
         return self
 

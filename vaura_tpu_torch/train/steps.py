@@ -6,6 +6,11 @@ loss without dropout). The codec is always frozen; the visual encoder
 follows ``freeze_feature_extractor``. Where the JAX package passes the
 frozen subtrees beside the state, here the system holds every tensor and
 the state names the trainable ones.
+
+Under a mesh (``parallel.shard_module``) each rank steps on its rows of the
+batch (``batch_to_device(..., mesh=)``): its loss is its rows' share of the
+global loss, ``backward`` lets FSDP2 sum the gradients over the batch's
+shards (its hooks read ``.grad``), and the metrics are the whole batch's.
 """
 
 from __future__ import annotations
@@ -44,12 +49,18 @@ def array_batch(batch: dict) -> dict:
             if k in batch}
 
 
-def batch_to_device(batch: dict, device, non_blocking: bool = False) -> dict:
+def batch_to_device(batch: dict, device, non_blocking: bool = False,
+                    mesh=None) -> dict:
     """Move the array leaves of a host batch (numeric numpy arrays and
     tensors, also inside nested dicts) onto ``device``; meta leaves
     (strings, lists) are kept. ``non_blocking`` onto a CUDA device copies
     from pinned host memory without waiting, on the current stream, which
-    the steps that read the batch follow."""
+    the steps that read the batch follow. Under a ``mesh`` only this rank's
+    rows move (``parallel.mesh.shard_batch``)."""
+    if mesh is not None:
+        from vaura_tpu_torch.parallel.mesh import shard_batch
+
+        batch = shard_batch(mesh, batch)
     pin = non_blocking and torch.device(device).type == "cuda"
 
     def put(x):
@@ -65,17 +76,18 @@ def batch_to_device(batch: dict, device, non_blocking: bool = False) -> dict:
             if isinstance(v, dict) else put(v) for k, v in batch.items()}
 
 
-def prefetch_to_device(iterator, size: int = 2, device=None):
+def prefetch_to_device(iterator, size: int = 2, device=None, mesh=None):
     """Double-buffer host batches onto ``device`` (the JAX package's
     ``prefetch_to_device``): up to ``size`` batches are in flight, so the
     host issues batch N+1's copy (``batch_to_device`` with
     ``non_blocking``) before step N and does not wait for it. Yields device
-    batches."""
+    batches (this rank's rows under a ``mesh``)."""
     import collections
 
     queue = collections.deque()
     for batch in iterator:
-        queue.append(batch_to_device(batch, device, non_blocking=True))
+        queue.append(batch_to_device(batch, device, non_blocking=True,
+                                     mesh=mesh))
         if len(queue) >= size:
             yield queue.popleft()
     while queue:
@@ -99,17 +111,26 @@ def make_train_step(system: VauraSystem) -> Callable:
             vis_feats=batch.get("vis_feats"), codes=batch.get("codes"))
         mark("forward")
         names = list(state.params)
-        grads = torch.autograd.grad(loss, [state.params[k] for k in names],
-                                    allow_unused=True)
+        if system.placement is None:
+            grads = torch.autograd.grad(
+                loss, [state.params[k] for k in names], allow_unused=True)
+        else:  # FSDP2 sums the shards' gradients into .grad
+            loss.backward()
+            grads = [state.params[k].grad for k in names]
         # a leaf the loss does not reach has a zero gradient (and still
         # decays), as in the JAX package
         grads = {k: torch.zeros_like(state.params[k]) if g is None else g
                  for k, g in zip(names, grads)}
         mark("backward")
         state = state.apply_gradients(grads)
+        if system.placement is not None:
+            for p in state.params.values():
+                p.grad = None
         mark("optimizer")
-        return state, {"loss": loss.detach(),
-                       "loss_per_codebook": aux["loss_per_codebook"].detach()}
+        return state, {
+            "loss": system.batch_total(loss.detach()),
+            "loss_per_codebook": system.batch_total(
+                aux["loss_per_codebook"].detach())}
 
     return train_step
 
@@ -125,6 +146,8 @@ def make_eval_step(system: VauraSystem) -> Callable:
         loss, aux = system.train_forward(
             batch.get("frames"), batch.get("audio"), None, train=False,
             vis_feats=batch.get("vis_feats"), codes=batch.get("codes"))
-        return {"loss": loss, "loss_per_codebook": aux["loss_per_codebook"]}
+        return {"loss": system.batch_total(loss),
+                "loss_per_codebook": system.batch_total(
+                    aux["loss_per_codebook"])}
 
     return eval_step
