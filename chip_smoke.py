@@ -71,7 +71,7 @@ result line):
              model, seeded random weights, the dummy datamodule): A trains
              2 epochs x 3 steps with the encoder frozen (every validation,
              predict-media and TensorBoard path on), B resumes A for a
-             third epoch with async saves, C tests A's best checkpoint, D
+             third epoch with async saves (no predict media), C tests A's best checkpoint, D
              trains 2 steps with the encoder unfrozen; losses, steps,
              checkpoints, TensorBoard tags, the resumed early-stop state,
              C's test loss against A's and each run's launches are held;
@@ -88,9 +88,10 @@ result line):
              media library is missing), a stream of 440 tokens, a hot
              reload from a ``CheckpointManager`` checkpoint (the codes must
              change) and ``close()``; then a burst of 8 with
-             ``quantize=cache``. Launch counters zeroed after each
-             service's warm-up; the direct generations that check the
-             server are not counted.
+             ``quantize=cache``. The ``mesh`` phase runs the first
+             service's config under ``torchrun``. Launch counters zeroed
+             after each service's warm-up; the direct generations that
+             check the server are not counted.
  11. finetune the finetune action as a user runs it (``action=finetune``
              on ``configs/experiments/flagship_smoke.yaml``, seeded random
              weights): L trains LoRA adapters of rank 8 for 3 steps from a
@@ -101,7 +102,8 @@ result line):
              experiment (its merged weights held to ``W + (alpha / r) b a``,
              its codes to ``VauraSystem.generate`` of a system that holds
              the merged weights without adapters) and from the base, 1.28 s
-             at batch 2, WAVs under ``chiprun_out/finetune/``;
+             at batch 2, WAVs under ``chiprun_out/finetune/``; L's
+             experiment is kept for the ``mesh`` phase;
  12. eval    ``action=eval`` on those WAVs (L's against the base's) with
              ``melstats``, ``vggish`` and ``panns`` (seeded random-weight
              ``.pth`` files written under ``chiprun_out/eval/`` and deleted
@@ -146,10 +148,26 @@ result line):
              products) and ``scripts/quant_quality_fad.py`` at ``--mid``
              with 30 steps and 4 clips: the overfit loss below ``ln 1024``
              and every printed number finite.
+ 16. mesh    the multi-device path on this card through ``torchrun``
+             with NCCL at 1 x 1 x 1: the flagship dry run and the generate
+             action (batch 16, greedy) against one process; the demo from
+             a ``--frames`` file; the server as a user starts it on several
+             cards (each rank ``chip_smoke.py --rank``: ``main`` with its
+             launch counters written out): a clip through
+             ``frames_to_features`` (a job of every rank) whose features
+             equal this process's, a lone request whose codes equal
+             ``VauraSystem.generate``'s here, a burst of 16, a stream, a
+             hot reload (the codes must change), SIGTERM (exit 0); the
+             generate action from the finetune phase's LoRA run (codes
+             equal to the one-process run's); the decode kernels at the
+             head counts a model axis of 2 and 4 leaves a rank. The dry
+             run and both generate actions on the mesh run in one
+             ``torchrun`` launch (``chip_smoke.py --rank-jobs``).
 
 It prints the action runs' wall times and audio-s/s (``action: {...}``),
 the train action's runs (``train_action: {...}``),
-the server's burst, stream and request times (``serve: {...}``), the
+the server's burst, stream and request times (``serve: {...}``; on the
+mesh in ``mesh: {...}``), the
 finetune and generate runs' walls and peak memory (``finetune: {...}``),
 the eval action's walls and metrics (``eval: {...}``), the encoder
 variants' forwards, remat steps and card-vs-CPU errors
@@ -1902,12 +1920,12 @@ def phase_train_action(gen, report):
                     os.path.join(OUT_DIR, "train_action_A.tfevents"))
 
         # B: resume A's last for epoch 2 only (3 steps, 3 validations, the
-        # test, 1 predict generation)
+        # test; no predict generation: A checks those)
         _train_run("B", TRAIN_A + ["trainer.max_epochs=3",
                                    "trainer.async_checkpointing=true",
+                                   "model.predict_at_val_start=false",
                                    f"trainer.ckpt_path={ck}/last"],
-                   os.path.join(tmp, "B"),
-                   want(3 + 6 + 2 + 1 + 1, decode_gens=1), res, total,
+                   os.path.join(tmp, "B"), want(3 + 6 + 2), res, total,
                    problems)
         b_root = res["B"]["root"]
         ev = read_events(_glob_one(b_root, "events.out.tfevents.*"))
@@ -2008,8 +2026,10 @@ def phase_finetune(gen, report):
     ``VauraSystem.generate`` of a system without adapters that holds those
     merged weights, under the same generator state; every run's launches.
     The WAVs of L's experiment and of the base go to
-    ``chiprun_out/finetune/`` for the eval phase; the run directories are
-    deleted."""
+    ``chiprun_out/finetune/`` for the eval phase; F's run directory is
+    deleted, L's experiment (and its base) kept for the ``mesh`` phase's
+    generate action on a mesh, which deletes it (``report["finetune"]
+    ["tmp"]``)."""
     import shutil
     import tempfile
 
@@ -2074,6 +2094,7 @@ def phase_finetune(gen, report):
 
     tvaura.VauraSystem.generate = generate_spy
     tloop.Trainer.fit = fit_spy
+    kept = False
     try:
         # the base: the flagship sampler from another seed, the LM head
         # random (a zero head passes no gradient to the adapters), in bf16
@@ -2203,16 +2224,19 @@ def phase_finetune(gen, report):
                 if (sr != 44100 or wav.shape != (1, FT_GEN_TOKENS * 512)
                         or not np.isfinite(wav).all()):
                     problems.append(f"{d}: clip {i} {wav.shape} at {sr} Hz")
+        kept = True
     finally:
         tvaura.VauraSystem.generate = generate
         tloop.Trainer.fit = fit
         seen.clear()
-        shutil.rmtree(tmp, ignore_errors=True)
+        if not kept:
+            shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
     res["train_action_D_peak_mem_gib"] = (
         report.get("train_action", {}).get("D", {}).get("peak_mem_gib"))
     res["launches"] = total
     res["wav_dirs"] = {"lora": lora_wavs, "base": base_wavs}
+    res["tmp"], res["lora_experiment"] = tmp, l_root
     report["finetune"] = res
     print("finetune: " + json.dumps(
         {t: {k: res[t].get(k) for k in ("wall_s", "peak_mem_gib",
@@ -2397,10 +2421,15 @@ def _post_json(url, payload, timeout=600):
         return r.read()
 
 
-def _metrics(base):
+def _get(url, timeout=60):
     import urllib.request
 
-    text = urllib.request.urlopen(base + "/metrics", timeout=60).read().decode()
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.read()
+
+
+def _metrics(base):
+    text = _get(base + "/metrics").decode()
     return {line.split()[0]: float(line.split()[1]) for line in
             text.splitlines() if line and not line.startswith("#")}
 
@@ -2463,6 +2492,61 @@ def _burst(service, base, n, rng, problems, tag):
     return res
 
 
+def _stream_request(service, base, rng, problems, tag):
+    """One ``/generate_long`` stream of seeded features: time to the first
+    increment, wall, samples (the geometry's tokens times the hop)."""
+    import io
+    import urllib.request
+
+    import numpy as np
+
+    seg = rng.standard_normal((service.stream_segments, service.stream_t,
+                               service.cond_dim)).astype(np.float32)
+    buf = io.BytesIO()
+    np.save(buf, seg)
+    req = urllib.request.Request(
+        base + "/generate_long", data=buf.getvalue(),
+        headers={"Content-Type": "application/octet-stream"})
+    t0 = time.time()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        header = r.read(44)  # sent with the first increment
+        first = time.time() - t0
+        pcm = r.read()
+    hop = service.system.dac.cfg.hop_length
+    res = {"tokens": service.stream_tokens,
+           "time_to_first_increment_s": first, "wall_s": time.time() - t0,
+           "samples": len(pcm) // 2}
+    log(f"[{tag}] stream of {service.stream_tokens} tokens: first increment "
+        f"after {first:.3f} s, {len(pcm) // 2} samples in "
+        f"{res['wall_s']:.3f} s")
+    if header[:4] != b"RIFF" or len(pcm) // 2 != service.stream_tokens * hop:
+        problems.append(f"{tag} stream: header {header[:4]!r}, "
+                        f"{len(pcm) // 2} samples")
+    return res
+
+
+def _reload_checkpoint(service, ckdir):
+    """A ``CheckpointManager`` checkpoint of a ``TrainState`` as training
+    saves it: differently seeded sampler weights (seed 1) and the served
+    system's other trainable leaves."""
+    import torch
+
+    from vaura_tpu_torch.models.sampler import Sampler
+    from vaura_tpu_torch.train.checkpoint import CheckpointManager
+    from vaura_tpu_torch.train.state import TrainState, make_optimizer
+    from vaura_tpu_torch.utils import seeded_init_
+
+    old = service.system
+    sampler = Sampler(old.sampler_config, service.device)
+    seeded_init_(sampler, torch.Generator(service.device).manual_seed(1))
+    params = {f"sampler.{k}": v for k, v in sampler.named_parameters()}
+    params.update({k: v for k, v in old.named_parameters()
+                   if k in service._trainable_like
+                   and not k.startswith("sampler.")})
+    state = TrainState.create(params, make_optimizer(1e-4))
+    return CheckpointManager(ckdir).save(state, epoch=0, step=1, val_loss=1.0)
+
+
 def phase_serve(gen, report):
     """The server as a user starts it (``action=serve`` from
     ``configs/generate_vgg.yaml``, seeded random weights, HTTP on
@@ -2474,24 +2558,19 @@ def phase_serve(gen, report):
     stream of 440 tokens; ``/reload`` from a ``CheckpointManager``
     checkpoint of differently seeded sampler weights, after which a lone
     request's codes differ from the old weights' at the same seed;
-    ``close()``. Service B (``quantize=cache``): a burst of 8. The counters
-    are zeroed after each service's warm-up and read after its last
-    request; the direct generations that check the server are not
-    counted."""
+    ``close()``. Service B (``quantize=cache``): a burst of 8. The ``mesh``
+    phase runs A's config under ``torchrun`` with the same requests. The
+    counters are zeroed after each
+    service's warm-up and read after its last request; the direct
+    generations that check the server are not counted."""
     import base64
-    import io
     import shutil
     import tempfile
-    import urllib.request
 
     import numpy as np
     import torch
 
     from vaura_tpu_torch.data import media
-    from vaura_tpu_torch.models.sampler import Sampler
-    from vaura_tpu_torch.train.checkpoint import CheckpointManager
-    from vaura_tpu_torch.train.state import TrainState, make_optimizer
-    from vaura_tpu_torch.utils import seeded_init_
 
     problems, res, total, uncounted = [], {}, {}, {}
     rng = np.random.default_rng(0)
@@ -2542,7 +2621,8 @@ def phase_serve(gen, report):
             problems.append("lone request codes differ from the direct "
                             f"generation at {int((codes != want).sum())} of "
                             f"{codes.size}")
-        # 2. a burst of 16
+        # 2. a burst of 16 (two batches at least: requests queue across
+        # batches)
         res["burst16"] = _burst(service, base, 16, rng, problems,
                                 "A burst of 16")
         if res["burst16"]["batches"] > 15:
@@ -2583,49 +2663,17 @@ def phase_serve(gen, report):
                 or enc["encoder_mlp"] != depth):
             problems.append(f"video request: encoder launches {enc}")
         # 4. one stream
-        seg = rng.standard_normal((service.stream_segments, service.stream_t,
-                                   service.cond_dim)).astype(np.float32)
-        buf = io.BytesIO()
-        np.save(buf, seg)
-        req = urllib.request.Request(
-            base + "/generate_long", data=buf.getvalue(),
-            headers={"Content-Type": "application/octet-stream"})
-        t0 = time.time()
-        with urllib.request.urlopen(req, timeout=600) as r:
-            header = r.read(44)  # sent with the first increment
-            first = time.time() - t0
-            pcm = r.read()
-        hop = service.system.dac.cfg.hop_length
-        res["stream"] = {"tokens": service.stream_tokens,
-                         "time_to_first_increment_s": first,
-                         "wall_s": time.time() - t0,
-                         "samples": len(pcm) // 2}
-        log(f"[serve] stream of {service.stream_tokens} tokens: first "
-            f"increment after {first:.3f} s, {len(pcm) // 2} samples in "
-            f"{res['stream']['wall_s']:.3f} s")
-        if header[:4] != b"RIFF" or len(pcm) // 2 != service.stream_tokens * hop:
-            problems.append(f"stream: header {header[:4]!r}, "
-                            f"{len(pcm) // 2} samples")
-        # 5. hot reload from a checkpoint of differently seeded sampler
-        # weights (and the served encoder's), a TrainState as training
-        # saves it
+        res["stream"] = _stream_request(service, base, rng, problems,
+                                        "serve")
+        # 5. hot reload in the HTTP thread (one process) from a checkpoint
+        # of differently seeded sampler weights, a TrainState as training
+        # saves it: a lone request's codes differ from the old weights'
         ckdir = tempfile.mkdtemp()
         try:
             old = service.system
-            sampler = Sampler(old.sampler_config, service.device)
-            seeded_init_(sampler,
-                         torch.Generator(service.device).manual_seed(1))
-            params = {f"sampler.{k}": v for k, v in
-                      sampler.named_parameters()}
-            params.update({k: v for k, v in old.named_parameters()
-                           if k in service._trainable_like
-                           and not k.startswith("sampler.")})
-            state = TrainState.create(params, make_optimizer(1e-4))
             t0 = time.time()
-            path = CheckpointManager(ckdir).save(state, epoch=0, step=1,
-                                                 val_loss=1.0)
+            path = _reload_checkpoint(service, ckdir)
             res["checkpoint_save_s"] = time.time() - t0
-            del sampler, params, state
             t0 = time.time()
             info = json.loads(_post_json(base + "/reload",
                                          {"ckpt_path": str(path)}))
@@ -3371,24 +3419,6 @@ MESH_TIMEOUT_S = 600
 LOCAL_HEADS = (8, 4)
 
 
-def _torchrun(tag, args, root):
-    """``args`` under ``python -m torch.distributed.run --standalone
-    --nproc_per_node=1`` (NCCL on this card), its output into
-    ``<root>/<tag>.log``; returns the wall seconds."""
-    t0 = time.time()
-    r = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc_per_node=1", *args], cwd=ROOT, capture_output=True,
-        text=True, timeout=MESH_TIMEOUT_S)
-    wall = time.time() - t0
-    with open(os.path.join(root, f"{tag}.log"), "w") as f:
-        f.write(r.stdout + r.stderr)
-    if r.returncode != 0:
-        raise AssertionError(f"{tag}: exit {r.returncode}: "
-                             f"{(r.stdout + r.stderr)[-3000:]}")
-    return wall
-
-
 def check_decode_local_heads(gen):
     """Each decode kernel at the head counts a model axis of 2 and 4 leaves
     a rank (H = 8, 4; hd 96, S 230), in both forms, against its plain
@@ -3453,6 +3483,325 @@ def check_decode_local_heads(gen):
     return out
 
 
+def _mesh_frames():
+    """The clip the mesh phase's server encodes: one frame past 2.56 s of
+    seeded 224 x 224 frames."""
+    import numpy as np
+
+    return np.random.default_rng(5).integers(
+        0, 256, (int(2.56 * 25) + 1, 224, 224, 3), dtype=np.uint8)
+
+
+def rank_main(out, argv) -> int:
+    """``chip_smoke.py --rank OUT key=value ...``: one rank of a run the
+    mesh phase starts under ``torchrun``, ``vaura_tpu_torch.main.main`` of
+    ``argv`` as ``python -m vaura_tpu_torch`` runs it, the kernels' launch
+    counters zeroed just before it (a server's: after its warm-up) and
+    written to ``OUT/launches_rank<r>.json`` after it. A server's rank 0
+    first sends one clip (``_mesh_frames``) through ``frames_to_features``,
+    the encoder as a job of every rank, and writes its features to
+    ``OUT/features.npy``."""
+    import numpy as np
+
+    sys.path.insert(0, ROOT)
+    from vaura_tpu_torch.main import main as port_main
+    from vaura_tpu_torch.scripts import serve
+
+    start, make_server = serve.GenerationService.start, serve.make_server
+
+    def start_then_zero(self):
+        start(self)
+        _zero_counters()
+
+    def make_server_with_clip(cfg):
+        service, server = make_server(cfg)
+        if server is not None:
+            np.save(os.path.join(out, "features.npy"),
+                    service.frames_to_features(_mesh_frames()))
+        return service, server
+
+    serve.GenerationService.start = start_then_zero
+    serve.make_server = make_server_with_clip
+    _zero_counters()
+    port_main(argv)
+    rank = int(os.environ.get("RANK", "0"))
+    with open(os.path.join(out, f"launches_rank{rank}.json"), "w") as f:
+        json.dump(_counters(), f)
+    return 0
+
+
+def rank_jobs(out, jobs_path) -> int:
+    """``chip_smoke.py --rank-jobs OUT JOBS``: one rank of the mesh phase's
+    launch of several runs in one ``torchrun`` (one process start for them
+    all). Each job of the JSON list ``JOBS`` (``{"tag", "argv"}``: ``argv``
+    of ``vaura_tpu_torch.main.main``, or with ``"dryrun": true`` of
+    ``vaura_tpu_torch.dryrun.main``, which ends the process group and so
+    comes last) runs in order with the launch counters zeroed before it;
+    its wall (after a device sync) and launches go to
+    ``OUT/jobs_rank<r>.json``."""
+    import gc
+
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from vaura_tpu_torch import dryrun
+    from vaura_tpu_torch.main import main as port_main
+
+    with open(jobs_path) as f:
+        jobs = json.load(f)
+    done = {}
+    for job in jobs:
+        _zero_counters()
+        t0 = time.time()
+        if job.get("dryrun"):
+            if dryrun.main(job["argv"]) != 0:
+                raise RuntimeError(f"{job['tag']}: the dry run failed")
+        else:
+            port_main(job["argv"])
+        torch.cuda.synchronize()
+        done[job["tag"]] = {"wall_s": time.time() - t0,
+                            "launches": _counters()}
+        gc.collect()
+        torch.cuda.empty_cache()
+    rank = int(os.environ.get("RANK", "0"))
+    with open(os.path.join(out, f"jobs_rank{rank}.json"), "w") as f:
+        json.dump(done, f)
+    return 0
+
+
+def _torchrun_ranks(tag, argv, root, mode="--rank"):
+    """``argv`` of ``vaura_tpu_torch`` under ``torchrun --standalone
+    --nproc_per_node=1`` through ``rank_main`` (or the arguments of
+    ``rank_jobs``, ``mode`` ``--rank-jobs``); ``(Popen, log path, out
+    dir)``, the output in ``<root>/<tag>.log``."""
+    out = os.path.join(root, tag)
+    os.makedirs(out)
+    path = os.path.join(root, f"{tag}.log")
+    with open(path, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node=1", os.path.abspath(__file__), mode, out,
+             *argv], cwd=ROOT, stdout=f, stderr=subprocess.STDOUT)
+    return proc, path, out
+
+
+def _torchrun_jobs(root, jobs):
+    """``jobs`` (``rank_jobs``) in one ``torchrun`` launch; ``(the launch's
+    wall, {tag: {"wall_s", "launches"}})``."""
+    path = os.path.join(root, "jobs.json")
+    with open(path, "w") as f:
+        json.dump(jobs, f)
+    t0 = time.time()
+    proc, log_path, out = _torchrun_ranks("jobs", [path], root,
+                                          "--rank-jobs")
+    try:
+        rc = proc.wait(timeout=MESH_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.time() - t0
+    if rc != 0:
+        with open(log_path) as f:
+            raise AssertionError(f"the mesh launch: exit {rc}: "
+                                 f"{f.read()[-3000:]}")
+    with open(os.path.join(out, "jobs_rank0.json")) as f:
+        return wall, json.load(f)
+
+
+def _wait_for_line(proc, path, pattern, timeout):
+    """The first match of ``pattern`` in the log ``path`` of ``proc``;
+    raises when ``proc`` ends first or ``timeout`` passes."""
+    import re
+
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        with open(path) as f:
+            m = re.search(pattern, f.read())
+        if m:
+            return m
+        if proc.poll() is not None:
+            break
+        time.sleep(0.5)
+    with open(path) as f:
+        raise AssertionError(f"no {pattern!r} in {path}: "
+                             f"{f.read()[-3000:]}")
+
+
+def _next_seed(base) -> int:
+    """The seed the server hands its next batch or stream: one a batch and
+    one a stream so far (``/metrics``)."""
+    m = _metrics(base)
+    return int(m["vaura_batches_total"] + m["vaura_stream_requests_total"])
+
+
+def _mesh_server(root, res, problems, add):
+    """(e) The server as a user starts it on several cards (``torchrun``,
+    here one process with NCCL at 1 x 1 x 1), serve phase A's config:
+    one clip through ``frames_to_features`` (a job of every rank), a lone
+    ``raw=codes`` request held to ``VauraSystem.generate`` of the same
+    weights (a one-process service of the same config, not started),
+    padded features and seed in this process, a burst of 16, one stream,
+    ``/reload`` after which a lone request's codes differ from the old
+    weights' at the same seed, and SIGTERM, after which every process exits
+    0. The server's launches (after its warm-up) are counted."""
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vaura_tpu_torch.main import get_config
+    from vaura_tpu_torch.scripts.serve import GenerationService
+
+    walls, out_res = res["walls_s"], {}
+    argv = [f"config={os.path.join(ROOT, SERVE_CONFIG)}", "action=serve",
+            "port=0", *SERVE_A]
+    t0 = time.time()
+    proc, path, out = _torchrun_ranks("server", argv, root)
+    ckdir = tempfile.mkdtemp()
+    try:
+        m = _wait_for_line(proc, path, r"serving on (http://\S+) "
+                           r"\(batch=\d+, pid (\d+)\)", MESH_TIMEOUT_S)
+        walls["server_start"] = time.time() - t0
+        base, pid = m.group(1), int(m.group(2))
+        health = json.loads(_get(base + "/healthz"))
+        out_res["mesh"] = health["mesh"]
+        service = GenerationService(get_config(argv))
+        rng = np.random.default_rng(0)
+
+        def direct(system, feats, seed):
+            with torch.inference_mode():
+                o = system.generate(
+                    vis_feats=torch.from_numpy(feats[None]).to(
+                        service.device),
+                    generator=torch.Generator(service.device).manual_seed(
+                        seed),
+                    max_new_tokens=service.tokens, tokens_per_frame=7,
+                    decode_to_audio=False, **service.sampling)
+            return o["codes"].cpu().numpy()[0]
+
+        def lone(feats):
+            seed = _next_seed(base)
+            t = time.time()
+            body = _post_npy(base + "/generate?raw=codes", feats)
+            return np.asarray(json.loads(body)["codes"]), seed, time.time() - t
+
+        # the clip rank 0 encoded at start-up, against this process's
+        want = service.frames_to_features(_mesh_frames())
+        got = np.load(os.path.join(out, "features.npy"))
+        out_res["features_max_abs_diff"] = float(np.abs(got - want).max())
+        if got.shape != want.shape or not out_res[
+                "features_max_abs_diff"] <= TOL_REF_REL * float(
+                np.abs(want).max()):
+            problems.append(f"mesh server features {got.shape}, "
+                            f"{out_res['features_max_abs_diff']} off")
+        # a lone request, a burst of 16, a stream
+        feats = rng.standard_normal((service.tv, service.cond_dim)).astype(
+            np.float32)
+        codes, seed, walls["server_lone_request"] = lone(feats)
+        out_res["lone_codes_equal_direct"] = bool(
+            np.array_equal(codes, direct(service.system, feats, seed)))
+        if not out_res["lone_codes_equal_direct"]:
+            problems.append("mesh server: lone request codes differ from "
+                            "VauraSystem.generate")
+        out_res["burst16"] = _burst(service, base, 16, rng, problems,
+                                    "mesh server burst of 16")
+        out_res["stream"] = _stream_request(service, base, rng, problems,
+                                            "mesh server")
+        # a hot reload: the codes of a lone request change
+        t = time.time()
+        ckpt = _reload_checkpoint(service, ckdir)
+        walls["checkpoint_save"] = time.time() - t
+        t = time.time()
+        info = json.loads(_post_json(base + "/reload",
+                                     {"ckpt_path": str(ckpt)}))
+        walls["server_reload"] = time.time() - t
+        codes, seed, _ = lone(feats)
+        out_res["reload_codes_changed"] = bool(not np.array_equal(
+            codes, direct(service.system, feats, seed)))
+        metrics = _metrics(base)
+        batches = int(metrics["vaura_batches_total"])
+        if not (info.get("reloaded") and out_res["reload_codes_changed"]
+                and metrics["vaura_reloads_total"] == 1):
+            problems.append(f"mesh server reload: {info}, codes changed "
+                            f"{out_res['reload_codes_changed']}")
+        steps = _decode_steps(service, service.tokens)
+        stream_steps = _decode_steps(service, service.stream_tokens)
+        layers = service.system.sampler_config.num_layers
+        depth = service.system.encoder.cfg.depth
+        del service
+        torch.cuda.empty_cache()
+        # SIGTERM: rank 0 drains, every process exits 0
+        t = time.time()
+        os.kill(pid, signal.SIGTERM)
+        rc = proc.wait(timeout=MESH_TIMEOUT_S)
+        walls["server_drain_and_exit"] = time.time() - t
+        out_res["exit_code"] = rc
+        with open(path) as f:
+            text = f.read()
+        if rc != 0 or "shutdown complete (drained=True)" not in text:
+            problems.append(f"mesh server: exit {rc} after SIGTERM: "
+                            f"{text[-2000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(ckdir, ignore_errors=True)
+    with open(os.path.join(out, "launches_rank0.json")) as f:
+        launches = json.load(f)
+    want = {"decode_attention": layers * (steps * batches + stream_steps),
+            "decode_attention_int8": 0, "encoder_attention": 2 * depth,
+            "encoder_mlp": depth, "grouped_cls_attention": 0}
+    out_res["launches"], out_res["expected_launches"] = launches, want
+    if _differs(launches, want):
+        problems.append(f"mesh server launches {launches}, expected {want}")
+    add(launches)
+    res["server"] = out_res
+    log(f"[mesh] server 1x1x1 (mesh {out_res['mesh']}): lone request "
+        f"{walls['server_lone_request']:.3f} s equal to generate: "
+        f"{out_res['lone_codes_equal_direct']}, burst of 16 "
+        f"{out_res['burst16']['wall_s']:.3f} s in "
+        f"{out_res['burst16']['batches']} batches, stream first increment "
+        f"{out_res['stream']['time_to_first_increment_s']:.3f} s, reload "
+        f"{walls['server_reload']:.1f} s (codes changed: "
+        f"{out_res['reload_codes_changed']}), exit {out_res['exit_code']}; "
+        f"launches {launches}")
+
+
+def _mesh_lora_action(root, res, problems, add, ft, job):
+    """(f) The generate action from the finetune phase's LoRA experiment
+    (L) under ``torchrun`` with NCCL (``job``, of the phase's launch): its
+    codes equal the same action's in one process (the finetune phase's
+    ``generate_lora``), its launches counted. ``main`` deletes L's
+    experiment after the last phase."""
+    import numpy as np
+
+    from vaura_tpu_torch.ops.patterns import DelayedPatternProvider
+
+    one = ft["wav_dirs"]["lora"]
+    differ = [i for i in range(2) if not np.array_equal(
+        np.load(os.path.join(one, f"{i}.codes.npy")),
+        np.load(os.path.join(root, "lora_mesh", f"{i}.codes.npy")))]
+    launches = job["launches"]
+    steps = DelayedPatternProvider(9).get_pattern(
+        FT_GEN_TOKENS)._build_seq_tables(FT_GEN_TOKENS)[1].shape[1] - 1
+    want = _ft_want(encoder_fwd=1, decode_steps=steps)
+    res["lora_action"] = {"codes_differ": differ, "launches": launches,
+                          "expected_launches": want,
+                          "one_process_wall_s": ft.get(
+                              "generate_lora", {}).get("wall_s")}
+    add(launches)
+    log(f"[mesh] generate action from the LoRA run on the mesh: "
+        f"{res['walls_s']['lora_action_mesh']:.1f} s (one process "
+        f"{res['lora_action']['one_process_wall_s']}), codes differ in "
+        f"{differ}, launches {launches}")
+    if differ or _differs(launches, want):
+        problems.append(f"LoRA action on the mesh: clips {differ} differ, "
+                        f"launches {launches}, expected {want}")
+
+
 def phase_mesh(gen, report):
     """The multi-device path on this card: (a) the flagship dry run
     (``vaura_tpu_torch.dryrun --system flagship``: greedy generation of 221
@@ -3464,9 +3813,18 @@ def phase_mesh(gen, report):
     action in this process (codes equal, each WAV written once); (c) the
     demo on a synthetic ``--frames`` file, 2.56 s and 5.12 s, random
     flagship weights (finite WAVs of the right length, the decode and fused
-    encoder kernels launched); (d) the decode kernels at the head counts a
-    model axis of 2 and 4 leaves a rank. Returns the launches of the dry
-    run on the mesh, the demo and the one-process greedy action."""
+    encoder kernels launched); (e) the server under ``torchrun`` with
+    NCCL at 1 x 1 x 1 (``_mesh_server``: a clip, a lone request held to
+    ``VauraSystem.generate``, a burst of 16, a stream, a hot reload,
+    SIGTERM); (f) the generate action from the finetune phase's LoRA run
+    under ``torchrun`` against the same action in one process
+    (``_mesh_lora_action``); (d) the decode kernels at the head counts a
+    model axis of 2 and 4 leaves a rank. (a), (b) and (f) on the mesh share
+    one ``torchrun`` launch (``rank_jobs``: one process start, paid once;
+    their walls are taken in the rank, the launch's as ``mesh_launch``).
+    Returns the launches of the dry run on the mesh, the demo, the
+    one-process greedy action, the server's requests and the LoRA action
+    on the mesh."""
     import shutil
 
     import numpy as np
@@ -3486,11 +3844,30 @@ def phase_mesh(gen, report):
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
 
-    # (a) the flagship dry run on the mesh and in one process
+    # the runs on the mesh in one torchrun launch (one process start): the
+    # generate action (b), the generate action from the LoRA run (f), then
+    # the dry run (a), which ends the process group
+    ft = report.get("finetune") or {}
+    if "lora_experiment" not in ft:
+        raise AssertionError("no LoRA experiment: the finetune phase failed")
     out = os.path.join(root, "dryrun.pt")
-    walls["dryrun_mesh"] = _torchrun("dryrun", [
-        "-m", "vaura_tpu_torch.dryrun", "--system", "flagship", "--mesh",
-        "1x1x1", "--out", out], root)
+    argv = [f"config={os.path.join(ROOT, 'configs/generate_vgg.yaml')}",
+            "dataloader.dataset_type=dummy", "dataloader.num_workers=0",
+            "max_batches=1", "return_sampled_indices=true",
+            "use_sampling=false"]
+    dirs = {k: os.path.join(root, f"action_{k}") for k in ("one", "mesh")}
+    walls["mesh_launch"], jobs = _torchrun_jobs(root, [
+        {"tag": "action", "argv": argv + [f"output_dir={dirs['mesh']}"]},
+        {"tag": "lora_action", "argv": [
+            f"config={os.path.join(ROOT, TRAIN_CONFIG)}", *FT_GEN,
+            f"experiment_path={ft['lora_experiment']}",
+            f"output_dir={os.path.join(root, 'lora_mesh')}"]},
+        {"tag": "dryrun", "dryrun": True, "argv": [
+            "--system", "flagship", "--mesh", "1x1x1", "--out", out]}])
+    for tag, job in jobs.items():
+        walls[f"{tag}_mesh"] = job["wall_s"]
+
+    # (a) the flagship dry run on the mesh and in one process
     meshed = torch.load(out, weights_only=False)
     torch.cuda.empty_cache()
     t0 = time.time()
@@ -3523,11 +3900,6 @@ def phase_mesh(gen, report):
     torch.cuda.empty_cache()
 
     # (b) the generate action: a data mesh under torchrun, one process here
-    argv = [f"config={os.path.join(ROOT, 'configs/generate_vgg.yaml')}",
-            "dataloader.dataset_type=dummy", "dataloader.num_workers=0",
-            "max_batches=1", "return_sampled_indices=true",
-            "use_sampling=false"]
-    dirs = {k: os.path.join(root, f"action_{k}") for k in ("one", "mesh")}
     _zero_counters()
     t0 = time.time()
     main(argv + [f"output_dir={dirs['one']}"])
@@ -3535,8 +3907,6 @@ def phase_mesh(gen, report):
     walls["action_one_process"] = time.time() - t0
     action_launches = _counters()
     add(action_launches)
-    walls["action_mesh"] = _torchrun("action", [
-        "-m", "vaura_tpu_torch", *argv, f"output_dir={dirs['mesh']}"], root)
     files = {k: sorted(os.listdir(d)) for k, d in dirs.items()}
     n_codes = sum(f.endswith(".codes.npy") for f in files["mesh"])
     differ = [f for f in files["one"] if f.endswith(".codes.npy") and not
@@ -3586,13 +3956,26 @@ def phase_mesh(gen, report):
     log(f"[mesh] demo: {wavs}, launches {demo_launches}")
     os.remove(path)
 
+    # (e) the server on the mesh, (f) the generate action from a LoRA run
+    torch.cuda.empty_cache()
+    _mesh_server(root, res, problems, add)
+    torch.cuda.empty_cache()
+    _mesh_lora_action(root, res, problems, add, ft, jobs["lora_action"])
+
     # (d) the decode kernels at local head counts
     t0 = time.time()
     res["local_heads"] = check_decode_local_heads(gen)
     walls["decode_local_heads"] = time.time() - t0
     report["mesh"] = res
+    srv = res["server"]
     print("mesh: " + json.dumps({
         "walls_s": walls, "loss_rel": res["dryrun"]["loss_rel"],
+        "server": {"burst16": srv["burst16"], "stream": srv["stream"],
+                   "lone_codes_equal_direct": srv["lone_codes_equal_direct"],
+                   "reload_codes_changed": srv["reload_codes_changed"],
+                   "features_max_abs_diff": srv["features_max_abs_diff"],
+                   "exit_code": srv["exit_code"]},
+        "lora_action_codes_differ": res["lora_action"]["codes_differ"],
         "decode_ms": {k: v["ms"] for k, v in res["local_heads"].items()}}),
         flush=True)
     torch.cuda.empty_cache()
@@ -3602,6 +3985,10 @@ def phase_mesh(gen, report):
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--rank"]:  # a rank of the mesh phase's torchrun
+        return rank_main(sys.argv[2], sys.argv[3:])
+    if sys.argv[1:2] == ["--rank-jobs"]:
+        return rank_jobs(sys.argv[2], sys.argv[3])
     try:
         import torch
     except ImportError as e:
@@ -3674,6 +4061,10 @@ def main() -> int:
     quant_launches = run("quant_modes", phase_quant_modes, gen, report) or {}
     run("quant_quality", phase_quant_quality, gen, report)
     mesh_launches = run("mesh", phase_mesh, gen, report) or {}
+    if (report.get("finetune") or {}).get("tmp"):  # L's experiment
+        import shutil
+
+        shutil.rmtree(report["finetune"]["tmp"], ignore_errors=True)
 
     # each kernel's count on the main paths that run it: generation for the
     # decode and fused encoder kernels, generation with the int8 cache for

@@ -11,7 +11,13 @@ vaura_tpu_torch ...``), on the CPU with gloo and the tiny model of
   * JAX's fallback: a batch not divisible by ``data * fsdp`` runs
     unsharded with JAX's warning;
   * the generate action shards its batch over a data mesh and writes each
-    WAV once, byte for byte the one-process run's (greedy decoding).
+    WAV once, byte for byte the one-process run's (greedy decoding), also
+    from a LoRA experiment (its adapters whole on every rank, merged into
+    the weights at each call);
+  * the train action on a mesh logs the tracked training files' greedy
+    audio (every rank runs their forward, rank 0 writes): the same audio
+    records, tags and steps as the one-process run's, also of a file whose
+    row lies on rank 1.
 
 Each launch has 180 s.
 """
@@ -41,6 +47,18 @@ def _run(args, nproc=None):
                        env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert r.returncode == 0, (r.stdout + r.stderr)[-4000:]
     return r.stdout + r.stderr
+
+
+def _audio_events(run: Path) -> dict:
+    """``{(tag, step): encoded audio}`` of a run's TensorBoard file."""
+    from tensorboard.backend.event_processing.event_accumulator import (
+        EventAccumulator,
+    )
+
+    acc = EventAccumulator(str(run), size_guidance={"audio": 0})
+    acc.Reload()
+    return {(tag, e.step): e.encoded_audio_string
+            for tag in acc.Tags()["audio"] for e in acc.Audio(tag)}
 
 
 def _run_dir(log_dir: Path) -> Path:
@@ -111,3 +129,69 @@ def test_generate_action_shards_its_batch(tmp_path):
     for n in names:
         if n.endswith(".wav"):
             assert (one / n).read_bytes() == (mesh / n).read_bytes(), n
+
+
+def test_generate_action_from_a_lora_experiment_on_a_mesh(tmp_path):
+    """A LoRA run of the finetune action (rank 4, from the seeded base its
+    ``frozen/`` save holds); the generate action from its experiment on 2
+    processes writes the files of the one-process action, WAVs and codes
+    byte for byte."""
+    _run(TRAIN + ["action=finetune", f"trainer.log_dir={tmp_path / 'ft'}",
+                  "finetune.lora_rank=4", "finetune.lora_alpha=8.0"])
+    exp = _run_dir(tmp_path / "ft")
+    argv = GENERATE + [f"experiment_path={exp}", "return_sampled_indices=true"]
+    one, mesh = tmp_path / "one", tmp_path / "mesh"
+    _run(argv + [f"output_dir={one}"])
+    text = _run(argv + [f"output_dir={mesh}"], nproc=2)
+    assert "sharding generation batch 4 over 2 processes" in text
+    assert "Loaded the LoRA base weights from" in text
+    names = sorted(p.name for p in one.iterdir())
+    assert names == sorted(p.name for p in mesh.iterdir())
+    assert len([n for n in names if n.endswith(".codes.npy")]) == 8
+    for n in names:
+        if n.endswith((".wav", ".npy")):
+            assert (one / n).read_bytes() == (mesh / n).read_bytes(), n
+
+
+def _first_train_files(n_batches: int = 2) -> list:
+    """The file stems of the train action's first batches of
+    ``dummy.yaml`` (its loader shuffles from the config's seed)."""
+    from vaura_tpu_torch.config import assemble_config
+    from vaura_tpu_torch.data import get_datamodule_from_type
+
+    cfg = assemble_config(
+        [f"config={REPO / 'configs/experiments/dummy.yaml'}"],
+        defaults_path=REPO / "configs" / "vaura_defaults.yaml",
+        base_dir=REPO)
+    dm = get_datamodule_from_type(cfg["dataloader"]["dataset_type"],
+                                  dict(cfg["dataloader"]))
+    dm.setup()
+    loader = dm.train_dataloader()
+    loader.set_epoch(0)
+    it = iter(loader)
+    return [[Path(f).stem for f in next(it)["meta"]["filepath"]]
+            for _ in range(n_batches)]
+
+
+def test_train_action_on_a_mesh_logs_tracked_files(tmp_path):
+    """Two files tracked, the first batch's second row (on rank 1 of fsdp
+    2) and the second batch's first: the mesh run's event file holds the
+    audio records of the one-process run, the same tags, steps and
+    bytes."""
+    first, second = _first_train_files()
+    files = [first[1], second[0]]
+    track = ['model.files_to_track_during_training=[%s]'
+             % ",".join(f'"{f}"' for f in files)]
+    _run(TRAIN + track + [f"trainer.log_dir={tmp_path / 'mesh'}",
+                          "trainer.mesh.data=1", "trainer.mesh.fsdp=2"],
+         nproc=2)
+    _run(TRAIN + track + [f"trainer.log_dir={tmp_path / 'one'}"])
+    got = _audio_events(_run_dir(tmp_path / "mesh"))
+    want = _audio_events(_run_dir(tmp_path / "one"))
+    tracked = {k for k in want if k[0].startswith(
+        "generated_audio_of_training_data/")}
+    assert tracked == {(f"generated_audio_of_training_data/{files[0]}", 1),
+                       (f"generated_audio_of_training_data/{files[1]}", 2)}
+    assert set(got) == set(want)
+    for k in tracked:
+        assert got[k] == want[k], k

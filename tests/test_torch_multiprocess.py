@@ -22,14 +22,19 @@ same converted weights and batches. Held:
     the same steps from another seed show (held above 1e-4);
   * the masked loss over rows whose masks differ across the ranks: loss
     within 1e-6 and its gradient within 1e-6 of JAX's on the whole batch;
-  * greedy generation (CFG 3) token for token, audio within 1e-4;
+  * greedy generation (CFG 3) token for token, audio within 1e-4; the
+    same with LoRA adapters (rank 4) placed for generation
+    (``shard_module(..., train=False)``: the adapters whole on every rank,
+    each delta cut as its weight over ``model``), against JAX's ``generate``
+    on the same converted ``lora_sampler`` tree;
   * sampled codes equal at 1 x 1 x 1, at 2 x 2 x 2 and in one process
     without a mesh;
   * a checkpoint gathered under the mesh loads bit-equal into one process,
     and a one-process checkpoint into the mesh and back out bit-equal.
 
 Also two processes hold ``initialize_distributed`` and
-``is_main_process``, as ``tests/test_multihost.py`` does for JAX. Each
+``is_main_process``, as ``tests/test_multihost.py`` does for JAX, and
+``shard_module`` refuses a system with adapters that will be trained. Each
 worker sets one thread; each spawn's processes have 180 s.
 """
 
@@ -45,6 +50,7 @@ import numpy as np
 import pytest
 import torch
 from torch_port_util import (
+    J_DAC,
     J_ENC_TRAIN,
     J_SAMPLER_TRAIN,
     flat_state_dicts,
@@ -58,7 +64,10 @@ from torch_port_util import (
     train_batch,
 )
 
+from vaura_tpu.models.vaura import VauraSystem as JSystem
 from vaura_tpu.ops.losses import masked_codebook_cross_entropy as j_loss
+from vaura_tpu.train.lora import DEFAULT_TARGETS
+from vaura_tpu.train.lora import init_lora as j_init_lora
 from vaura_tpu.train.steps import make_train_step as j_make_train_step
 from vaura_tpu_torch.convert import from_jax_params
 from vaura_tpu_torch.models.vaura import VauraSystem
@@ -79,6 +88,7 @@ GREEDY = dict(max_new_tokens=MAX_NEW, use_sampling=False, cfg_scale=3.0)
 SAMPLED = dict(max_new_tokens=MAX_NEW, top_k=4, cfg_scale=3.0, seed=5,
                decode_to_audio=False)
 STOCHASTIC_SEED = 11
+LORA_RANK, LORA_ALPHA = 4, 8.0
 
 
 def stochastic_configs():
@@ -90,6 +100,20 @@ def stochastic_configs():
             port_dac_config(),
             port_encoder_config(J_ENC_TRAIN, drop_rate=0.1,
                                 drop_path_rate=0.1))
+
+
+def lora_tree(tree):
+    """JAX's adapters over ``tree``'s sampler (rank 4, every default
+    target), ``lora_b`` filled with seeded values (a zero ``b`` merges to
+    the base)."""
+    lora = np_tree(j_init_lora(jax.random.PRNGKey(3), tree["sampler"],
+                               LORA_RANK, DEFAULT_TARGETS))
+    rng = np.random.default_rng(4)
+    for mod in lora["layers"].values():
+        for pair in mod.values():
+            pair["lora_b"] = (0.05 * rng.standard_normal(
+                pair["lora_b"].shape)).astype(np.float32)
+    return lora
 
 
 def _free_port() -> int:
@@ -149,6 +173,7 @@ def runs(tmp_path_factory):
             0.1, 0.9, 8)[:, None, None]),
     }
     frames = rng.standard_normal((B, 2, 3, 4, 16, 16)).astype(np.float32)
+    lora = lora_tree(tree)
     # a one-process checkpoint after one step, for the mesh to resume
     tsys = port_train_system(tree)
     trainable, _ = split_params(tsys)
@@ -170,6 +195,9 @@ def runs(tmp_path_factory):
                        "seed": STOCHASTIC_SEED},
         "generate": {"frames": torch.from_numpy(frames),
                      "runs": {"greedy": GREEDY, "sampled": SAMPLED}},
+        "lora": {"rank": LORA_RANK, "alpha": LORA_ALPHA, "kw": GREEDY,
+                 "state_dict": from_jax_params(
+                     {"lora_sampler": lora})["lora_sampler"]},
     }
     root = tmp_path_factory.mktemp("mesh")
     big = spawn("mesh", 8, {**payload, "mesh": (2, 2, 2)}, root / "m222")
@@ -181,6 +209,7 @@ def runs(tmp_path_factory):
     wait(big)
     wait(one)
     return {"jsys": jsys, "tree": tree, "sds": sds, "configs": configs, "batches": batches,
+            "lora": lora,
             "masked": masked,
             "frames": frames, "resume": resume,
             "m222": torch.load(root / "m222" / "result.pt", weights_only=False),
@@ -288,6 +317,39 @@ def test_sharded_greedy_generation_matches_jax(runs):
     want_audio = jax.jit(jsys.decode_audio)(jp, want["codes"])
     np.testing.assert_allclose(got["audio"].numpy(), np.asarray(want_audio),
                                rtol=0, atol=1e-4)
+
+
+def test_sharded_lora_generation_matches_jax(runs):
+    """Greedy generation with adapters at 2 x 2 x 2 (the adapters whole on
+    every rank, each delta cut as its weight over ``model``, merged into
+    the gathered weights once a call) against JAX's ``generate`` on the
+    same converted tree, whose ``_resolve_params`` merges them; and other
+    codes than the base's."""
+    tree = dict(runs["tree"], lora_sampler=runs["lora"])
+    jsys = JSystem(sampler_config=J_SAMPLER_TRAIN, dac_config=J_DAC,
+                   encoder_config=J_ENC_TRAIN, lora_rank=LORA_RANK,
+                   lora_alpha=LORA_ALPHA)
+    jp = jax.tree_util.tree_map(jnp.asarray, tree)
+    vis = jax.jit(jsys.visual_features)(jp, jnp.asarray(runs["frames"]))
+    want = jsys.generate(jp, None, RNG, vis_feats=vis, decode_buckets=1,
+                         decode_to_audio=False, **GREEDY)
+    got = runs["m222"]["lora"]["codes"]
+    assert got.shape == (B, 3, MAX_NEW)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want["codes"]))
+    assert not torch.equal(got, runs["m222"]["greedy"]["codes"])
+
+
+def test_training_adapters_under_a_mesh_raises():
+    """``shard_module`` on a system with adapters that will be trained
+    (its default): LoRA training under a mesh is not ported, and the error
+    says where it is queued."""
+    from vaura_tpu_torch.parallel import shard_module
+
+    system = VauraSystem(port_sampler_config(J_SAMPLER_TRAIN),
+                         port_dac_config(), None, device="cpu",
+                         lora_rank=LORA_RANK)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        shard_module(system, None)
 
 
 def test_sampled_codes_do_not_depend_on_the_mesh(runs):

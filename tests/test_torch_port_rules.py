@@ -247,7 +247,7 @@ def test_multi_device_and_demo_modules_are_covered_and_need_a_device(
                    "--out", str(tmp_path / "out")])
     # the actions a run of several processes may not start
     monkeypatch.setenv("WORLD_SIZE", "2")
-    for action in ("serve", "finetune", "test", "eval"):
+    for action in ("finetune", "test", "eval"):
         with pytest.raises(NotImplementedError, match="runs on one card"):
             main(["config=configs/experiments/dummy.yaml",
                   f"action={action}", f"trainer.log_dir={tmp_path}"])
@@ -258,6 +258,43 @@ def test_multi_device_and_demo_modules_are_covered_and_need_a_device(
     code = ("import sys\n"
             "import vaura_tpu_torch.parallel, vaura_tpu_torch.dryrun\n"
             "import vaura_tpu_torch.demo, vaura_tpu_torch.utils.demo_utils\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN + ('yaml',)!r}]\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True)
+    assert r.returncode == 0, r.stderr
+
+
+def test_mesh_serving_modules_are_covered_and_need_a_device(monkeypatch):
+    """The server across several processes (``scripts/serve.py`` over the
+    control channel of ``parallel/multihost.py``, the placements of
+    ``parallel/partitioning.py``, ``VauraSystem.replicated``, LoRA under a
+    mesh, the tracked files' replicated forward) is under the import rule
+    above and loads nothing of JAX or PyYAML; ``action=serve`` started by a
+    launcher of two processes joins NCCL on the cards, and without CUDA it
+    raises before any group forms."""
+    names = {str(f.relative_to(ROOT)) for f in _port_files()}
+    for mod in ("scripts/serve.py", "parallel/multihost.py",
+                "parallel/partitioning.py", "models/vaura.py",
+                "train/loop.py", "train/lora.py", "train/steps.py",
+                "main.py"):
+        assert f"vaura_tpu_torch/{mod}" in names, mod
+    from vaura_tpu_torch.main import main
+
+    monkeypatch.chdir(ROOT)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for k, v in (("WORLD_SIZE", "2"), ("RANK", "0"), ("MASTER_PORT", "1")):
+        monkeypatch.setenv(k, v)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["config=configs/experiments/dummy.yaml", "action=serve",
+              "port=0"])
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            "import vaura_tpu_torch.scripts.serve, vaura_tpu_torch.main\n"
+            "import vaura_tpu_torch.train.loop\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN + ('yaml',)!r}]\n"
             "assert not bad, bad\n")

@@ -575,18 +575,14 @@ def jax_service():
     return make_jax_service()
 
 
-def make_jax_service():
-    """The JAX package's ``GenerationService`` at the same geometry, greedy
-    with CFG 3, and a float32 parameter tree of its model's codec and
-    sampler (seeded, random heads; what ``_generate`` on features runs).
-    The service is made with ``init_params`` returning that tree (op by op
-    it takes about 50 s on a CPU)."""
+def jax_service_tree():
+    """The JAX package's config at the served geometry (greedy, CFG 3), its
+    float32 system and a float32 parameter tree of its model's codec and
+    sampler (seeded, random heads; what ``_generate`` on features runs)."""
     from torch_port_util import randomize_sampler_heads
 
-    from scripts.serve import GenerationService as JService
     from vaura_tpu.config import assemble_config as j_assemble
     from vaura_tpu.models.factory import build_system as j_build
-    from vaura_tpu.models.vaura import VauraSystem as JSystem
 
     cfg = dict(j_assemble(
         [f"config={REPO / 'configs/experiments/dummy.yaml'}"],
@@ -607,6 +603,18 @@ def make_jax_service():
     }
     tree = jax.tree_util.tree_map(lambda x: np.asarray(x, np.float32), tree)
     tree["sampler"] = randomize_sampler_heads(tree["sampler"], 2)
+    return cfg, jsys, tree
+
+
+def make_jax_service(parts=None):
+    """The JAX package's ``GenerationService`` at the same geometry, greedy
+    with CFG 3, over ``jax_service_tree()``'s tree (``parts``, when it was
+    made already). The service is made with ``init_params`` returning that
+    tree (op by op it takes about 50 s on a CPU)."""
+    from scripts.serve import GenerationService as JService
+    from vaura_tpu.models.vaura import VauraSystem as JSystem
+
+    cfg, jsys, tree = parts or jax_service_tree()
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(JSystem, "init_params", lambda self, rng: jax.tree_util.
                    tree_map(jnp.asarray, tree))

@@ -22,12 +22,14 @@ Several processes, one per card::
 
     torchrun --nproc_per_node=N -m vaura_tpu_torch config=... action=train
     torchrun --nproc_per_node=N -m vaura_tpu_torch config=... action=generate
+    torchrun --nproc_per_node=N -m vaura_tpu_torch config=... action=serve
 
 join one process group (``parallel.multihost.initialize_distributed``:
 NCCL on the cards, gloo with ``trainer.platform=cpu``) before anything
-touches a device; the train action then shards over ``trainer.mesh`` and
-the generate action its batch over a data mesh. The other actions run on
-one card and refuse a run of several processes.
+touches a device; the train action then shards over ``trainer.mesh``, the
+generate action its batch over a data mesh, and the server its batches over
+a mesh of ``trainer.mesh`` (rank 0 answers HTTP; ``scripts/serve.py``). The
+other actions run on one card and refuse a run of several processes.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ logger = logging.getLogger("vaura_tpu_torch")
 
 
 # the actions a run of several processes (torchrun) may start
-_MULTI_PROCESS = ("train", "generate", "predict")
+_MULTI_PROCESS = ("train", "generate", "predict", "serve")
 
 
 def get_config(argv):

@@ -46,7 +46,10 @@ gathered once for the call (``gathered_weights``), the CFG null stream
 stacked after the batch was sharded, so each row's two halves stay on one
 rank, draws of the whole batch's noise (``ops/sampling.py``), and the codes
 and audio gathered to every rank or to rank 0 when the caller asks
-(``gather``).
+(``gather``). Inside ``replicated`` every rank runs the same call on the
+whole batch instead (a server's B=1 stream, the tracked training files).
+LoRA adapters stay whole on every rank and merge into this rank's gathered
+weights at each entry call.
 """
 
 from __future__ import annotations
@@ -126,7 +129,9 @@ def _within(context: str):
 
 
 # the LoRA merge where the JAX package resolves its parameters
-# (``_resolve_params``), and a mesh's weights gathered once a generation
+# (``_resolve_params``), and a mesh's weights gathered once a generation;
+# a generation gathers first, so the merge reads this rank's whole (local)
+# weights and not an FSDP2 shard of them
 _merges_lora = _within("lora_merged")
 _gathers_weights = _within("gathered_weights")
 _draws_by_rows = _within("row_draws")
@@ -179,6 +184,8 @@ class VauraSystem(nn.Module):
         # the mesh placement (parallel.shard_module); None on one device
         self.placement = None
         self._weights_gathered = False
+        # every rank runs the same call on the whole batch (``replicated``)
+        self._replicated = False
 
     @contextlib.contextmanager
     def gathered_weights(self):
@@ -203,28 +210,49 @@ class VauraSystem(nn.Module):
             for m in mods:
                 m.reshard()
 
+    @contextlib.contextmanager
+    def replicated(self):
+        """Under a mesh, the entry calls inside the block are replicated:
+        every rank passes the same whole batch (a server's B=1 stream, the
+        tracked files of a training batch), takes part in the collectives
+        of the placed weights, draws the one-process noise and masks, and
+        gets the whole result; no loss or result is summed or gathered over
+        the batch's shards (JAX's ``replicated`` placement,
+        ``vaura_tpu/parallel/mesh.py``). Nothing on one device."""
+        prev, self._replicated = self._replicated, True
+        try:
+            yield
+        finally:
+            self._replicated = prev
+
+    def _shards_rows(self) -> bool:
+        """Whether this rank holds its rows of the batch (a mesh, outside
+        ``replicated``)."""
+        return self.placement is not None and not self._replicated
+
     def row_draws(self):
         """Under a mesh, the masks of a training forward drawn for the whole
         batch, of which this rank keeps its rows
         (``ops/dropout.py::batch_shard``); nothing on one device."""
         pl = self.placement
-        return batch_shard(None if pl is None
-                           else (pl.batch_rank, pl.batch_size))
+        return batch_shard((pl.batch_rank, pl.batch_size)
+                           if self._shards_rows() else None)
 
     def _sample_rows(self, batch: int):
         """``(first row, rows)`` of this rank's ``batch`` rows in the whole
         batch under a mesh, for the draws of ``ops.sampling``; None on one
         device."""
         pl = self.placement
-        return None if pl is None else (pl.batch_rank * batch,
-                                        pl.batch_size * batch)
+        return ((pl.batch_rank * batch, pl.batch_size * batch)
+                if self._shards_rows() else None)
 
     def _gather_result(self, result: Dict[str, object],
                        gather: Optional[str]) -> Dict[str, object]:
         """Under a mesh, ``result``'s codes and audio of the whole batch on
         every rank (``gather="all"``) or on rank 0 (``"main"``; the other
-        ranks get None); this rank's rows when ``gather`` is None."""
-        if gather is None or self.placement is None:
+        ranks get None); this rank's rows when ``gather`` is None. A
+        replicated call's result is whole on every rank already."""
+        if gather is None or not self._shards_rows():
             return result
         for key in ("codes", "audio"):
             if key in result:
@@ -234,7 +262,7 @@ class VauraSystem(nn.Module):
     def batch_total(self, x: torch.Tensor) -> torch.Tensor:
         """A loss of this rank's rows summed over the batch's shards: the
         whole batch's loss (``x`` itself on one device)."""
-        return x if self.placement is None else self.placement.batch_sum(x)
+        return self.placement.batch_sum(x) if self._shards_rows() else x
 
     @property
     def num_codebooks(self) -> int:
@@ -253,7 +281,10 @@ class VauraSystem(nn.Module):
         and inside an enclosing block (its layers already hold merged
         weights), it does nothing. The nesting is read from the layers, not
         kept on the system, so a copy of the system taken inside a block (a
-        hot reload's view) merges on its own next call."""
+        hot reload's view) merges on its own next call. Under a mesh the
+        adapters are whole on every rank and the weights this rank's
+        (gathered, and over ``model`` its rows or columns): each delta takes
+        its weight's cut (``MeshPlacement.model_part``)."""
         if self.lora_sampler is None:
             yield
             return
@@ -262,7 +293,12 @@ class VauraSystem(nn.Module):
         if any(m.merged is not None for m in layers.values()):
             yield
             return
-        merged = merge_lora(self.sampler, self.lora_sampler, self.lora_alpha)
+        pl = self.placement
+        cut = (None if pl is None else
+               lambda name, delta: pl.model_part(f"sampler.{name}.weight",
+                                                 delta))
+        merged = merge_lora(self.sampler, self.lora_sampler, self.lora_alpha,
+                            cut)
         with use_weights({layers[name]: w for name, w in merged.items()}):
             yield
 
@@ -335,7 +371,10 @@ class VauraSystem(nn.Module):
         no graph (the features are a constant to what follows).
         ``chunk_size`` runs the encoder over sequential batch slices (the
         largest divisor of B not above it; inference only). Without an
-        encoder, ``frames`` is taken as ``[B, Tv, D]`` features."""
+        encoder, ``frames`` is taken as ``[B, Tv, D]`` features. Under a
+        mesh every rank calls it with the same frames, as FSDP2 gathers each
+        sharded block's weights in its forward, and gets the whole
+        features."""
         if train and chunk_size:
             raise ValueError("chunk_size is for inference: a training step "
                              "runs the encoder over the whole batch")
@@ -416,7 +455,7 @@ class VauraSystem(nn.Module):
         targets = codes[:, :K]
         loss, loss_per_cb = masked_codebook_cross_entropy(
             reverted, targets, mask,
-            None if self.placement is None else self.placement.batch_sum)
+            self.placement.batch_sum if self._shards_rows() else None)
         return loss, {"loss_per_codebook": loss_per_cb, "logits": reverted,
                       "targets": targets, "mask": mask}
 
@@ -535,8 +574,8 @@ class VauraSystem(nn.Module):
         return gen_seq
 
     @torch.no_grad()
-    @_merges_lora
     @_gathers_weights
+    @_merges_lora
     def generate(
         self,
         frames: Optional[torch.Tensor] = None,
@@ -737,8 +776,8 @@ class VauraSystem(nn.Module):
             prompt = codes[:, :, stride_tokens:]
 
     @torch.no_grad()
-    @_merges_lora
     @_gathers_weights
+    @_merges_lora
     def generate_long(
         self,
         frames: Optional[torch.Tensor] = None,   # [B, S_total, C, T, H, W]
@@ -957,8 +996,8 @@ class VauraSystem(nn.Module):
         return out
 
     @torch.no_grad()
-    @_merges_lora
     @_gathers_weights
+    @_merges_lora
     def generate_long_kv(
         self,
         frames: Optional[torch.Tensor] = None,   # [B, S_total, C, T, H, W]
@@ -1033,8 +1072,8 @@ class VauraSystem(nn.Module):
         return audio.reshape(wav.shape[0], -1), emit_to
 
     @torch.no_grad()
-    @_merges_lora
     @_gathers_weights
+    @_merges_lora
     def generate_long_kv_stream(
         self,
         frames: Optional[torch.Tensor] = None,   # [B, S_total, C, T, H, W]
@@ -1098,8 +1137,8 @@ class VauraSystem(nn.Module):
             emitted, n_prev = emit_to, n_known
 
     @torch.no_grad()
-    @_merges_lora
     @_gathers_weights
+    @_merges_lora
     def generate_long_stream(
         self,
         frames: Optional[torch.Tensor] = None,   # [B, S_total, C, T, H, W]

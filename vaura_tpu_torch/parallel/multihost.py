@@ -26,6 +26,10 @@ logger = logging.getLogger(__name__)
 
 # how long a collective may wait before the process group gives up
 TIMEOUT_S = 600
+# the control channel (``ControlChannel``): how long a follower waits for
+# rank 0's next header, and how often an idle rank 0 sends a no-op one
+CONTROL_TIMEOUT_S = 1800
+HEARTBEAT_S = 60
 
 
 def _env_int(*names: str) -> Optional[int]:
@@ -129,3 +133,56 @@ def broadcast_object(obj):
     box = [obj]
     dist.broadcast_object_list(box, src=0)
     return box[0]
+
+
+class ControlChannel:
+    """Rank 0's jobs to every other rank of a run (the server's leader and
+    followers, ``scripts/serve.py``): a job is a header (a small picklable
+    dict) and tensors. The headers go over a CPU ``gloo`` group of their
+    own, the tensors over the default (device) group.
+
+    A follower waits for the next header between jobs, as long as the
+    server is idle. The headers' group is gloo, so no NCCL collective waits
+    meanwhile and NCCL's watchdog, which ends a process whose collective
+    outlives the group's timeout, has nothing to end. Rank 0 sends a no-op
+    header whenever ``HEARTBEAT_S`` passed since its last header (the
+    server's worker does, between jobs and while idle), so a follower's wait
+    stays below ``CONTROL_TIMEOUT_S`` however long the server idles or
+    serves without it, and a follower still learns within that timeout that
+    rank 0 hangs or has gone: it costs one small broadcast a minute at
+    most, and the timeout needs no guess of the longest idle spell."""
+
+    def __init__(self, device, timeout_s: Optional[float] = None):
+        self.device = torch.device(device)
+        self.leader = process_index() == 0
+        self.group = dist.new_group(backend="gloo", timeout=datetime.timedelta(
+            seconds=timeout_s or CONTROL_TIMEOUT_S))
+
+    def broadcast(self, header: Optional[dict] = None, tensors=()):
+        """Rank 0's ``(header, tensors)`` on every rank: rank 0 passes
+        them (tensors of any device; they travel on ``device``), the others
+        pass nothing and get them. Every rank calls it for each job, in
+        the same order."""
+        box = [None]
+        if self.leader:
+            box = [dict(header, tensors=[
+                (tuple(t.shape), str(t.dtype).rsplit(".", 1)[-1])
+                for t in tensors])]
+        dist.broadcast_object_list(box, src=0, group=self.group)
+        header = box[0]
+        specs = header.pop("tensors")
+        if self.leader:
+            out = [t.to(self.device).contiguous() for t in tensors]
+        else:
+            out = [torch.empty(shape, dtype=getattr(torch, dtype),
+                               device=self.device) for shape, dtype in specs]
+        for t in out:
+            dist.broadcast(t, src=0)
+        return header, out
+
+    def all_ok(self, ok: bool) -> bool:
+        """Whether ``ok`` holds on every rank (a collective over the
+        headers' group)."""
+        flag = torch.tensor([int(bool(ok))], dtype=torch.int32)
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=self.group)
+        return bool(flag.item())

@@ -15,13 +15,16 @@ in]`` here and ``[in, out]`` in JAX, so every two-axis spec is transposed
 against ``[t, h, w, Cin, Cout]``, and the leading ``layers`` / ``blocks``
 axis of JAX's stacked trees is one module per layer.
 
-``shard_module`` applies them. The ``model`` axis splits the sampler's
-dense layers eagerly (``parallel/tensor_parallel.py``); ``fsdp`` is
-FSDP2's ``fully_shard`` over the ``(data, fsdp)`` sub-mesh (replicated over
-``data``, sharded over ``fsdp``) on each decoder block, each encoder block,
-the sampler, the encoder and the bridge; the DAC stays replicated, as in
-JAX. Where the placement differs from JAX's spec, ``MODEL_DIFFERENCES``,
-``HEAD_ALIGNED``, ``SPLIT_SCALES`` and ``fsdp_dim`` say so and why.
+``shard_module`` applies them (``place_modules``). The ``model`` axis
+splits the sampler's dense layers eagerly (``parallel/tensor_parallel.py``);
+``fsdp`` is FSDP2's ``fully_shard`` over the ``(data, fsdp)`` sub-mesh
+(replicated over ``data``, sharded over ``fsdp``) on each decoder block,
+each encoder block, the sampler, the encoder and the bridge; the DAC and
+LoRA adapters stay replicated, as in JAX. A system placed for generation
+alone at ``fsdp`` 1 is not wrapped at all (JAX's specs leave every leaf
+whole there). Where the placement differs from JAX's spec,
+``MODEL_DIFFERENCES``, ``HEAD_ALIGNED``, ``SPLIT_SCALES`` and ``fsdp_dim``
+say so and why.
 """
 
 from __future__ import annotations
@@ -224,11 +227,14 @@ class MeshPlacement:
     (``full`` gathers, ``local`` slices), which checkpoints use so that a
     file saved under any mesh is the one-process file."""
 
-    def __init__(self, mesh, sampler_config):
+    def __init__(self, mesh, sampler_config, shards: bool = True):
         from vaura_tpu_torch.parallel.mesh import batch_index
 
         self.mesh = mesh
         self.cfg = sampler_config
+        # whether FSDP2 shards the modules over (data, fsdp); a placement
+        # for generation alone at fsdp 1 holds them whole (shard_module)
+        self.shards = shards
         self.model_size = mesh.size(2)
         self.model_rank = mesh.get_local_rank("model")
         self.model_group = mesh.get_group("model")
@@ -265,6 +271,19 @@ class MeshPlacement:
         dist.gather(x, parts, dst=0, group=self.batch_group)
         return torch.cat(parts) if main else None
 
+    def gather_list(self, rows: list) -> list:
+        """The whole batch of a list of one entry a row (a batch's file
+        names), on every rank, in ``gather_rows``' order."""
+        parts = [None] * self.batch_size
+        dist.all_gather_object(parts, rows, group=self.batch_group)
+        return [x for part in parts for x in part]
+
+    def model_part(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """This model rank's part of the whole leaf ``full`` (``tp_slice``;
+        a LoRA delta takes its base weight's cut)."""
+        return tp_slice(name, full, self.cfg, self.model_size,
+                        self.model_rank)
+
     def full(self, name: str, t: torch.Tensor) -> torch.Tensor:
         """The whole value of the leaf ``name`` from this rank's ``t`` (a
         collective: every rank calls it for the same names in the same
@@ -286,7 +305,7 @@ class MeshPlacement:
         (its local tensor, for an FSDP2 parameter)."""
         from torch.distributed.tensor import DTensor
 
-        t = tp_slice(name, full, self.cfg, self.model_size, self.model_rank)
+        t = self.model_part(name, full)
         if isinstance(like, DTensor):
             for mdim, placement in enumerate(like.placements):
                 if placement.is_shard():
@@ -370,53 +389,94 @@ def _fully_shard(module, placement: MeshPlacement, names: Dict[int, str],
 
 
 @torch.no_grad()
-def shard_module(system, mesh) -> MeshPlacement:
-    """Place ``system`` (a ``VauraSystem`` holding its whole weights, the
-    same on every rank: seeded, or loaded and converted) on ``mesh``, in
-    place: the sampler's dense layers take this model rank's rows or
-    columns (``tp_slice``; the head counts of its attention become the
-    local ones), then FSDP2 shards the sampler's blocks, the sampler, the
-    encoder's blocks, the encoder and the bridge over ``(data, fsdp)``.
-    Sets and returns ``system.placement``. Without LoRA adapters only."""
+def _split_over_model(sampler, placement: MeshPlacement) -> None:
+    """This model rank's rows or columns of the sampler's dense layers
+    (``tp_slice``), in place; its attention layers' head counts become the
+    local ones, and every layer gets the model axis's collectives."""
     from vaura_tpu_torch.models.sampler import Attention, FeedForward, PDense
     from vaura_tpu_torch.parallel.tensor_parallel import ModelParallel
 
-    if system.lora_sampler is not None:
-        raise NotImplementedError("LoRA adapters under a mesh are not ported")
-    placement = MeshPlacement(mesh, system.sampler_config)
     M, r = placement.model_size, placement.model_rank
-    sampler = system.sampler
-    if M > 1:
-        tp = ModelParallel(placement.model_group, M, r)
-        for pre, mod in sampler.named_modules():
-            if isinstance(mod, PDense):
-                for leaf in ("weight", "kernel_q", "scale"):
-                    t = getattr(mod, leaf, None)
-                    if t is None:
-                        continue
-                    name = f"sampler.{pre}.{leaf}"
-                    part = tp_slice(name, t.data, system.sampler_config, M, r
-                                    ).contiguous()
-                    if isinstance(t, torch.nn.Parameter):
-                        setattr(mod, leaf, torch.nn.Parameter(
-                            part, requires_grad=t.requires_grad))
-                    else:
-                        setattr(mod, leaf, part)
-            if isinstance(mod, Attention):
-                mod.n_heads //= M
-                mod.n_kv //= M
-            if isinstance(mod, (Attention, FeedForward)):
-                mod.tp = tp
-        sampler.tp = tp
-    names = {id(p): n for n, p in system.named_parameters()}
-    for block in sampler.layers:
-        _fully_shard(block, placement, names)
-    _fully_shard(sampler, placement, names)
-    if system.encoder is not None:
-        for block in system.encoder.blocks:
+    tp = ModelParallel(placement.model_group, M, r)
+    for pre, mod in sampler.named_modules():
+        if isinstance(mod, PDense):
+            for leaf in ("weight", "kernel_q", "scale"):
+                t = getattr(mod, leaf, None)
+                if t is None:
+                    continue
+                name = f"sampler.{pre}.{leaf}"
+                part = tp_slice(name, t.data, placement.cfg, M, r).contiguous()
+                if isinstance(t, torch.nn.Parameter):
+                    setattr(mod, leaf, torch.nn.Parameter(
+                        part, requires_grad=t.requires_grad))
+                else:
+                    setattr(mod, leaf, part)
+        if isinstance(mod, Attention):
+            mod.n_heads //= M
+            mod.n_kv //= M
+        if isinstance(mod, (Attention, FeedForward)):
+            mod.tp = tp
+    sampler.tp = tp
+
+
+def place_modules(placement: MeshPlacement, modules) -> None:
+    """Place a system's top modules (``{"sampler": ..., "encoder": ...,
+    "bridge": ...}``, each whole, the same on every rank) on the mesh, in
+    place: the sampler's dense layers split over ``model``, then, when the
+    placement shards (``placement.shards``), FSDP2 over ``(data, fsdp)`` on
+    the sampler's blocks, the sampler, the encoder's blocks, the encoder and
+    the bridge. Other modules (LoRA adapters) stay whole on every rank. A
+    hot reload places its new modules with the placement of the served
+    system."""
+    sampler = modules.get("sampler")
+    if sampler is not None and placement.model_size > 1:
+        _split_over_model(sampler, placement)
+    if not placement.shards:
+        return
+    names = {id(p): f"{top}.{n}" for top, m in modules.items()
+             if m is not None for n, p in m.named_parameters()}
+    if sampler is not None:
+        for block in sampler.layers:
+            _fully_shard(block, placement, names)
+        _fully_shard(sampler, placement, names)
+    encoder = modules.get("encoder")
+    if encoder is not None:
+        for block in encoder.blocks:
             _fully_shard(block, placement, names, ("forward_unfused",))
-        _fully_shard(system.encoder, placement, names)
-    if system.bridge is not None:
-        _fully_shard(system.bridge, placement, names)
+        _fully_shard(encoder, placement, names)
+    if modules.get("bridge") is not None:
+        _fully_shard(modules["bridge"], placement, names)
+
+
+LORA_TRAINING = (
+    "training LoRA adapters under a mesh is not ported (ROADMAP.md, section "
+    "1): train them in one process; a system with adapters generates and "
+    "serves on any mesh (shard_module(..., train=False))")
+
+
+@torch.no_grad()
+def shard_module(system, mesh, *, train: bool = True) -> MeshPlacement:
+    """Place ``system`` (a ``VauraSystem`` holding its whole weights, the
+    same on every rank: seeded, or loaded and converted) on ``mesh``, in
+    place (``place_modules``): the sampler's dense layers take this model
+    rank's rows or columns (``tp_slice``; the head counts of its attention
+    become the local ones), then FSDP2 shards the sampler's blocks, the
+    sampler, the encoder's blocks, the encoder and the bridge over ``(data,
+    fsdp)``. Sets and returns ``system.placement``.
+
+    ``train=False`` places a system that only generates: at ``fsdp`` 1 no
+    module is sharded (every rank holds the whole weights, or over
+    ``model`` its part, as JAX's ``param_shardings`` leaves every leaf whole
+    at ``fsdp = model = 1``), and LoRA adapters stay whole on every rank,
+    merged into this rank's part of each weight at each entry call
+    (``VauraSystem.lora_merged``). A system with adapters that will be
+    trained raises ``NotImplementedError``."""
+    if train and system.lora_sampler is not None:
+        raise NotImplementedError(LORA_TRAINING)
+    placement = MeshPlacement(mesh, system.sampler_config,
+                              shards=train or mesh.size(1) > 1)
+    place_modules(placement, {"sampler": system.sampler,
+                              "encoder": system.encoder,
+                              "bridge": system.bridge})
     system.placement = placement
     return placement

@@ -29,10 +29,11 @@ started by ``torchrun`` (``torchrun --nproc_per_node=N -m vaura_tpu_torch
 config=... action=generate``) shards each batch over a data mesh of its N
 processes when ``dataloader.batch_size`` is divisible by N, as the JAX
 action shards over its devices (``scripts/generate.py:246-262``): every
-rank generates its rows with the whole weights, the codes and audio are
-gathered to rank 0, and rank 0 alone writes every file, each once, with the
-name and content of a one-process run. Otherwise every rank generates the
-whole batch and rank 0 writes.
+rank generates its rows with the whole weights (a LoRA experiment's
+adapters merged into them at each call), the codes and audio are gathered
+to rank 0, and rank 0 alone writes every file, each once, with the name and
+content of a one-process run. Otherwise every rank generates the whole
+batch and rank 0 writes.
 """
 
 from __future__ import annotations
@@ -321,7 +322,7 @@ def generate(cfg: dict) -> dict:
 
             mesh = make_mesh(data=-1, fsdp=1, model=1,
                              device_type=device.type)
-            shard_module(system, mesh)
+            shard_module(system, mesh, train=False)
             logger.info("sharding generation batch %d over %d processes",
                         bs, world)
         else:

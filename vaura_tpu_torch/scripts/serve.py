@@ -1,4 +1,4 @@
-"""Batched generation server on one card.
+"""Batched generation server, on one card or one process per card.
 
 Counterpart of ``scripts/serve.py``, feature for feature: a micro-batching
 queue in front of ``VauraSystem.generate`` (requests are padded to the
@@ -7,9 +7,11 @@ streams, hot reload, drain, Prometheus metrics and a plain-HTTP surface.
 
 Endpoints::
 
-    GET  /healthz            -> {"status": "ok"|"draining", "batch": B, ...}
+    GET  /healthz            -> {"status": "ok"|"draining", "batch": B,
+                                 "mesh": {"data", "fsdp", "model"} | null,
+                                 ...}
     GET  /metrics            -> Prometheus counters (requests, batches,
-                                fill ratio, latency avg, inflight)
+                                fill ratio, latency avg, inflight, mesh)
     POST /generate           body: {"features": [[...cond_dim floats...] x Tv]}
                              or    {"video_b64": "<base64 mp4>"}
                              or    .npy bytes [Tv, cond_dim] as
@@ -32,9 +34,10 @@ Usage::
         [experiment_path=...] [ckpt_path=...] [port=8800] [batch=8]
         [batch_buckets=1,4] [duration=2.56] [quantize=cache|true]
         [stream_mode=reprefill|kv] [trainer.platform=cpu]
+    torchrun --nproc_per_node=N -m vaura_tpu_torch config=... action=serve
+        [mesh_serving=true] [trainer.mesh.fsdp=1] [trainer.mesh.model=1]
 
-The server runs on ``cuda`` unless ``trainer.platform=cpu``, on one card:
-with several cards visible (``mesh_serving``) it says so in a log line.
+The server runs on ``cuda`` unless ``trainer.platform=cpu``.
 ``aot_export`` / ``aot_load`` raise (eager PyTorch has no graph to export);
 ``compilation_cache_dir`` is logged and ignored; ``decode_buckets`` (8 by
 default) matters only under ``int8_dots``, whose probabilities are quantized
@@ -44,6 +47,36 @@ save, else its ``finetune.init_from``:
 ``scripts/generate.py::load_lora_base_``); a reload
 swaps in new adapters; ``quantize=true`` raises ``ValueError`` with LoRA
 (the adapters cannot be merged into int8 weights; ``quantize=cache`` can).
+
+**Several processes** (one per card, started by ``torchrun``; the JAX
+server's multi-device path, ``scripts/serve.py:309-355``): with
+``mesh_serving`` (the default) and a ``batch`` that the run's processes
+divide, the ranks serve over a ``(data, fsdp, model)`` mesh of
+``trainer.mesh`` (JAX's defaults ``data=-1, fsdp=1, model=1``), the system
+placed by ``shard_module(..., train=False)``: at ``fsdp = model = 1`` every
+rank holds the whole weights, as JAX's specs leave every leaf whole there,
+and nothing is gathered per batch. Every ``batch_buckets`` entry must be
+divisible by ``data * fsdp`` (``ValueError``). Rank 0 is the leader: it
+runs the HTTP server, the queue and the micro-batch worker; the others are
+followers and open no port. For each job the worker sends one header on
+the control channel (``parallel.multihost.ControlChannel``: ``batch``,
+``stream``, ``features``, ``reload``, ``shutdown``, and a no-op heartbeat
+when no header went out for ``HEARTBEAT_S``), then the job's tensors, then
+every rank runs the job: a batch on each rank's rows, gathered to rank 0; a
+stream (B=1) replicated (``VauraSystem.replicated``: every rank the whole
+batch and the one-process draws), a clip's encoder pass on every rank; a
+reload on every rank, swapped only when every rank's load and int8 gate
+succeeded (``ControlChannel.all_ok``), so a refused reload keeps the old
+weights on every rank. Only the worker thread
+issues collectives: a clip's encoder pass and a reload are jobs on its
+queue, which the HTTP handler waits for. A failure after a header went out
+stops the server: rank 0 answers the job's requests with 500, drains the
+queue and exits non-zero (``torchrun`` then ends the rest); a follower that
+raises exits non-zero. SIGTERM drains rank 0, whose ``shutdown`` header
+ends the followers (they log the signal and wait for it); every rank exits
+0. Without ``mesh_serving``, or with a ``batch`` the processes do not
+divide, rank 0 serves on its card alone and the others wait for its
+``shutdown`` (JAX's branch without a mesh; logged).
 
 Differences from the JAX server that come from eager PyTorch:
 
@@ -58,8 +91,9 @@ Differences from the JAX server that come from eager PyTorch:
   them (``_with_modules``). The worker reads ``self.system`` once per batch
   and per stream, so a batch never mixes weights and the running one
   finishes on the old modules, as JAX's ``self.params = params``.
-* ``torch.inference_mode`` is per thread: the worker enters it, and so does
-  each HTTP handler thread that runs the encoder (``video_to_features``).
+* ``torch.no_grad`` is per thread: the worker enters it, and so does
+  each HTTP handler thread that runs the encoder (``video_to_features``)
+  in one process.
 * Sampling draws from ``torch.Generator(device).manual_seed(seed)`` where
   JAX uses ``PRNGKey(seed)``, with the same seed sequence.
 """
@@ -72,6 +106,7 @@ import dataclasses
 import io
 import json
 import logging
+import os
 import queue
 import signal
 import tempfile
@@ -87,6 +122,7 @@ from vaura_tpu_torch.models.factory import build_system, maybe_load_pretrained
 from vaura_tpu_torch.models.sampler import Sampler
 from vaura_tpu_torch.ops.audio import pcm16, wav_stream_header, write_wav
 from vaura_tpu_torch.ops.quantization import quantize_sampler_params
+from vaura_tpu_torch.parallel import multihost
 from vaura_tpu_torch.scripts.generate import (
     LORA_INT8,
     REPO_ROOT,
@@ -109,9 +145,20 @@ from vaura_tpu_torch.utils.experiment import (
 
 logger = logging.getLogger("serve")
 
+FRAMES_PER_SEGMENT = 16  # the divided_224_16x4 contract
+
 
 class DrainingError(RuntimeError):
     """Raised for requests arriving after shutdown began (HTTP 503)."""
+
+
+class ServerFailed(RuntimeError):
+    """A job failed on a mesh and stopped the server (HTTP 500)."""
+
+
+class ReloadRefused(RuntimeError):
+    """A reload that failed to load or quantize, or the int8 gate refused,
+    on this rank or another one: every rank keeps its weights serving."""
 
 
 def _parse_batch_buckets(buckets, batch: int) -> list[int]:
@@ -148,8 +195,40 @@ def _with_modules(system, **modules):
     return view
 
 
+def _serving_mesh(cfg: dict, batch: int, buckets: list, device_type: str):
+    """The ``(data, fsdp, model)`` mesh the ranks of a launched run serve
+    on (JAX ``scripts/serve.py:316-341``), or None: one process without a
+    launcher, ``mesh_serving=false``, or a ``batch`` the run's processes do
+    not divide (rank 0 then serves alone)."""
+    from vaura_tpu_torch.parallel.mesh import make_mesh, mesh_shape
+
+    world = multihost.process_count()
+    if not multihost.launched():
+        return None
+    if not bool(cfg.get("mesh_serving", True)) or batch % world:
+        if world > 1:
+            why = ("mesh_serving=false"
+                   if not bool(cfg.get("mesh_serving", True))
+                   else f"batch {batch} not divisible by {world} processes")
+            logger.warning("%s: serving on rank 0's card alone; the other "
+                           "%d ranks wait for its shutdown", why, world - 1)
+        return None
+    axes = dict((cfg.get("trainer") or {}).get("mesh") or {})
+    shape = mesh_shape(world, int(axes.get("data", -1)),
+                       int(axes.get("fsdp", 1)), int(axes.get("model", 1)))
+    rows = shape[0] * shape[1]
+    bad = [b for b in buckets if b % rows]
+    if bad:
+        raise ValueError(
+            f"batch_buckets {bad} not divisible by data*fsdp={rows} of the "
+            f"serving mesh {shape}; every bucket must shard evenly (or set "
+            "mesh_serving=false)")
+    return make_mesh(*shape, device_type=device_type)
+
+
 class GenerationService:
-    """Owns the served system and the micro-batching queue."""
+    """Owns the served system and the micro-batching queue; under several
+    processes one rank's part of them (``leader``: rank 0)."""
 
     def __init__(self, cfg: dict):
         if cfg.get("aot_export") or cfg.get("aot_load"):
@@ -164,10 +243,6 @@ class GenerationService:
                         "compiled (the CUDA kernels build once into the "
                         "package's _build/)", cache_dir)
         self.device = config_device(cfg)
-        if (self.device.type == "cuda" and torch.cuda.device_count() > 1
-                and bool(cfg.get("mesh_serving", True))):
-            logger.info("%d CUDA devices are visible; the port's server runs "
-                        "on one (%s)", torch.cuda.device_count(), self.device)
 
         self.batch = int(cfg.get("batch", 8))
         # smaller batch sizes a micro-batch pads to instead of the full
@@ -219,6 +294,27 @@ class GenerationService:
             top_p=float(cfg.get("top_p", 0.0)),
             cfg_scale=float(cfg.get("cfg_scale", 6.0)),
         )
+
+        # several processes: the mesh (or rank 0 alone) and the channel of
+        # rank 0's jobs
+        self.mesh = _serving_mesh(cfg, self.batch, self.batch_buckets,
+                                  self.device.type)
+        self.mesh_shape = (None if self.mesh is None else dict(zip(
+            self.mesh.mesh_dim_names, self.mesh.mesh.shape)))
+        self.leader = multihost.is_main_process()
+        self.channel = None
+        if self.mesh is not None or multihost.process_count() > 1:
+            self.channel = multihost.ControlChannel(self.device)
+        # every rank runs each job (a mesh); without one, rank 0 runs them
+        # and sends the others only its heartbeats and its shutdown. A
+        # follower's wait for a header lasts at most HEARTBEAT_S and the
+        # longest job rank 0 runs alone (_take).
+        self._last_header = time.monotonic()
+        self.failed: Optional[BaseException] = None
+        self.on_fatal = None  # called once when a job stops the server
+        self.system = None
+        if self.mesh is None and not self.leader:
+            return  # rank 0 serves alone; this rank waits (follow)
 
         model_cfg = cfg.get("model")
         ckpt_path = cfg.get("ckpt_path")
@@ -315,6 +411,20 @@ class GenerationService:
                     "(quantize_min_agreement=0); skipping probe"
                 )
             del fp_sampler
+        # the unplaced modules a reload copies where the placed ones are
+        # FSDP2 modules, which do not copy
+        self._templates = {}
+        if self.mesh is not None:
+            from vaura_tpu_torch.parallel import shard_module
+
+            tops = {k.split(".", 1)[0] for k in trainable} - {"sampler"}
+            if self.mesh.size(1) > 1:
+                self._templates = {top: copy.deepcopy(getattr(system, top))
+                                   .cpu() for top in tops}
+            shard_module(system, self.mesh, train=False)
+            logger.info("serving batch %d over %d processes (mesh %s)",
+                        self.batch, multihost.process_count(),
+                        self.mesh_shape)
         self.system = system
         self.cond_dim = system.sampler_config.cond_in_dim
         self.sample_rate = system.dac.cfg.sample_rate
@@ -345,7 +455,8 @@ class GenerationService:
     ) -> float:
         """Teacher-forced argmax agreement between the bf16 and int8
         sampler at the loaded weights, on a fixed synthetic probe batch
-        (two short forwards of ``VauraSystem.train_forward``)."""
+        (two short forwards of ``VauraSystem.train_forward``; on this rank
+        alone, the samplers unplaced)."""
         cfg_q = q_sampler.cfg
         rng = np.random.default_rng(0)
         codes = torch.as_tensor(rng.integers(
@@ -356,7 +467,9 @@ class GenerationService:
         ).astype(np.float32), device=self.device)
 
         def logits_for(sampler):
-            _, aux = _with_modules(system, sampler=sampler).train_forward(
+            view = _with_modules(system, sampler=sampler)
+            view.placement = None
+            _, aux = view.train_forward(
                 None, None, None, train=False, vis_feats=vis, codes=codes)
             return aux["logits"].float(), aux["mask"]
 
@@ -366,7 +479,6 @@ class GenerationService:
             (lf.argmax(-1)[mask] == lq.argmax(-1)[mask]).float().mean()
         )
 
-    @torch.no_grad()
     def reload(self, ckpt_path: Optional[str] = None) -> dict:
         """Swap the serving weights for a checkpoint's (POST /reload).
 
@@ -376,7 +488,9 @@ class GenerationService:
         reload that fails it keeps the current weights serving), and swaps
         in a view of the system that holds them. The worker reads
         ``self.system`` once per batch, so in-flight batches finish on the
-        old weights and the next batch uses the new ones.
+        old weights and the next batch uses the new ones. Under several
+        processes the reload is a job of the worker (every rank reloads),
+        which this call waits for.
         """
         path = str(ckpt_path or self.ckpt_path or "")
         if not path:
@@ -384,45 +498,77 @@ class GenerationService:
                 "no checkpoint to reload: pass ckpt_path (the server was "
                 "started without one)"
             )
+        if self.mesh is None:
+            return self._reload(path)
+        return self._run_in_worker({"job": "reload", "path": path})
+
+    @torch.no_grad()
+    def _load_modules(self, path: str):
+        """New top modules holding the checkpoint's trainable leaves, whole
+        and unplaced (int8-quantized behind the gate where the server
+        quantizes); ``(modules, agreement or None)``."""
+        restored = restore_trainable_params(
+            path, self._trainable_like, self._model_cfg, self._trainer_cfg,
+        )  # on the host, memory-mapped: copied once into the modules
+        live = self.system
+        modules, gate = {}, None
+        for top in sorted({k.split(".", 1)[0] for k in restored}):
+            if top == "sampler":
+                module = Sampler(dataclasses.replace(
+                    live.sampler_config, quantize_weights=False),
+                    self.device)
+            elif top in self._templates:
+                module = copy.deepcopy(self._templates[top]).to(self.device)
+            else:
+                module = copy.deepcopy(getattr(live, top))
+            for name, p in module.named_parameters():
+                p.copy_(restored[f"{top}.{name}"])
+            module.requires_grad_(False)
+            _round_params_to_bf16_(module)
+            modules[top] = module
+        del restored
+        if self._quantize:
+            fp_sampler = modules["sampler"]
+            q_sampler = Sampler(live.sampler_config, self.device)
+            q_sampler.load_state_dict(
+                quantize_sampler_params(fp_sampler.state_dict()))
+            q_sampler.requires_grad_(False)
+            modules["sampler"] = q_sampler
+            if self._quantize_min_agreement > 0.0:
+                gate = self._int8_agreement_probe(live, fp_sampler, q_sampler)
+                if gate < self._quantize_min_agreement:
+                    raise RuntimeError(
+                        "reload refused: int8 agreement %.4f < gate "
+                        "%.2f at %s — current weights keep serving"
+                        % (gate, self._quantize_min_agreement, path)
+                    )
+        return modules, gate
+
+    def _reload(self, path: str) -> dict:
+        """The reload on this rank; under several processes every rank
+        calls it for the same job, and the new modules are placed and
+        swapped in only when every rank loaded them (all or nothing)."""
         with self._reload_lock:
             t0 = time.time()
-            restored = restore_trainable_params(
-                path, self._trainable_like, self._model_cfg,
-                self._trainer_cfg,
-            )  # on the host, memory-mapped: copied once into the modules
+            try:
+                modules, gate = self._load_modules(path)
+                error = None
+            except Exception as e:  # every rank learns of it below
+                modules, gate, error = None, None, e
+            if self.mesh is not None and not self.channel.all_ok(
+                    error is None):
+                error = error or RuntimeError(
+                    f"reload refused: {path} failed on another rank — "
+                    "current weights keep serving")
+            if error is not None:
+                raise ReloadRefused(str(error)) from error
             live = self.system
-            modules, gate = {}, None
-            for top in sorted({k.split(".", 1)[0] for k in restored}):
-                if top == "sampler":
-                    module = Sampler(dataclasses.replace(
-                        live.sampler_config, quantize_weights=False),
-                        self.device)
-                else:
-                    module = copy.deepcopy(getattr(live, top))
-                for name, p in module.named_parameters():
-                    p.copy_(restored[f"{top}.{name}"])
-                module.requires_grad_(False)
-                _round_params_to_bf16_(module)
-                modules[top] = module
-            del restored
-            if self._quantize:
-                fp_sampler = modules["sampler"]
-                q_sampler = Sampler(live.sampler_config, self.device)
-                q_sampler.load_state_dict(
-                    quantize_sampler_params(fp_sampler.state_dict()))
-                q_sampler.requires_grad_(False)
-                modules["sampler"] = q_sampler
-                if self._quantize_min_agreement > 0.0:
-                    gate = self._int8_agreement_probe(
-                        live, fp_sampler, q_sampler
-                    )
-                    if gate < self._quantize_min_agreement:
-                        raise RuntimeError(
-                            "reload refused: int8 agreement %.4f < gate "
-                            "%.2f at %s — current weights keep serving"
-                            % (gate, self._quantize_min_agreement, path)
-                        )
-                del fp_sampler
+            if live.placement is not None:
+                from vaura_tpu_torch.parallel.partitioning import (
+                    place_modules,
+                )
+
+                place_modules(live.placement, modules)
             self.system = _with_modules(live, **modules)  # the next batch
             self.ckpt_path = path
             with self._metrics_lock:
@@ -436,13 +582,26 @@ class GenerationService:
             return info
 
     def start(self):
-        self._warmup()
-        self._worker.start()
+        """Warm up (every rank of a mesh, together) and, on the leader,
+        start the micro-batch worker. A follower then calls ``follow``."""
+        if self.system is not None:
+            self._warmup()
+        if self.leader:
+            self._worker.start()
 
-    def _generate(self, feats: torch.Tensor, seed: int) -> dict:
+    def _generate(self, feats: torch.Tensor, seed: int,
+                  sampling: Optional[dict] = None) -> Optional[dict]:
         """One batch through ``VauraSystem.generate`` (``self.system`` read
         once): ``{"audio" [B, 1, samples], "codes" [B, K, tokens]}`` on the
-        device."""
+        device. On a mesh every rank calls it with the whole padded batch,
+        generates its rows, and rank 0 gets the whole batch (the others'
+        values are None)."""
+        kw = {}
+        if self.mesh is not None:
+            from vaura_tpu_torch.parallel.mesh import batch_rows
+
+            feats = feats[batch_rows(self.mesh, feats.shape[0])]
+            kw["gather"] = "main"
         out = self.system.generate(
             vis_feats=feats,
             generator=torch.Generator(self.device).manual_seed(int(seed)),
@@ -451,22 +610,27 @@ class GenerationService:
             decode_to_audio=True,
             dac_chunk_size=self.dac_chunk_size,
             decode_buckets=self.decode_buckets,
-            **self.sampling,
+            **(sampling or self.sampling),
+            **kw,
         )
         return {"audio": out["audio"], "codes": out["codes"]}
 
     def _put_batch(self, feats: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.asarray(feats, np.float32)).to(self.device)
 
-    @torch.inference_mode()
     def _warmup(self):
         """One generation for each bucket: the CUDA kernels build (nvcc)
         and the libraries' handles are made before the first request."""
+        with torch.no_grad():
+            self._warmup_buckets()
+
+    def _warmup_buckets(self):
         for b in self.batch_buckets:
             t0 = time.time()
             out = self._generate(self._put_batch(
                 np.zeros((b, self.tv, self.cond_dim), np.float32)), 0)
-            out["audio"].cpu()
+            if out["audio"] is not None:
+                out["audio"].cpu()
             logger.info(
                 "warmed up generation: batch=%d tv=%d duration=%.2fs "
                 "(%.1fs)", b, self.tv, self.duration, time.time() - t0,
@@ -485,17 +649,14 @@ class GenerationService:
             )
         return self.frames_to_features(frames)
 
-    @torch.inference_mode()
-    def frames_to_features(self, frames: np.ndarray) -> np.ndarray:
-        """Decoded frames ``[N, H, W, 3]`` uint8 at 25 fps -> ``[Tv,
-        cond_dim]`` features: whole 16-frame segments within the server's
-        duration, normalized to [-1, 1] (mean/std 0.5, the configs'
-        ``Normalize``), through the encoder and the bridge."""
-        system = self.system
-        if system.encoder is None:
+    def _clip_frames(self, frames: np.ndarray) -> np.ndarray:
+        """The whole 16-frame segments of ``frames`` within the server's
+        duration (``ValueError`` for a clip shorter than one, or a server
+        without an encoder)."""
+        if self.system.encoder is None:
             raise ValueError("no visual encoder configured")
-        fps = 16  # frames per segment (divided_224_16x4 contract)
-        if frames is None or frames.shape[0] < fps:
+        fps = FRAMES_PER_SEGMENT
+        if frames is None or frames.ndim != 4 or frames.shape[0] < fps:
             n = 0 if frames is None else frames.shape[0]
             raise ValueError(
                 f"video too short: {n} frames at 25 fps < "
@@ -503,14 +664,31 @@ class GenerationService:
             )
         n_seg = max(1, frames.shape[0] // fps)
         n_seg = min(n_seg, max(1, int((self.duration + 1e-6) / 0.64)))
-        frames = frames[: n_seg * fps]
-        x = (frames.astype(np.float32) / 255.0 - 0.5) / 0.5
-        x = np.transpose(x, (3, 0, 1, 2)).reshape(
-            3, n_seg, fps, *frames.shape[1:3]
-        ).transpose(1, 0, 2, 3, 4)[None]  # [1, S, C, T, H, W]
-        feats = system.visual_features(torch.from_numpy(
-            np.ascontiguousarray(x)).to(self.device))
-        return feats.float().cpu().numpy()[0]
+        return np.ascontiguousarray(frames[: n_seg * fps])
+
+    def frames_to_features(self, frames: np.ndarray) -> np.ndarray:
+        """Decoded frames ``[N, H, W, 3]`` uint8 at 25 fps -> ``[Tv,
+        cond_dim]`` features: whole 16-frame segments within the server's
+        duration, normalized to [-1, 1] (mean/std 0.5, the configs'
+        ``Normalize``), through the encoder and the bridge. Under several
+        processes a job of the worker, on every rank."""
+        frames = self._clip_frames(frames)
+        if self.mesh is None:
+            with torch.no_grad():
+                return self._features(torch.from_numpy(frames))
+        return self._run_in_worker({"job": "features", "frames": frames})
+
+    def _features(self, frames: torch.Tensor) -> np.ndarray:
+        """The encoder and the bridge over a clip's segments (``frames``
+        ``[n_seg * 16, H, W, 3]`` uint8); on a mesh every rank runs it on
+        the whole clip (the placed encoder's collectives take every rank)
+        and gets the whole features."""
+        fps = FRAMES_PER_SEGMENT
+        n_seg = frames.shape[0] // fps
+        x = (frames.to(self.device).float() / 255.0 - 0.5) / 0.5
+        x = x.permute(3, 0, 1, 2).reshape(3, n_seg, fps, *frames.shape[1:3])
+        x = x.permute(1, 0, 2, 3, 4)[None].contiguous()  # [1, S, C, T, H, W]
+        return self.system.visual_features(x).float().cpu().numpy()[0]
 
     def submit(self, feats: np.ndarray, want: str = "audio"):
         """Enqueue one request; blocks until its result is ready.
@@ -526,13 +704,18 @@ class GenerationService:
                 f"(duration {self.duration:.2f}s); re-encode a shorter clip "
                 "or start the server with a larger duration"
             )
+        return self._run_in_worker({"feats": feats, "want": want})
+
+    def _run_in_worker(self, slot: dict):
+        """Enqueue ``slot`` (a request, or a ``job``), wait until the
+        worker answered it, and return its result (raise its error)."""
         done = threading.Event()
-        slot: dict = {"feats": feats, "want": want, "done": done}
+        slot["done"] = done
         self._enqueue(slot)
         done.wait()
         if "error" in slot:
-            raise RuntimeError(slot["error"])
-        return slot["result"]
+            raise slot.get("error_type", RuntimeError)(slot["error"])
+        return slot.get("result")
 
     def _enqueue(self, slot: dict) -> None:
         with self._metrics_lock:
@@ -541,22 +724,46 @@ class GenerationService:
                     "server is draining (shutdown in progress)"
                 )
             self._inflight += 1
-            key = (
-                "stream_requests_total" if slot.get("stream")
-                else "requests_total"
-            )
-            self._metrics[key] += 1
-        self._q.put(slot)
+            if slot.get("job") in (None, "stream"):
+                key = ("stream_requests_total" if slot.get("job")
+                       else "requests_total")
+                self._metrics[key] += 1
+            # under the lock: a drain that stops the worker empties the
+            # queue after setting _draining, and no slot can slip past it
+            self._q.put(slot)
 
-    def _finish(self, slots, error: Optional[str] = None) -> None:
+    def _finish(self, slots, error: Optional[str] = None,
+                error_type=RuntimeError) -> None:
         with self._metrics_lock:
             self._inflight -= len(slots)
             if error is not None:
                 self._metrics["errors_total"] += len(slots)
         for s in slots:
             if error is not None:
-                s["error"] = error
+                s["error"], s["error_type"] = error, error_type
             s["done"].set()
+
+    def _fail(self, slots, error: BaseException) -> None:
+        """Stop the server after a job failed on a mesh (the ranks'
+        collectives can no longer be trusted to pair): answer ``slots`` and
+        every queued request with 500, stop accepting work, and hand the
+        stop to ``on_fatal``. Nothing more is sent to the followers."""
+        logger.error("a job failed under the mesh; the server stops: %s",
+                     error, exc_info=error)
+        self.failed = error
+        msg = f"the server stopped after a failed job: {error}"
+        self._finish(slots, msg, ServerFailed)
+        with self._metrics_lock:
+            self._draining = True
+        while True:
+            try:
+                s = self._q.get_nowait()
+            except queue.Empty:
+                break
+            if s is not None:
+                self._finish([s], msg, ServerFailed)
+        if self.on_fatal is not None:
+            self.on_fatal()
 
     def begin_drain(self) -> None:
         """Stop accepting work; queued/in-flight requests still finish."""
@@ -608,6 +815,9 @@ class GenerationService:
             f"vaura_inflight {inflight}",
             f"vaura_draining {draining}",
             f"vaura_compiled_batch {self.batch}",
+        ] + [
+            'vaura_mesh_size{axis="%s"} %d' % (axis, n)
+            for axis, n in (self.mesh_shape or {}).items()
         ]
         return "\n".join(lines) + "\n"
 
@@ -624,66 +834,155 @@ class GenerationService:
                 f"stream_duration geometry x features/segment); got "
                 f"{list(feats_segments.shape)}"
             )
-        done = threading.Event()
-        slot: dict = {
-            "stream": True, "feats": feats_segments, "writer": writer,
-            "done": done,
-        }
-        self._enqueue(slot)
-        done.wait()
-        if "error" in slot:
-            raise RuntimeError(slot["error"])
+        self._run_in_worker({"job": "stream", "feats": feats_segments,
+                             "writer": writer})
+
+    def _stream(self, feats: torch.Tensor, seed: int, mode: str, writer):
+        """The increments of ``generate_long_stream`` (or, ``mode`` "kv",
+        ``generate_long_kv_stream``) of the B=1 ``feats`` ``[1, S_total, t,
+        cond_dim]``, each handed to ``writer`` as it decodes; returns
+        ``(chunks, the writer's error or None)``. On a mesh every rank runs
+        the whole stream (replicated) and only rank 0 has a writer; a
+        writer that raises there (a client gone) ends rank 0's writing, not
+        the stream, whose collectives the other ranks share. In one process
+        the writer's error ends the stream."""
+        system = self.system
+        gen = torch.Generator(self.device).manual_seed(seed)
+        if mode == "kv":
+            chunks = system.generate_long_kv_stream(
+                generator=gen,
+                total_tokens=self.stream_tokens,
+                vis_feats_segments=feats,
+                window_chunks=self.stream_window_chunks,
+                chunk_steps=self.stream_chunk_steps,
+                **self.sampling,
+            )
+        else:
+            chunks = system.generate_long_stream(
+                generator=gen,
+                total_tokens=self.stream_tokens,
+                stride_tokens=self.stream_stride_tokens,
+                model_max_tokens=self.stream_max_tokens,
+                vis_feats_segments=feats,
+                **self.sampling,
+            )
+        n, lost = 0, None
+        with system.replicated():
+            for chunk in chunks:
+                n += 1
+                if writer is None:
+                    continue
+                audio = chunk["audio"].float().cpu().numpy()[0]
+                if not audio.size:
+                    continue
+                try:
+                    writer(audio)
+                except Exception as e:
+                    if self.mesh is None:
+                        raise
+                    writer, lost = None, e
+        return n, lost
 
     def _run_stream(self, slot: dict) -> None:
         """Run one streaming request exclusively (B=1): the increments of
         ``generate_long_stream`` (or ``generate_long_kv_stream``) are
         written out as they decode."""
+        seed = self._next_seed
+        self._next_seed += 1
+        t0 = time.time()
         try:
-            system = self.system
-            seed = self._next_seed
-            self._next_seed += 1
-            t0 = time.time()
-            n = 0
-            feats = self._put_batch(slot["feats"])[None]
-            gen = torch.Generator(self.device).manual_seed(seed)
-            if self.stream_mode == "kv":
-                chunks = system.generate_long_kv_stream(
-                    generator=gen,
-                    total_tokens=self.stream_tokens,
-                    vis_feats_segments=feats,
-                    window_chunks=self.stream_window_chunks,
-                    chunk_steps=self.stream_chunk_steps,
-                    **self.sampling,
-                )
-            else:
-                chunks = system.generate_long_stream(
-                    generator=gen,
-                    total_tokens=self.stream_tokens,
-                    stride_tokens=self.stream_stride_tokens,
-                    model_max_tokens=self.stream_max_tokens,
-                    vis_feats_segments=feats,
-                    **self.sampling,
-                )
-            for chunk in chunks:
-                audio = chunk["audio"].float().cpu().numpy()[0]
-                if audio.size:
-                    slot["writer"](audio)
-                n += 1
-            logger.info(
-                "stream done: %d chunks, %d tokens, %.2fs",
-                n, self.stream_tokens, time.time() - t0,
-            )
-            self._finish([slot])
+            job, (feats,) = self._broadcast(
+                {"kind": "stream", "seed": seed, "mode": self.stream_mode},
+                [self._put_batch(slot["feats"])[None]])
+            n, lost = self._stream(feats, seed, job["mode"], slot["writer"])
         except Exception as e:
+            if self.mesh is not None:
+                self._fail([slot], e)
+                return
             logger.exception("stream failed")
             self._finish([slot], error=str(e))
+            return
+        if lost is not None:
+            logger.error("stream's client lost: %s", lost)
+            self._finish([slot], error=str(lost))
+            return
+        logger.info("stream done: %d chunks, %d tokens, %.2fs",
+                    n, self.stream_tokens, time.time() - t0)
+        self._finish([slot])
+
+    def _run_job(self, slot: dict) -> None:
+        """A clip's encoder pass or a reload (a slot of the worker's queue
+        under several processes): its header to every rank, then the job
+        here; rank 0 answers the slot. A refused reload keeps serving; any
+        other failure after the header went out stops the server."""
+        try:
+            if slot["job"] == "features":
+                _, (frames,) = self._broadcast(
+                    {"kind": "features"}, [torch.from_numpy(slot["frames"])])
+                slot["result"] = self._features(frames)
+            else:
+                self._broadcast({"kind": "reload", "path": slot["path"]})
+                slot["result"] = self._reload(slot["path"])
+        except ReloadRefused as e:
+            logger.warning("%s", e)
+            self._finish([slot], error=str(e), error_type=ReloadRefused)
+        except Exception as e:
+            self._fail([slot], e)
+        else:
+            self._finish([slot])
+
+    def _broadcast(self, header: dict, tensors=()):
+        """A job's header and tensors to every rank (the control channel);
+        in one process, or a job that rank 0 runs alone, themselves."""
+        if self.channel is None or (self.mesh is None and header["kind"]
+                                    not in ("noop", "shutdown")):
+            return header, list(tensors)
+        self._last_header = time.monotonic()
+        return self.channel.broadcast(header, tensors)
+
+    def follow(self) -> None:
+        """A follower's loop: run each job rank 0 sends, in its order,
+        until its ``shutdown``. A failed job raises (the process exits
+        non-zero); a refused reload keeps serving, as on rank 0."""
+        with torch.no_grad():
+            self._follow()
+
+    def _follow(self) -> None:
+        logger.info("rank %d follows rank 0's jobs (pid %d)",
+                    multihost.process_index(), os.getpid())
+        while True:
+            job, tensors = self.channel.broadcast()
+            kind = job["kind"]
+            if kind == "noop":
+                continue
+            if kind == "shutdown":
+                logger.info("rank %d: shutdown from rank 0",
+                            multihost.process_index())
+                return
+            if self.system is None:
+                raise RuntimeError(f"a {kind} job reached a rank that "
+                                   "serves nothing")
+            if kind == "batch":
+                self._generate(tensors[0], job["seed"], job["sampling"])
+            elif kind == "stream":
+                self._stream(tensors[0], job["seed"], job["mode"], None)
+            elif kind == "features":
+                self._features(tensors[0])
+            elif kind == "reload":
+                try:
+                    self._reload(job["path"])
+                except ReloadRefused as e:
+                    logger.warning("%s", e)
+            else:
+                raise ValueError(f"unknown job {kind!r} from rank 0")
 
     def close(self, timeout: float = 10.0) -> bool:
         """Drain, stop the worker thread, and release the service.
 
         Idempotent; used by tests and the server's signal path so a
         retired service does not leave its micro-batch worker (which
-        holds ``self`` and its modules) alive.
+        holds ``self`` and its modules) alive. The worker's last act is
+        the ``shutdown`` header that ends the followers.
         """
         drained = self.drain(timeout=timeout)
         self._q.put(None)  # wake + stop the worker
@@ -694,7 +993,8 @@ class GenerationService:
     def _dispatch(self, slots):
         """Pad ``slots`` to the smallest bucket and run the generation;
         returns the batch record for ``_fetch``, or None when it failed
-        (its requests are then answered with the error)."""
+        (its requests are then answered with the error; on a mesh the
+        server stops)."""
         bucket = next(b for b in self.batch_buckets if b >= len(slots))
         feats = np.zeros((bucket, self.tv, self.cond_dim), np.float32)
         for i, s in enumerate(slots):
@@ -703,8 +1003,14 @@ class GenerationService:
         self._next_seed += 1
         t0 = time.time()
         try:
-            out = self._generate(self._put_batch(feats), seed)
+            job, (batch,) = self._broadcast(
+                {"kind": "batch", "bucket": bucket, "seed": seed,
+                 "sampling": self.sampling}, [self._put_batch(feats)])
+            out = self._generate(batch, seed, job["sampling"])
         except Exception as e:
+            if self.mesh is not None:
+                self._fail(slots, e)
+                return None
             logger.exception("batch dispatch failed")
             self._finish(slots, error=str(e))
             return None
@@ -733,22 +1039,55 @@ class GenerationService:
             logger.exception("batch failed")
             self._finish(slots, error=str(e))
 
-    @torch.inference_mode()
+    def _take(self):
+        """The next slot of the queue (blocking while idle); under several
+        processes a no-op header to the followers whenever ``HEARTBEAT_S``
+        passed since the last header went out: while idle, and between the
+        batches and jobs that rank 0 runs alone
+        (``multihost.ControlChannel``)."""
+        if self.channel is None:
+            return self._q.get()
+        while True:
+            wait = self._last_header + multihost.HEARTBEAT_S - time.monotonic()
+            if wait <= 0:
+                self._broadcast({"kind": "noop"})
+                continue
+            try:
+                return self._q.get(timeout=wait)
+            except queue.Empty:
+                pass
+
+    def _run_special(self, s: dict) -> None:
+        if s["job"] == "stream":
+            self._run_stream(s)
+        else:
+            self._run_job(s)
+
     def _loop(self):
         """Micro-batch worker: block for a first request, collect up to
         ``batch`` within ``max_wait_ms``, then run and answer the batch.
         Requests that arrive meanwhile queue, so the next collection fills
-        at once. A stream or the close() sentinel met while collecting runs
-        after the batch collected before it."""
-        while True:
-            s = self._q.get()  # idle: block until work arrives
+        at once. A job (stream, clip, reload) or the close() sentinel met
+        while collecting runs after the batch collected before it. The
+        loop ends with the ``shutdown`` header to the followers, or without
+        it when a job stopped the server; a header that fails outside a
+        job (a heartbeat, the shutdown) stops it too."""
+        try:
+            with torch.no_grad():
+                self._serve_queue()
+        except Exception as e:
+            self._fail([], e)
+
+    def _serve_queue(self) -> None:
+        while self.failed is None:
+            s = self._take()  # idle: block until work arrives
             if s is None:
-                return
-            if s.get("stream"):
-                self._run_stream(s)
+                break
+            if s.get("job"):
+                self._run_special(s)
                 continue
             slots = [s]
-            special = None  # intercepted stream slot, or "close"
+            special = None  # intercepted job slot, or "close"
             deadline = time.time() + self.max_wait_s
             while len(slots) < self.batch:
                 timeout = deadline - time.time()
@@ -758,7 +1097,7 @@ class GenerationService:
                     s = self._q.get(timeout=timeout)
                 except queue.Empty:
                     break
-                if s is None or s.get("stream"):
+                if s is None or s.get("job"):
                     special = "close" if s is None else s
                     break
                 slots.append(s)
@@ -766,9 +1105,14 @@ class GenerationService:
             if p is not None:
                 self._fetch(p)
             if special == "close":
-                return
-            if special is not None:
-                self._run_stream(special)
+                break
+            if special is not None and self.failed is not None:
+                self._finish([special], "the server stopped after a failed "
+                             f"job: {self.failed}", ServerFailed)
+            elif special is not None:
+                self._run_special(special)
+        if self.failed is None:
+            self._broadcast({"kind": "shutdown"})
 
 
 def make_handler(service: GenerationService):
@@ -782,6 +1126,11 @@ def make_handler(service: GenerationService):
             self.send_header("Content-Length", str(len(body)))
             self.end_headers()
             self.wfile.write(body)
+
+        def _error(self, e: Exception):
+            code = (503 if isinstance(e, DrainingError) else
+                    500 if isinstance(e, ServerFailed) else 400)
+            self._reply(code, json.dumps({"error": str(e)}).encode())
 
         def do_GET(self):
             if self.path.startswith("/metrics"):
@@ -800,6 +1149,7 @@ def make_handler(service: GenerationService):
                     "sample_rate": service.sample_rate,
                     "cond_dim": service.cond_dim,
                     "ckpt_path": service.ckpt_path,
+                    "mesh": service.mesh_shape,
                 }
                 self._reply(200, json.dumps(info).encode())
             else:
@@ -823,7 +1173,7 @@ def make_handler(service: GenerationService):
                     info = service.reload(req.get("ckpt_path"))
                     self._reply(200, json.dumps(info).encode())
                 except Exception as e:
-                    self._reply(400, json.dumps({"error": str(e)}).encode())
+                    self._error(e)
                 return
             if not self.path.startswith("/generate"):
                 self._reply(404, b'{"error": "not found"}')
@@ -861,10 +1211,8 @@ def make_handler(service: GenerationService):
                     buf = io.BytesIO()
                     write_wav(buf, result.reshape(1, -1), service.sample_rate)
                     self._reply(200, buf.getvalue(), "audio/wav")
-            except DrainingError as e:
-                self._reply(503, json.dumps({"error": str(e)}).encode())
             except Exception as e:
-                self._reply(400, json.dumps({"error": str(e)}).encode())
+                self._error(e)
 
         def _do_stream(self):
             """POST /generate_long — long-horizon generation streamed as a
@@ -910,8 +1258,6 @@ def make_handler(service: GenerationService):
                 if not headers_sent:  # zero-length stream edge case
                     write_increment(np.zeros((0,), np.float32))
                 self.close_connection = True
-            except DrainingError as e:
-                self._reply(503, json.dumps({"error": str(e)}).encode())
             except Exception as e:
                 if headers_sent:
                     # mid-stream failure: the status line is gone; all we
@@ -919,16 +1265,20 @@ def make_handler(service: GenerationService):
                     logger.error("stream aborted mid-response: %s", e)
                     self.close_connection = True
                 else:
-                    self._reply(400, json.dumps({"error": str(e)}).encode())
+                    self._error(e)
 
     return Handler
 
 
-def make_server(cfg: dict) -> tuple[GenerationService, ThreadingHTTPServer]:
-    """The started service and its HTTP server on 127.0.0.1 (``port``,
-    8800 by default; 0 picks a free one), not yet serving."""
+def make_server(cfg: dict):
+    """The started service and, on rank 0, its HTTP server on 127.0.0.1
+    (``port``, 8800 by default; 0 picks a free one), not yet serving; a
+    follower of several processes gets ``(service, None)`` and calls
+    ``service.follow()``."""
     service = GenerationService(cfg)
     service.start()
+    if not service.leader:
+        return service, None
     # the listen backlog must exceed the target concurrency: the
     # http.server default (5) resets connects beyond it under burst load
     ThreadingHTTPServer.request_queue_size = int(
@@ -936,14 +1286,31 @@ def make_server(cfg: dict) -> tuple[GenerationService, ThreadingHTTPServer]:
     )
     server = ThreadingHTTPServer(
         ("127.0.0.1", int(cfg.get("port", 8800))), make_handler(service))
+    service.on_fatal = lambda: threading.Thread(
+        target=server.shutdown, daemon=True).start()
     return service, server
 
 
 def run_server(cfg: dict) -> None:
     """Start the micro-batching HTTP server from an assembled config
-    (``python -m vaura_tpu_torch ... action=serve``)."""
+    (``python -m vaura_tpu_torch ... action=serve``; one process per card
+    under ``torchrun``). Raises when a job stopped the server."""
     logging.getLogger().setLevel(logging.INFO)
+    rank = multihost.process_index()
+    if rank != 0:
+        # SIGTERM reaches every process of a job; a follower's end is rank
+        # 0's shutdown header, after rank 0 has drained
+        def _wait(signum, frame):
+            logger.info("signal %d: rank %d waits for rank 0's shutdown",
+                        signum, rank)
+
+        signal.signal(signal.SIGTERM, _wait)
+        signal.signal(signal.SIGINT, _wait)
     service, server = make_server(cfg)
+    if server is None:
+        service.follow()
+        logger.info("shutdown complete (rank %d)", rank)
+        return
 
     # graceful shutdown: SIGTERM/SIGINT -> stop accepting work (new
     # requests get 503), answer everything already accepted, then exit 0
@@ -955,9 +1322,12 @@ def run_server(cfg: dict) -> None:
     signal.signal(signal.SIGTERM, _shutdown)
     signal.signal(signal.SIGINT, _shutdown)
 
-    logger.info("serving on http://127.0.0.1:%d (batch=%d)",
-                server.server_address[1], service.batch)
+    logger.info("serving on http://127.0.0.1:%d (batch=%d, pid %d)",
+                server.server_address[1], service.batch, os.getpid())
     server.serve_forever()
     server.server_close()
     drained = service.close(timeout=float(cfg.get("drain_timeout_s", 120)))
+    if service.failed is not None:
+        raise ServerFailed(f"the server stopped after a failed job: "
+                           f"{service.failed}") from service.failed
     logger.info("shutdown complete (drained=%s)", drained)

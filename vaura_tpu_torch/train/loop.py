@@ -27,9 +27,12 @@ batch and validates, tests and generates the predict media with the others
 (the model is sharded); rank 0 alone writes the TensorBoard file and the
 checkpoints, which hold whole leaves (``TrainState.state_dict`` gathers
 them), and the other ranks wait for it at a barrier. The tracked training
-files are not logged under a mesh (their rows lie on some ranks only, and
-every rank must run each forward). ``scale_lr_with_device_count`` counts
-the processes of the run.
+files' rows lie on some ranks only, while the sharded weights need every
+rank in each forward: on a step whose batch holds one, every rank gathers
+the whole batch's rows (``MeshPlacement.gather_rows``) and runs their
+greedy forward replicated (``VauraSystem.replicated``), and rank 0 writes
+the audio (JAX ``loop.py:339-389``). ``scale_lr_with_device_count``
+counts the processes of the run.
 """
 
 from __future__ import annotations
@@ -303,7 +306,7 @@ class Trainer:
                         else schedule,
                         global_step,
                     )
-                    if tracked and self.mesh is None:
+                    if tracked:
                         self._log_tracked_files(batch, global_step)
                     # mid-epoch validation (fractional val_check_interval,
                     # reference vaura_defaults.yaml:58)
@@ -405,36 +408,59 @@ class Trainer:
     def _log_tracked_files(self, batch, step):
         """Greedy-decode audio for tracked training files and log it
         (reference ``_log_training_samples``, ``vaura_model.py:618-636``):
-        the argmax of the teacher-forced logits through the DAC decoder."""
-        meta = batch.get("meta") or {}
-        files = meta.get("filepath")
+        the argmax of the teacher-forced logits through the DAC decoder.
+        Under a mesh every rank gathers the whole batch's file names and,
+        when one is tracked, its frames and audio from every rank's rows,
+        runs the forward replicated, and only rank 0's logger writes; a
+        failure there raises, as the ranks' collectives would no longer
+        pair."""
+        if self.mesh is None:
+            try:
+                self._tracked_audio(batch, step)
+            except Exception as e:
+                logger.warning("tracked-file logging failed: %s", e,
+                               exc_info=True)
+            return
+        place = self.system.placement
+        files = (batch.get("meta") or {}).get("filepath")
         if not isinstance(files, list):
             return
+        files = place.gather_list(files)
+        if not self._tracked_idxs(files):
+            return
+        whole = {"meta": {"filepath": files},
+                 "audio": place.gather_rows(batch["audio"])}
+        if batch.get("frames") is not None:
+            whole["frames"] = place.gather_rows(batch["frames"])
+        with self.system.replicated():
+            self._tracked_audio(whole, step)
+
+    def _tracked_idxs(self, files) -> list:
         tracked = set(self.model_cfg.get("files_to_track_during_training") or [])
-        idxs = [
-            i for i, f in enumerate(files) if Path(str(f)).stem in tracked
-        ]
+        return [i for i, f in enumerate(files) if Path(str(f)).stem in tracked]
+
+    def _tracked_audio(self, batch, step):
+        files = (batch.get("meta") or {}).get("filepath")
+        if not isinstance(files, list):
+            return
+        idxs = self._tracked_idxs(files)
         if not idxs:
             return
-        try:
-            sel = torch.as_tensor(idxs, device=self.device)
-            frames = batch.get("frames")
-            _, aux = self.system.train_forward(
-                None if frames is None else frames[sel], batch["audio"][sel],
-                None, train=False)
-            tokens = torch.argmax(aux["logits"], dim=-1)
-            wav = np.clip(self.system.decode_audio(tokens).float().cpu()
-                          .numpy(), -1, 1)
-            sr = self.system.dac.cfg.sample_rate
-            for j, i in enumerate(idxs):
-                name = Path(str(files[i])).stem
-                self.tb.audio(
-                    f"generated_audio_of_training_data/{name}",
-                    wav[j, 0], step, sr,
-                )
-        except Exception as e:
-            logger.warning("tracked-file logging failed: %s", e,
-                           exc_info=True)
+        sel = torch.as_tensor(idxs, device=self.device)
+        frames = batch.get("frames")
+        _, aux = self.system.train_forward(
+            None if frames is None else frames[sel], batch["audio"][sel],
+            None, train=False)
+        tokens = torch.argmax(aux["logits"], dim=-1)
+        wav = np.clip(self.system.decode_audio(tokens).float().cpu()
+                      .numpy(), -1, 1)
+        sr = self.system.dac.cfg.sample_rate
+        for j, i in enumerate(idxs):
+            name = Path(str(files[i])).stem
+            self.tb.audio(
+                f"generated_audio_of_training_data/{name}",
+                wav[j, 0], step, sr,
+            )
 
     @torch.no_grad()
     def _log_predict_media(self, datamodule, generator, step):

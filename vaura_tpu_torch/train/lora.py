@@ -21,7 +21,7 @@ gradients reach the adapters through them in ``train_forward``.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -84,11 +84,15 @@ def lora_pairs(lora: nn.Module) -> Dict[str, LoraPair]:
 
 
 def merge_lora(sampler: nn.Module, lora: nn.Module,
-               alpha: Optional[float] = None) -> Dict[str, torch.Tensor]:
+               alpha: Optional[float] = None,
+               cut: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None
+               ) -> Dict[str, torch.Tensor]:
     """``{name: W + (alpha / r) * lora_b @ lora_a}`` in ``W``'s dtype for
     every adapted layer of ``sampler``; ``alpha`` defaults to the rank
-    (scale 1). Raises ``ValueError`` on an int8 layer: the adapters cannot
-    be merged into int8 weights."""
+    (scale 1). ``cut(name, delta)``, when given, takes the part of each
+    whole delta that ``W`` holds (a rank's rows or columns under a model
+    axis). Raises ``ValueError`` on an int8 layer: the adapters cannot be
+    merged into int8 weights."""
     out = {}
     for name, pair in lora_pairs(lora).items():
         dense = sampler.get_submodule(name)
@@ -101,6 +105,8 @@ def merge_lora(sampler: nn.Module, lora: nn.Module,
         rank = pair.lora_a.shape[0]
         scale = (alpha if alpha is not None else float(rank)) / float(rank)
         delta = (pair.lora_b @ pair.lora_a) * scale
+        if cut is not None:
+            delta = cut(name, delta)
         out[name] = W + delta.to(W.dtype)
     return out
 
