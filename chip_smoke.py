@@ -69,9 +69,10 @@ result line):
              (``vaura_tpu_torch.main`` from
              ``configs/experiments/flagship_smoke.yaml``: the flagship
              model, seeded random weights, the dummy datamodule): A trains
-             2 epochs x 3 steps with the encoder frozen (every validation,
+             1 epoch x 3 steps with the encoder frozen (every validation,
              predict-media and TensorBoard path on), B resumes A for a
-             third epoch with async saves (no predict media), C tests A's best checkpoint, D
+             second epoch with async saves (no predict media), C tests A's
+             best checkpoint, D
              trains 2 steps with the encoder unfrozen; losses, steps,
              checkpoints, TensorBoard tags, the resumed early-stop state,
              C's test loss against A's and each run's launches are held;
@@ -159,10 +160,17 @@ result line):
              ``VauraSystem.generate``'s here, a burst of 16, a stream, a
              hot reload (the codes must change), SIGTERM (exit 0); the
              generate action from the finetune phase's LoRA run (codes
-             equal to the one-process run's); the decode kernels at the
-             head counts a model axis of 2 and 4 leaves a rank. The dry
-             run and both generate actions on the mesh run in one
-             ``torchrun`` launch (``chip_smoke.py --rank-jobs``).
+             equal to the one-process run's); the train action with LoRA
+             adapters of rank 8 on the flagship (2 steps, frozen encoder,
+             bf16; the base FSDP2-wrapped and frozen, each adapter merged
+             per block into its gathered weight) against the same action
+             here: losses within ``MESH_LOSS_REL``, the saved adapters
+             within ``TOL_MESH_ADAPTERS``, the base sampler bit for bit
+             its start, a checkpoint of the adapters alone; the decode
+             kernels at the head counts a model axis of 2 and 4 leaves a
+             rank. The dry run, both generate actions and the LoRA train
+             action on the mesh run in one ``torchrun`` launch
+             (``chip_smoke.py --rank-jobs``).
 
 It prints the action runs' wall times and audio-s/s (``action: {...}``),
 the train action's runs (``train_action: {...}``),
@@ -179,6 +187,7 @@ without one.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -1759,13 +1768,13 @@ def phase_action(gen, report):
 
 # the train action's runs (``configs/experiments/flagship_smoke.yaml``: the
 # full encoder, the 24-layer sampler, the 44.1 kHz codec, bf16 compute,
-# the dummy datamodule): A trains two epochs of 3 steps with a frozen
-# encoder, as the main experiment does, with the predict media of every
-# epoch and a validation after each of the first two steps (every scalar tag
-# of the Trainer); B resumes A's `last` for a third epoch with async saves;
+# the dummy datamodule): A trains one epoch of 3 steps with a frozen
+# encoder, as the main experiment does, with the epoch's predict media and
+# a validation after each of the first two steps (every scalar tag of the
+# Trainer); B resumes A's `last` for a second epoch with async saves;
 # C tests A's best checkpoint; D trains 2 steps with the encoder unfrozen
 TRAIN_CONFIG = "configs/experiments/flagship_smoke.yaml"
-TRAIN_A = ["trainer.fast_dev_run=false", "trainer.max_epochs=2",
+TRAIN_A = ["trainer.fast_dev_run=false", "trainer.max_epochs=1",
            "trainer.limit_train_batches=3", "trainer.limit_val_batches=2",
            "trainer.limit_test_batches=2", "trainer.val_check_interval=0.5",
            "model.predict_at_val_start=true",
@@ -1881,10 +1890,10 @@ def phase_train_action(gen, report):
                 "grouped_cls_attention": 24 * grouped_steps}
 
     try:
-        # A: 6 steps, 2 x (2 mid-epoch + 1 end) validations of 2 batches,
-        # 2 test batches, 2 predict generations and attention forwards
+        # A: 3 steps, 2 mid-epoch + 1 end validations of 2 batches, 2
+        # test batches, 1 predict generation and its attention forward
         _train_run("A", TRAIN_A, os.path.join(tmp, "A"),
-                   want(6 + 12 + 2 + 2 + 2, decode_gens=2), res, total,
+                   want(3 + 6 + 2 + 1 + 1, decode_gens=1), res, total,
                    problems)
         a_root = res["A"]["root"]
         ev = read_events(_glob_one(a_root, "events.out.tfevents.*"))
@@ -1902,13 +1911,13 @@ def phase_train_action(gen, report):
         losses = [e["value"] for e in ev
                   if e["kind"] == "scalar" and "loss" in e["tag"]]
         res["A"]["train_loss_step"] = steps
-        if [s for s, _ in steps] != list(range(1, 7)):
+        if [s for s, _ in steps] != list(range(1, 4)):
             problems.append(f"A: train_loss_step at steps {[s for s, _ in steps]}")
         if not all(math.isfinite(x) for x in losses):
             problems.append("A: losses not finite")
         if not steps or abs(steps[0][1] - math.log(1024)) > 1e-2:
             problems.append(f"A: first loss {steps[:1]} is not ln 1024")
-        if _epoch_checkpoints(a_root) != ["epoch=0-step=3", "epoch=1-step=6"]:
+        if _epoch_checkpoints(a_root) != ["epoch=0-step=3"]:
             problems.append(f"A: checkpoints {_epoch_checkpoints(a_root)}")
         ck = os.path.join(a_root, "checkpoints")
         if not (os.path.islink(os.path.join(ck, "last"))
@@ -1919,9 +1928,9 @@ def phase_train_action(gen, report):
         shutil.copy(_glob_one(a_root, "events.out.tfevents.*"),
                     os.path.join(OUT_DIR, "train_action_A.tfevents"))
 
-        # B: resume A's last for epoch 2 only (3 steps, 3 validations, the
+        # B: resume A's last for epoch 1 only (3 steps, 3 validations, the
         # test; no predict generation: A checks those)
-        _train_run("B", TRAIN_A + ["trainer.max_epochs=3",
+        _train_run("B", TRAIN_A + ["trainer.max_epochs=2",
                                    "trainer.async_checkpointing=true",
                                    "model.predict_at_val_start=false",
                                    f"trainer.ckpt_path={ck}/last"],
@@ -1930,9 +1939,9 @@ def phase_train_action(gen, report):
         b_root = res["B"]["root"]
         ev = read_events(_glob_one(b_root, "events.out.tfevents.*"))
         b_steps = [e["step"] for e in ev if e["tag"] == "train_loss_step"]
-        if b_steps != [7, 8, 9]:
+        if b_steps != [4, 5, 6]:
             problems.append(f"B: train_loss_step at steps {b_steps}")
-        if _epoch_checkpoints(b_root) != ["epoch=2-step=9"]:
+        if _epoch_checkpoints(b_root) != ["epoch=1-step=6"]:
             problems.append(f"B: checkpoints {_epoch_checkpoints(b_root)}")
         with open(os.path.join(b_root, "checkpoints", "last", "meta.json")) as f:
             b_meta = json.load(f)
@@ -3415,6 +3424,24 @@ def phase_quant_quality(gen, report):
 # thousandth of a bf16 ulp at ln 1024 (measured: see PERF.md)
 MESH_LOSS_REL = 1e-5
 MESH_TIMEOUT_S = 600
+# the mesh phase's LoRA train action (``flagship_smoke.yaml``: frozen
+# encoder, bf16, batch 2): adapters of rank 8, 2 steps at lr 1e-3 (the
+# warm-up of ``vaura_defaults.yaml`` starts there, not at 1e-6), 1
+# validation and 1 test batch, under ``torchrun`` at 1 x 1 x 1 and in this
+# process (``_lora_train_checks``: the LM head drawn from the seeded
+# generator, as the train action's zero head, JAX's too, passes no gradient
+# to the adapters)
+MESH_LORA_TRAIN = ["model.lora_rank=8", "trainer.fast_dev_run=false",
+                   "trainer.max_epochs=1", "trainer.limit_train_batches=2",
+                   "trainer.limit_val_batches=1",
+                   "trainer.limit_test_batches=1",
+                   "model.learning_rate=1.0e-3",
+                   "model.lr_scheduler.params.warmup_init_lr=1.0e-3"]
+# the adapters the mesh run saved against this process's: the same weights,
+# batches and masks through the same kernels (FSDP2's gather at 1 x 1 x 1
+# copies the weights), so they are expected equal; Adam moves an element by
+# about lr (1e-3) a step, and 1e-6 is a thousandth of that
+TOL_MESH_ADAPTERS = 1e-6
 # the local head counts a model axis of 2 and 4 hands the decode kernels
 LOCAL_HEADS = (8, 4)
 
@@ -3530,6 +3557,49 @@ def rank_main(out, argv) -> int:
     return 0
 
 
+@contextlib.contextmanager
+def _lora_train_checks(notes):
+    """Around a LoRA train action (``MESH_LORA_TRAIN``), in a rank of the
+    mesh launch or in this process: the system's LM head drawn from the
+    run's seeded generator after its initialisation (both runs draw alike),
+    and after ``Trainer.fit`` the base sampler, whole (gathered under a
+    mesh), compared bit for bit with itself when ``fit`` began; the names
+    that differ go to ``notes["base_changed"]``."""
+    import torch
+
+    import vaura_tpu_torch.train.loop as tloop
+    from vaura_tpu_torch.scripts import train as train_script
+
+    init, fit = train_script.init_system, tloop.Trainer.fit
+
+    def init_random_head(cfg, device):
+        system, generator = init(cfg, device)
+        w = system.sampler.lm_head.weight
+        with torch.no_grad():
+            w.normal_(0.0, w.shape[1] ** -0.5, generator=generator)
+        return system, generator
+
+    def base(system):
+        pl = system.placement
+        return {n: p.detach() if pl is None else pl.full(n, p)
+                for n, p in system.named_parameters()
+                if n.startswith("sampler.")}
+
+    def fit_checked(self, *a, **k):
+        start = {n: t.clone() for n, t in base(self.system).items()}
+        out = fit(self, *a, **k)
+        end = base(self.system)
+        notes["base_changed"] = [n for n, t in start.items()
+                                 if not torch.equal(t, end[n])]
+        return out
+
+    train_script.init_system, tloop.Trainer.fit = init_random_head, fit_checked
+    try:
+        yield
+    finally:
+        train_script.init_system, tloop.Trainer.fit = init, fit
+
+
 def rank_jobs(out, jobs_path) -> int:
     """``chip_smoke.py --rank-jobs OUT JOBS``: one rank of the mesh phase's
     launch of several runs in one ``torchrun`` (one process start for them
@@ -3537,8 +3607,9 @@ def rank_jobs(out, jobs_path) -> int:
     of ``vaura_tpu_torch.main.main``, or with ``"dryrun": true`` of
     ``vaura_tpu_torch.dryrun.main``, which ends the process group and so
     comes last) runs in order with the launch counters zeroed before it;
-    its wall (after a device sync) and launches go to
-    ``OUT/jobs_rank<r>.json``."""
+    its wall (after a device sync), launches and peak memory go to
+    ``OUT/jobs_rank<r>.json``. A job with ``"lora_train": true`` runs
+    inside ``_lora_train_checks``, whose notes join its record."""
     import gc
 
     import torch
@@ -3551,16 +3622,23 @@ def rank_jobs(out, jobs_path) -> int:
         jobs = json.load(f)
     done = {}
     for job in jobs:
+        notes = {}
+        torch.cuda.reset_peak_memory_stats()
         _zero_counters()
         t0 = time.time()
         if job.get("dryrun"):
             if dryrun.main(job["argv"]) != 0:
                 raise RuntimeError(f"{job['tag']}: the dry run failed")
+        elif job.get("lora_train"):
+            with _lora_train_checks(notes):
+                port_main(job["argv"])
         else:
             port_main(job["argv"])
         torch.cuda.synchronize()
-        done[job["tag"]] = {"wall_s": time.time() - t0,
-                            "launches": _counters()}
+        done[job["tag"]] = {
+            "wall_s": time.time() - t0, "launches": _counters(),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            **notes}
         gc.collect()
         torch.cuda.empty_cache()
     rank = int(os.environ.get("RANK", "0"))
@@ -3802,6 +3880,92 @@ def _mesh_lora_action(root, res, problems, add, ft, job):
                         f"launches {launches}, expected {want}")
 
 
+def _train_record(root):
+    """``(losses by step, test loss, last checkpoint's params)`` of the
+    train action's run under ``root``."""
+    from vaura_tpu_torch.train.checkpoint import load_state
+    from vaura_tpu_torch.utils.tb import read_events
+
+    run = _glob_one(root, "*")
+    ev = read_events(_glob_one(run, "events.out.tfevents.*"))
+    losses = [e["value"] for e in sorted(
+        (e for e in ev if e["tag"] == "train_loss_step"),
+        key=lambda e: e["step"])]
+    (test,) = [e["value"] for e in ev if e["tag"] == "test_loss_epoch"]
+    params = load_state(os.path.join(run, "checkpoints", "last"))["params"]
+    return losses, test, {k: v.float() for k, v in params.items()}
+
+
+def _mesh_lora_train(tmp, res, problems, add, job):
+    """(g) The train action with LoRA adapters on the flagship
+    (``MESH_LORA_TRAIN``) under ``torchrun`` with NCCL at 1 x 1 x 1
+    (``job``, of the phase's launch: the base sampler placed for training,
+    FSDP2-wrapped and frozen, the adapters whole, merged per block into its
+    gathered weight) against the same action in this process: losses within
+    ``MESH_LOSS_REL``, the saved adapters within ``TOL_MESH_ADAPTERS``, the
+    adapters moved, the base sampler bit for bit its start in both, the
+    checkpoint holding the adapters (and a bridge) alone, the launches
+    counted (both encoder kernels once per encoder forward: 2 steps, 1
+    validation and 1 test batch)."""
+    import torch
+
+    from vaura_tpu_torch.main import main
+
+    notes = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2 ** 30  # this phase's tensors
+    _zero_counters()
+    t0 = time.time()
+    with _lora_train_checks(notes):
+        main([f"config={os.path.join(ROOT, TRAIN_CONFIG)}", *MESH_LORA_TRAIN,
+              f"trainer.log_dir={os.path.join(tmp, 'one')}"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = _counters()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = _ft_want(encoder_fwd=2 + 1 + 1)
+    add(launches)
+    add(job["launches"])
+    (m_loss, m_test, m_params), (o_loss, o_test, o_params) = (
+        _train_record(os.path.join(tmp, k)) for k in ("mesh", "one"))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(m_loss, o_loss))
+    names = sorted(m_params)
+    err = max(float((m_params[k] - o_params[k]).abs().max()) for k in names)
+    moved = max(float(v.abs().max()) for k, v in m_params.items()
+                if k.endswith("lora_b"))
+    r = res["lora_train"] = {
+        "losses_mesh": m_loss, "losses_one": o_loss, "loss_rel": rel,
+        "test_loss_mesh": m_test, "test_loss_one": o_test,
+        "adapters_max_abs_diff": err, "lora_b_max_abs": moved,
+        "checkpoint_params": len(names),
+        "base_changed": [job.get("base_changed"), notes.get("base_changed")],
+        "wall_s": [job["wall_s"], wall],
+        "peak_mem_gib": [job["peak_mem_gib"], peak],
+        "held_before_gib": held,
+        "launches": [job["launches"], launches], "expected_launches": want}
+    log(f"[mesh] LoRA train action, mesh / one process: wall "
+        f"{job['wall_s']:.1f} / {wall:.1f} s, peak {job['peak_mem_gib']:.2f}"
+        f" / {peak:.2f} GiB ({held:.2f} held before), losses {m_loss} / {o_loss} (rel {rel:.2e}), "
+        f"adapters {err:.3e} apart, lora_b up to {moved:.3e}, test loss "
+        f"{m_test} / {o_test}, launches {job['launches']} / {launches}")
+    if not (len(m_loss) == len(o_loss) == 2 and rel <= MESH_LOSS_REL
+            and all(map(math.isfinite, m_loss))):
+        problems.append(f"LoRA train: losses {m_loss} against {o_loss}")
+    if set(names) != set(o_params) or not names or any(
+            not k.startswith(("lora_sampler.", "bridge.")) for k in names):
+        problems.append(f"LoRA train: checkpoint holds {names[:3]}...")
+    elif not err <= TOL_MESH_ADAPTERS or not moved > 0:
+        problems.append(f"LoRA train: adapters {err:.3e} apart, lora_b up "
+                        f"to {moved:.3e}")
+    if r["base_changed"] != [[], []]:
+        problems.append(f"LoRA train: base changed {r['base_changed']}")
+    for tag, got in (("mesh", job["launches"]), ("one process", launches)):
+        if _differs(got, want):
+            problems.append(f"LoRA train ({tag}): launches {got}, expected "
+                            f"{want}")
+
+
 def phase_mesh(gen, report):
     """The multi-device path on this card: (a) the flagship dry run
     (``vaura_tpu_torch.dryrun --system flagship``: greedy generation of 221
@@ -3818,13 +3982,15 @@ def phase_mesh(gen, report):
     ``VauraSystem.generate``, a burst of 16, a stream, a hot reload,
     SIGTERM); (f) the generate action from the finetune phase's LoRA run
     under ``torchrun`` against the same action in one process
-    (``_mesh_lora_action``); (d) the decode kernels at the head counts a
-    model axis of 2 and 4 leaves a rank. (a), (b) and (f) on the mesh share
-    one ``torchrun`` launch (``rank_jobs``: one process start, paid once;
-    their walls are taken in the rank, the launch's as ``mesh_launch``).
-    Returns the launches of the dry run on the mesh, the demo, the
-    one-process greedy action, the server's requests and the LoRA action
-    on the mesh."""
+    (``_mesh_lora_action``); (g) the train action with LoRA adapters on the
+    flagship under ``torchrun`` against the same action in this process
+    (``_mesh_lora_train``); (d) the decode kernels at the head counts a
+    model axis of 2 and 4 leaves a rank. (a), (b), (f) and (g) on the mesh
+    share one ``torchrun`` launch (``rank_jobs``: one process start, paid
+    once; their walls are taken in the rank, the launch's as
+    ``mesh_launch``). Returns the launches of the dry run on the mesh, the
+    demo, the one-process greedy action, the server's requests, the LoRA
+    action on the mesh and both LoRA train actions."""
     import shutil
 
     import numpy as np
@@ -3845,11 +4011,16 @@ def phase_mesh(gen, report):
             total[k] = total.get(k, 0) + v
 
     # the runs on the mesh in one torchrun launch (one process start): the
-    # generate action (b), the generate action from the LoRA run (f), then
-    # the dry run (a), which ends the process group
+    # generate action (b), the generate action from the LoRA run (f), the
+    # LoRA train action (g), then the dry run (a), which ends the process
+    # group
     ft = report.get("finetune") or {}
     if "lora_experiment" not in ft:
         raise AssertionError("no LoRA experiment: the finetune phase failed")
+    # (g)'s run directories (each holds a float32 flagship base, frozen/)
+    # inside the finetune phase's, which ``main`` deletes after the last
+    # phase
+    lora_tmp = os.path.join(ft["tmp"], "mesh_lora_train")
     out = os.path.join(root, "dryrun.pt")
     argv = [f"config={os.path.join(ROOT, 'configs/generate_vgg.yaml')}",
             "dataloader.dataset_type=dummy", "dataloader.num_workers=0",
@@ -3862,6 +4033,9 @@ def phase_mesh(gen, report):
             f"config={os.path.join(ROOT, TRAIN_CONFIG)}", *FT_GEN,
             f"experiment_path={ft['lora_experiment']}",
             f"output_dir={os.path.join(root, 'lora_mesh')}"]},
+        {"tag": "lora_train", "lora_train": True, "argv": [
+            f"config={os.path.join(ROOT, TRAIN_CONFIG)}", *MESH_LORA_TRAIN,
+            f"trainer.log_dir={os.path.join(lora_tmp, 'mesh')}"]},
         {"tag": "dryrun", "dryrun": True, "argv": [
             "--system", "flagship", "--mesh", "1x1x1", "--out", out]}])
     for tag, job in jobs.items():
@@ -3961,6 +4135,11 @@ def phase_mesh(gen, report):
     _mesh_server(root, res, problems, add)
     torch.cuda.empty_cache()
     _mesh_lora_action(root, res, problems, add, ft, jobs["lora_action"])
+    torch.cuda.empty_cache()
+    try:
+        _mesh_lora_train(lora_tmp, res, problems, add, jobs["lora_train"])
+    finally:
+        shutil.rmtree(lora_tmp, ignore_errors=True)
 
     # (d) the decode kernels at local head counts
     t0 = time.time()
@@ -3976,6 +4155,9 @@ def phase_mesh(gen, report):
                    "features_max_abs_diff": srv["features_max_abs_diff"],
                    "exit_code": srv["exit_code"]},
         "lora_action_codes_differ": res["lora_action"]["codes_differ"],
+        "lora_train": {k: res["lora_train"][k] for k in (
+            "wall_s", "peak_mem_gib", "loss_rel", "adapters_max_abs_diff",
+            "base_changed")},
         "decode_ms": {k: v["ms"] for k, v in res["local_heads"].items()}}),
         flush=True)
     torch.cuda.empty_cache()

@@ -1,4 +1,4 @@
-"""The train and generate actions as a user starts them on several
+"""The actions as a user starts them on several
 processes (``python -m torch.distributed.run --nproc_per_node=2 -m
 vaura_tpu_torch ...``), on the CPU with gloo and the tiny model of
 ``configs/experiments/dummy.yaml``:
@@ -17,16 +17,26 @@ vaura_tpu_torch ...``), on the CPU with gloo and the tiny model of
   * the train action on a mesh logs the tracked training files' greedy
     audio (every rank runs their forward, rank 0 writes): the same audio
     records, tags and steps as the one-process run's, also of a file whose
-    row lies on rank 1.
+    row lies on rank 1;
+  * the train action with LoRA adapters (``model.lora_rank``) on a mesh
+    of fsdp 2: a checkpoint of the adapters alone, within 1e-6 of the
+    one-process run's, and the generate action from its experiment on a
+    mesh;
+  * the finetune, test and eval actions on 2 ranks, with no mesh (every
+    rank the whole action, as JAX runs them): one run directory written by
+    rank 0, the one-process run's checkpoints, test loss and report.
 
 Each launch has 180 s.
 """
 
+import json
 import os
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
+import pytest
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
@@ -36,6 +46,11 @@ GENERATE = ["config=configs/experiments/dummy.yaml", "action=generate",
             "trainer.platform=cpu", "duration=0.15", "model_max_duration=0.64",
             "dataloader.batch_size=4", "max_batches=2", "use_sampling=false",
             "cfg_scale=3.0"]
+
+
+FINETUNE = TRAIN + ["action=finetune", "finetune.lora_rank=4",
+                    "finetune.lora_alpha=8.0"]
+LORA = ["model.lora_rank=4", "model.lora_alpha=8.0"]
 
 
 def _run(args, nproc=None):
@@ -131,14 +146,23 @@ def test_generate_action_shards_its_batch(tmp_path):
             assert (one / n).read_bytes() == (mesh / n).read_bytes(), n
 
 
-def test_generate_action_from_a_lora_experiment_on_a_mesh(tmp_path):
+@pytest.fixture(scope="module")
+def lora_finetune(tmp_path_factory):
+    """A LoRA run of the finetune action in one process (rank 4, from the
+    seeded base its ``frozen/`` save holds): its run directory and
+    output."""
+    logs = tmp_path_factory.mktemp("ft")
+    text = _run(FINETUNE + [f"trainer.log_dir={logs}"])
+    return _run_dir(logs), text
+
+
+def test_generate_action_from_a_lora_experiment_on_a_mesh(tmp_path,
+                                                          lora_finetune):
     """A LoRA run of the finetune action (rank 4, from the seeded base its
     ``frozen/`` save holds); the generate action from its experiment on 2
     processes writes the files of the one-process action, WAVs and codes
     byte for byte."""
-    _run(TRAIN + ["action=finetune", f"trainer.log_dir={tmp_path / 'ft'}",
-                  "finetune.lora_rank=4", "finetune.lora_alpha=8.0"])
-    exp = _run_dir(tmp_path / "ft")
+    exp, _ = lora_finetune
     argv = GENERATE + [f"experiment_path={exp}", "return_sampled_indices=true"]
     one, mesh = tmp_path / "one", tmp_path / "mesh"
     _run(argv + [f"output_dir={one}"])
@@ -195,3 +219,104 @@ def test_train_action_on_a_mesh_logs_tracked_files(tmp_path):
     assert set(got) == set(want)
     for k in tracked:
         assert got[k] == want[k], k
+
+
+def _params(run: Path, ckpt: str) -> dict:
+    """The parameters of a run's checkpoint ``ckpt`` (``last`` or the
+    bare mapping of ``frozen``)."""
+    sd = torch.load(run / "checkpoints" / ckpt / "state.pt", weights_only=True)
+    return sd.get("params", sd)
+
+
+def _entries(run: Path) -> list:
+    """A run directory's entries below the top, but the event file."""
+    return sorted(str(p.relative_to(run)) for p in run.rglob("*")
+                  if not p.name.startswith("events."))
+
+
+def test_lora_train_action_on_a_mesh(tmp_path):
+    """``action=train model.lora_rank=4`` under ``torchrun`` at fsdp 2, as
+    JAX's train action takes the same keys: the adapters train on the mesh
+    (the base sampler FSDP2-sharded and frozen). Its checkpoint holds the
+    adapters alone (``dummy.yaml`` has no bridge and a frozen encoder),
+    within 1e-6 of the one-process run's, its ``frozen/`` save the whole
+    base, equal to the one-process run's, its test loss the one-process
+    run's; the generate action from its experiment runs on a mesh of 2
+    processes (the base from ``frozen/``) and writes every clip."""
+    mesh_logs, one_logs = tmp_path / "mesh", tmp_path / "one"
+    text = _run(TRAIN + LORA + [f"trainer.log_dir={mesh_logs}",
+                                "trainer.mesh.data=1", "trainer.mesh.fsdp=2"],
+                nproc=2)
+    assert "Mesh: {'data': 1, 'fsdp': 2, 'model': 1}" in text
+    one_text = _run(TRAIN + LORA + [f"trainer.log_dir={one_logs}"])
+    run, one = _run_dir(mesh_logs), _run_dir(one_logs)
+    assert _entries(run) == _entries(one)
+    got, want = _state(run), _state(one)
+    assert got["step"] == want["step"] == 2
+    assert set(got["params"]) == set(want["params"])
+    assert all(k.startswith("lora_sampler.") for k in got["params"])
+    for k, v in want["params"].items():
+        torch.testing.assert_close(got["params"][k], v, rtol=0, atol=1e-6)
+    base = [_params(r, "frozen") for r in (run, one)]
+    assert any(k.startswith("sampler.") for k in base[1])
+    assert set(base[0]) == set(base[1])
+    for k, v in base[1].items():
+        assert torch.equal(base[0][k], v), k
+    assert abs(_test_loss(text) - _test_loss(one_text)) < 1e-6
+    gen = tmp_path / "gen"
+    text = _run(GENERATE + [f"experiment_path={run}", f"output_dir={gen}"],
+                nproc=2)
+    assert "sharding generation batch 4 over 2 processes" in text
+    assert "Loaded the LoRA base weights from" in text
+    assert len(list(gen.glob("*.wav"))) == 8
+
+
+def test_finetune_test_and_eval_actions_on_two_ranks(tmp_path,
+                                                     lora_finetune):
+    """The finetune, test and eval actions under ``torchrun`` on 2 ranks,
+    as JAX runs them: no mesh, every rank the whole action on its own
+    device; rank 0 alone writes. The finetune (LoRA) run writes one run
+    directory with the one-process run's entries and one event file; its
+    checkpoints and test loss equal the one-process run's. The test action
+    of its ``last`` on 2 ranks writes one run directory and reports that
+    test loss. The eval action on 2 ranks prints the one-process report
+    once."""
+    from vaura_tpu_torch.main import main
+    from vaura_tpu_torch.ops.audio import write_wav
+
+    one, one_text = lora_finetune
+    text = _run(FINETUNE + [f"trainer.log_dir={tmp_path / 'ft'}"], nproc=2)
+    run = _run_dir(tmp_path / "ft")
+    assert _entries(run) == _entries(one)
+    assert len(list(run.glob("events.out.tfevents.*"))) == 1
+    for ck in ("last", "frozen"):
+        got, want = (_params(r, ck) for r in (run, one))
+        assert set(got) == set(want)
+        for k, v in want.items():
+            assert torch.equal(got[k], v), (ck, k)
+    loss = _test_loss(one_text)
+    assert _test_loss(text) == loss
+    text = _run(TRAIN + LORA + [
+        "action=test", f"trainer.log_dir={tmp_path / 'test'}",
+        f"trainer.ckpt_path={run / 'checkpoints' / 'last'}"], nproc=2)
+    tested = _run_dir(tmp_path / "test")
+    assert len(list(tested.rglob("hparams.yaml"))) == 1
+    assert abs(_test_loss(text) - loss) < 1e-6
+    rng = np.random.default_rng(0)
+    dirs = {k: tmp_path / k for k in ("gen", "ref")}
+    for d in dirs.values():
+        d.mkdir()
+        for i in range(3):
+            write_wav(d / f"{i}.wav", 0.1 * rng.standard_normal(
+                (1, 22050)).astype(np.float32), 44100)
+    argv = ["config=configs/experiments/dummy.yaml", "action=eval",
+            "trainer.platform=cpu", "fad=true", f"generated_dir={dirs['gen']}",
+            f"reference_dir={dirs['ref']}"]
+    report = main(argv)
+    assert report["n"] == 3
+    text = _run(argv, nproc=2)
+    (start,) = [i for i in range(len(text)) if text.startswith("{\n", i)]
+    printed = json.loads(text[start:text.index("\n}", start) + 2])
+    assert printed.keys() == report["mean"].keys()
+    for k, v in report["mean"].items():  # this process runs more threads
+        assert abs(printed[k] - v) <= 1e-6 * abs(v), k

@@ -30,11 +30,17 @@ same converted weights and batches. Held:
   * sampled codes equal at 1 x 1 x 1, at 2 x 2 x 2 and in one process
     without a mesh;
   * a checkpoint gathered under the mesh loads bit-equal into one process,
-    and a one-process checkpoint into the mesh and back out bit-equal.
+    and a one-process checkpoint into the mesh and back out bit-equal;
+  * LoRA training on the mesh (the same adapters, the encoder and the
+    bridge training beside them): two steps with value clipping and two
+    with norm clipping against JAX's one-device ``make_train_step``
+    (losses within 1e-5, parameters rtol 1e-4 / atol 1e-6, the base
+    sampler unchanged bit for bit), two with remat and every stochastic
+    rate on against one process (as the full-training steps above), and a
+    LoRA checkpoint across the mesh and one process both ways, bit-equal.
 
 Also two processes hold ``initialize_distributed`` and
-``is_main_process``, as ``tests/test_multihost.py`` does for JAX, and
-``shard_module`` refuses a system with adapters that will be trained. Each
+``is_main_process``, as ``tests/test_multihost.py`` does for JAX. Each
 worker sets one thread; each spawn's processes have 180 s.
 """
 
@@ -157,6 +163,38 @@ def wait(procs):
     return results
 
 
+def lora_system(configs, sds, lora_sd):
+    """A one-process system of ``configs`` with ``sds`` and the adapters
+    ``lora_sd`` (rank 4, alpha 8)."""
+    system = VauraSystem(*configs, device="cpu", lora_rank=LORA_RANK,
+                         lora_alpha=LORA_ALPHA)
+    system.load_state_dicts(dict(sds, lora_sampler=lora_sd))
+    return system
+
+
+def _state_copy(state) -> dict:
+    """A detached copy of ``state.state_dict()``."""
+    sd = state.state_dict()
+    return {"params": {k: v.detach().clone() for k, v in sd["params"].items()},
+            "opt_state": {k: ({n: t.clone() for n, t in v.items()}
+                              if isinstance(v, dict) else v)
+                          for k, v in sd["opt_state"].items()},
+            "step": sd["step"]}
+
+
+def _lora_resume(tree, lora_sd, batch) -> dict:
+    """A one-process LoRA checkpoint after one step, for the mesh to
+    load."""
+    system = lora_system((port_sampler_config(J_SAMPLER_TRAIN),
+                          port_dac_config(), port_encoder_config(J_ENC_TRAIN)),
+                         from_jax_params(tree), lora_sd)
+    trainable, _ = split_params(system)
+    state = TrainState.create(trainable, make_optimizer(**OPT))
+    state, _ = make_train_step(system)(
+        state, {k: torch.from_numpy(v) for k, v in batch.items()})
+    return _state_copy(state)
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     jsys, tree = init_jax_train_system(0)
@@ -180,11 +218,8 @@ def runs(tmp_path_factory):
     state = TrainState.create(trainable, make_optimizer(**OPT))
     state, _ = make_train_step(tsys)(
         state, {k: torch.from_numpy(v) for k, v in batches[0].items()})
-    resume = {"params": {k: v.detach().clone() for k, v in state.params.items()},
-              "opt_state": {k: ({n: t.clone() for n, t in v.items()}
-                                if isinstance(v, dict) else v)
-                            for k, v in state.opt_state.state_dict().items()},
-              "step": state.step}
+    resume = _state_copy(state)
+    lora_sd = from_jax_params({"lora_sampler": lora})["lora_sampler"]
     payload = {
         "configs": configs, "state_dicts": sds,
         "batches": [{k: torch.from_numpy(v) for k, v in b.items()}
@@ -196,8 +231,8 @@ def runs(tmp_path_factory):
         "generate": {"frames": torch.from_numpy(frames),
                      "runs": {"greedy": GREEDY, "sampled": SAMPLED}},
         "lora": {"rank": LORA_RANK, "alpha": LORA_ALPHA, "kw": GREEDY,
-                 "state_dict": from_jax_params(
-                     {"lora_sampler": lora})["lora_sampler"]},
+                 "state_dict": lora_sd},
+        "lora_train": {"resume": _lora_resume(tree, lora_sd, batches[0])},
     }
     root = tmp_path_factory.mktemp("mesh")
     big = spawn("mesh", 8, {**payload, "mesh": (2, 2, 2)}, root / "m222")
@@ -209,15 +244,23 @@ def runs(tmp_path_factory):
     wait(big)
     wait(one)
     return {"jsys": jsys, "tree": tree, "sds": sds, "configs": configs, "batches": batches,
-            "lora": lora,
+            "lora": lora, "lora_sd": lora_sd,
+            "lora_resume": payload["lora_train"]["resume"],
             "masked": masked,
             "frames": frames, "resume": resume,
             "m222": torch.load(root / "m222" / "result.pt", weights_only=False),
             "m111": torch.load(root / "m111" / "result.pt", weights_only=False)}
 
 
-def _jax_steps(runs, opt):
+def _jax_steps(runs, opt, lora=False):
+    """JAX's ``make_train_step`` on one device over the run's tree (with
+    ``lora``, the adapters train beside the encoder and the bridge)."""
     jsys, tree = runs["jsys"], runs["tree"]
+    if lora:
+        tree = dict(tree, lora_sampler=runs["lora"])
+        jsys = JSystem(sampler_config=J_SAMPLER_TRAIN, dac_config=J_DAC,
+                       encoder_config=J_ENC_TRAIN, lora_rank=LORA_RANK,
+                       lora_alpha=LORA_ALPHA)
     kw = dict(opt)
     lr = kw.pop("learning_rate")
     jstate, jfrozen = jax_train_state(jsys, tree, lr, **kw)
@@ -256,9 +299,13 @@ def test_sharded_global_norm_clipping_matches_jax(runs):
     _assert_params(got["norm_state"]["params"], jstate)
 
 
-def _one_process_stochastic_steps(runs, seed):
-    system = VauraSystem(*stochastic_configs(), device="cpu")
-    system.load_state_dicts(runs["sds"])
+def _one_process_stochastic_steps(runs, seed, lora=False):
+    if lora:
+        system = lora_system(stochastic_configs(), runs["sds"],
+                             runs["lora_sd"])
+    else:
+        system = VauraSystem(*stochastic_configs(), device="cpu")
+        system.load_state_dicts(runs["sds"])
     trainable, _ = split_params(system)
     state = TrainState.create(trainable, make_optimizer(**OPT))
     step = make_train_step(system)
@@ -339,17 +386,69 @@ def test_sharded_lora_generation_matches_jax(runs):
     assert not torch.equal(got, runs["m222"]["greedy"]["codes"])
 
 
-def test_training_adapters_under_a_mesh_raises():
-    """``shard_module`` on a system with adapters that will be trained
-    (its default): LoRA training under a mesh is not ported, and the error
-    says where it is queued."""
-    from vaura_tpu_torch.parallel import shard_module
+@pytest.mark.parametrize("clip", ["value", "norm"])
+def test_sharded_lora_steps_match_jax(runs, clip):
+    """Two LoRA steps at 2 x 2 x 2 (the base sampler split over ``model``
+    and FSDP2-sharded, frozen; the adapters whole on every rank, merged per
+    block into its gathered weight, their gradients summed over the mesh;
+    the encoder and the bridge train beside them, as JAX's
+    ``split_params``) against JAX's one-device ``make_train_step`` on the
+    same tree: losses within 1e-5, the adapters, encoder and bridge rtol
+    1e-4 / atol 1e-6; the checkpoint holds no base-sampler leaf, and the
+    base sampler gathered after the steps is bit for bit its start. Norm
+    clipping at 0.05 clips (the adapters counted once in the norm)."""
+    jstate, losses, _ = _jax_steps(runs, OPT if clip == "value" else OPT_NORM,
+                                   lora=True)
+    got = runs["m222"]["lora_train"]
+    np.testing.assert_allclose(got[clip]["losses"], losses, rtol=0,
+                               atol=1e-5)
+    params = got[clip]["state"]["params"]
+    assert not any(k.startswith("sampler.") for k in params)
+    assert any(k.startswith("lora_sampler.") for k in params)
+    _assert_params(params, jstate)
+    base = got["base"]
+    assert set(base) == set(runs["sds"]["sampler"])
+    for k, v in runs["sds"]["sampler"].items():
+        assert torch.equal(base[k], v), k
 
-    system = VauraSystem(port_sampler_config(J_SAMPLER_TRAIN),
-                         port_dac_config(), None, device="cpu",
-                         lora_rank=LORA_RANK)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        shard_module(system, None)
+
+def test_sharded_lora_stochastic_steps_match_one_process(runs):
+    """Two LoRA steps at 2 x 2 x 2 with ``remat`` and every stochastic rate
+    on (the rerun of each block merges again from its re-gathered weight)
+    against the same steps in one process: losses within 1e-5, parameters
+    rtol 1e-4 / atol 2e-5 (as the full-training steps above)."""
+    losses, want = _one_process_stochastic_steps(runs, STOCHASTIC_SEED,
+                                                 lora=True)
+    got = runs["m222"]["lora_train"]["stochastic"]
+    np.testing.assert_allclose(got["losses"], losses, rtol=0, atol=1e-5)
+    have = got["state"]["params"]
+    assert set(want) == set(have)
+    assert any(k.startswith("lora_sampler.") for k in have)
+    for k, w in want.items():
+        np.testing.assert_allclose(have[k].numpy(), w.numpy(), rtol=1e-4,
+                                   atol=2e-5, err_msg=k)
+
+
+def test_lora_checkpoints_cross_between_mesh_and_one_process(runs):
+    """A LoRA checkpoint gathered under the mesh (adapters, encoder,
+    bridge and their moments) loads bit-equal into a one-process LoRA
+    state, and a one-process LoRA checkpoint loads into the mesh and
+    gathers back bit-equal."""
+    got = runs["m222"]["lora_train"]
+    system = lora_system(runs["configs"], runs["sds"], runs["lora_sd"])
+    trainable, _ = split_params(system)
+    state = TrainState.create(trainable, make_optimizer(**OPT))
+    state.load_state_dict(got["value"]["state"])
+    sd = state.state_dict()
+    for tree_a, tree_b in ((got["value"]["state"], sd),
+                           (runs["lora_resume"], got["resumed"])):
+        assert tree_a["step"] == tree_b["step"]
+        assert set(tree_a["params"]) == set(tree_b["params"]) == set(trainable)
+        for k, v in tree_a["params"].items():
+            assert torch.equal(tree_b["params"][k].detach(), v), k
+        for key in ("mu", "nu"):
+            for k, v in tree_a["opt_state"][key].items():
+                assert torch.equal(tree_b["opt_state"][key][k], v), (key, k)
 
 
 def test_sampled_codes_do_not_depend_on_the_mesh(runs):

@@ -219,8 +219,9 @@ def test_multi_device_and_demo_modules_are_covered_and_need_a_device(
     """The mesh, the multi-process start-up, the dry run and the demo are
     under the import rule above, load nothing of JAX or PyYAML, and run on
     the card unless the CPU is asked: without CUDA they raise, a process
-    group of several ranks on the card never forms without it, and the dry
-    run spawns its CPU processes (``--n``) only with ``--platform cpu``."""
+    group of several ranks on the card never forms without it (every
+    action of ``main.py`` may start one), and the dry run spawns its CPU
+    processes (``--n``) only with ``--platform cpu``."""
     names = {str(f.relative_to(ROOT)) for f in _port_files()}
     for mod in ("parallel/__init__.py", "parallel/mesh.py",
                 "parallel/multihost.py", "parallel/partitioning.py",
@@ -245,10 +246,22 @@ def test_multi_device_and_demo_modules_are_covered_and_need_a_device(
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         demo.main(["--frames", str(tmp_path / "x.npy"),
                    "--out", str(tmp_path / "out")])
-    # the actions a run of several processes may not start
-    monkeypatch.setenv("WORLD_SIZE", "2")
+    # a run of several processes may start every action of main.py
+    from vaura_tpu_torch.main import _MULTI_PROCESS
+
+    tree = ast.parse((ROOT / "main.py").read_text())
+    actions = {c.value for node in ast.walk(tree)
+               if isinstance(node, ast.Compare)
+               and getattr(node.left, "id", None) == "action"
+               for cmp in node.comparators
+               for c in ast.walk(cmp) if isinstance(c, ast.Constant)}
+    assert len(actions) == 7 and actions == set(_MULTI_PROCESS), actions
+    # which join NCCL on the cards: without CUDA they raise before any
+    # group forms or any file is written
+    for k, v in (("WORLD_SIZE", "2"), ("RANK", "0"), ("MASTER_PORT", "1")):
+        monkeypatch.setenv(k, v)
     for action in ("finetune", "test", "eval"):
-        with pytest.raises(NotImplementedError, match="runs on one card"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
             main(["config=configs/experiments/dummy.yaml",
                   f"action={action}", f"trainer.log_dir={tmp_path}"])
     assert not any(tmp_path.iterdir())

@@ -10,7 +10,9 @@ Modes:
     mesh of ``PAYLOAD["mesh"]``: train steps (also at non-zero dropout
     rates, from a seeded generator), the masked loss with rows whose masks
     differ, greedy and sampled generation, greedy generation with LoRA
-    adapters (``PAYLOAD["lora"]``), checkpoints both ways.
+    adapters (``PAYLOAD["lora"]``), checkpoints both ways; with
+    ``PAYLOAD["lora_train"]`` those adapters trained on the mesh
+    (``_lora_train``).
     Rank 0 writes what the test compares into ``OUT``;
   * ``serve``: the generation server (``vaura_tpu_torch/scripts/serve.py``)
     of the tiny ``dummy.yaml`` geometry, one ``GenerationService`` per
@@ -60,28 +62,36 @@ def multihost(out):
     print(f"MULTIHOST-OK rank={rank} sum={x.item()}")
 
 
-def _system(payload):
+def _system(payload, lora=None):
+    """The payload's system; with ``lora`` (``PAYLOAD["lora"]``) its
+    adapters too."""
     from vaura_tpu_torch.models.vaura import VauraSystem
 
     scfg, dcfg, ecfg = payload["configs"]
+    sds = payload["state_dicts"]
+    kw = {}
+    if lora is not None:
+        kw = dict(lora_rank=lora["rank"], lora_alpha=lora["alpha"])
+        sds = dict(sds, lora_sampler=lora["state_dict"])
     system = VauraSystem(scfg, dcfg, ecfg, device="cpu",
-                         freeze_feature_extractor=payload.get("freeze", False))
-    system.load_state_dicts(payload["state_dicts"])
+                         freeze_feature_extractor=payload.get("freeze", False),
+                         **kw)
+    system.load_state_dicts(sds)
     return system
 
 
-def _sharded(payload, mesh):
+def _sharded(payload, mesh, lora=None):
     from vaura_tpu_torch.parallel import shard_module
 
-    system = _system(payload)
+    system = _system(payload, lora)
     shard_module(system, mesh)
     return system
 
 
-def _train(payload, mesh, opt_kw, batches, generator=None):
+def _train(payload, mesh, opt_kw, batches, generator=None, lora=None):
     """Steps of the sharded system from the payload's weights (masks from
-    ``generator``); returns the losses, the per-codebook losses and the
-    state."""
+    ``generator``; with ``lora``, its adapters train); returns the losses,
+    the per-codebook losses and the state."""
     from vaura_tpu_torch.train.state import TrainState, make_optimizer
     from vaura_tpu_torch.train.steps import (
         batch_to_device,
@@ -89,7 +99,7 @@ def _train(payload, mesh, opt_kw, batches, generator=None):
         split_params,
     )
 
-    system = _sharded(payload, mesh)
+    system = _sharded(payload, mesh, lora)
     trainable, _ = split_params(system)
     state = TrainState.create(trainable, make_optimizer(**opt_kw),
                               system.placement)
@@ -118,6 +128,39 @@ def _masked_loss(payload, system):
     loss.backward()
     return {"loss": pl.batch_sum(loss), "per_cb": pl.batch_sum(per_cb),
             "grad": pl.gather_rows(logits.grad, "all")}
+
+
+def _lora_train(payload, mesh, batches):
+    """The adapters of ``PAYLOAD["lora"]`` trained on the mesh: two steps
+    with value clipping, two with norm clipping, two with the stochastic
+    configs (remat, every rate on) from a seeded generator; each run's
+    losses and gathered state, the base sampler gathered after the first,
+    and ``PAYLOAD["lora_train"]["resume"]`` (a one-process LoRA state) into
+    the mesh and gathered back."""
+    from vaura_tpu_torch.train.state import TrainState, make_optimizer
+    from vaura_tpu_torch.train.steps import split_params
+
+    lora, st = payload["lora"], payload["stochastic"]
+    out = {}
+    for tag, opt, extra, gen in (
+            ("value", payload["train"], {}, None),
+            ("norm", payload["train_norm"], {}, None),
+            ("stochastic", payload["train"], {"configs": st["configs"]},
+             torch.Generator().manual_seed(st["seed"]))):
+        system, state, losses, _ = _train({**payload, **extra}, mesh, opt,
+                                          batches, gen, lora)
+        out[tag] = {"losses": losses, "state": state.state_dict()}
+        if tag == "value":  # every rank gathers the base
+            pl = system.placement
+            out["base"] = {n: pl.full(f"sampler.{n}", p) for n, p in
+                           system.sampler.named_parameters()}
+    system = _sharded(payload, mesh, lora)
+    trainable, _ = split_params(system)
+    state = TrainState.create(trainable, make_optimizer(**payload["train"]),
+                              system.placement)
+    state.load_state_dict(payload["lora_train"]["resume"])
+    out["resumed"] = state.state_dict()
+    return out
 
 
 def mesh_run(payload, out):
@@ -157,6 +200,8 @@ def mesh_run(payload, out):
                                   system.placement)
         state.load_state_dict(payload["resume"])
         result["resumed"] = state.state_dict()
+    if payload.get("lora_train"):
+        result["lora_train"] = _lora_train(payload, mesh, batches)
     gen = payload.get("generate")
     if gen is not None:
         from vaura_tpu_torch.parallel.mesh import batch_rows
@@ -169,15 +214,10 @@ def mesh_run(payload, out):
                 result[tag] = {k: r[k] for k in ("codes", "audio") if k in r}
     lora = payload.get("lora")
     if lora is not None:  # adapters placed for generation alone
-        from vaura_tpu_torch.models.vaura import VauraSystem
         from vaura_tpu_torch.parallel import shard_module
         from vaura_tpu_torch.parallel.mesh import batch_rows
 
-        scfg, dcfg, ecfg = payload["configs"]
-        system = VauraSystem(scfg, dcfg, ecfg, device="cpu",
-                             lora_rank=lora["rank"], lora_alpha=lora["alpha"])
-        system.load_state_dicts(dict(payload["state_dicts"],
-                                     lora_sampler=lora["state_dict"]))
+        system = _system(payload, lora)
         shard_module(system, mesh, train=False)
         frames = gen["frames"][batch_rows(mesh, gen["frames"].shape[0])]
         r = system.generate(frames, gather="main", decode_to_audio=False,

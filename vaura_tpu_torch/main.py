@@ -26,10 +26,14 @@ Several processes, one per card::
 
 join one process group (``parallel.multihost.initialize_distributed``:
 NCCL on the cards, gloo with ``trainer.platform=cpu``) before anything
-touches a device; the train action then shards over ``trainer.mesh``, the
+touches a device, for every action, as the JAX ``main.py`` initialises its
+distributed runtime for any action; the train action then shards over
+``trainer.mesh`` (with ``model.lora_rank`` its adapters train there), the
 generate action its batch over a data mesh, and the server its batches over
-a mesh of ``trainer.mesh`` (rank 0 answers HTTP; ``scripts/serve.py``). The
-other actions run on one card and refuse a run of several processes.
+a mesh of ``trainer.mesh`` (rank 0 answers HTTP; ``scripts/serve.py``).
+The finetune, test and eval actions run as the JAX package runs them: no
+mesh, every rank the whole action on its own card; rank 0 alone writes the
+run directory (and prints the eval report).
 """
 
 from __future__ import annotations
@@ -43,8 +47,9 @@ REPO_ROOT = Path(__file__).absolute().parents[1]
 logger = logging.getLogger("vaura_tpu_torch")
 
 
-# the actions a run of several processes (torchrun) may start
-_MULTI_PROCESS = ("train", "generate", "predict", "serve")
+# the actions a run of several processes (torchrun) may start: every one
+_MULTI_PROCESS = ("train", "test", "finetune", "generate", "predict",
+                  "serve", "eval")
 
 
 def get_config(argv):
@@ -72,10 +77,8 @@ def main(argv=None) -> dict:
     from vaura_tpu_torch.parallel import multihost
     from vaura_tpu_torch.scripts.generate import config_device_type
 
-    if multihost.world_from_env() > 1 and action not in _MULTI_PROCESS:
-        raise NotImplementedError(
-            f"action={action} runs on one card; a run of several processes "
-            f"is ported for {sorted(_MULTI_PROCESS)} (ROADMAP.md)")
+    if action not in _MULTI_PROCESS:
+        raise ValueError(f"Unknown action {action!r}")
     multihost.initialize_distributed(device_type=config_device_type(cfg))
     if action == "train":
         from vaura_tpu_torch.scripts.train import train
@@ -101,7 +104,6 @@ def main(argv=None) -> dict:
         from vaura_tpu_torch.scripts.eval_metrics import run_eval
 
         return run_eval(cfg)
-    raise ValueError(f"Unknown action {action!r}")
 
 
 if __name__ == "__main__":

@@ -47,7 +47,7 @@ import contextlib
 import dataclasses
 import functools
 import math
-from typing import Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -243,7 +243,10 @@ class PDense(nn.Module):
     ``quantizable``) the int8 ``kernel_q [out, in]`` and float32 ``scale
     [out]`` buffers instead. ``merged``, when set (``use_weights``), is
     used in place of the weight: a LoRA-merged weight in the compute
-    dtype, made once per entry call (``VauraSystem.lora_merged``)."""
+    dtype, made once per entry call (``VauraSystem.lora_merged``).
+    ``adapter``, when set (``use_adapters``), maps the weight the layer
+    holds at the call to the weight it multiplies with (a LoRA merge made
+    at each use: under FSDP2 after the block's all-gather)."""
 
     def __init__(self, i: int, o: int, cfg: SamplerConfig, device=None,
                  quantizable: bool = True):
@@ -258,10 +261,14 @@ class PDense(nn.Module):
             self.weight = nn.Parameter(torch.empty(o, i, dtype=cfg.param_dtype,
                                                    device=device))
         self.merged: Optional[torch.Tensor] = None
+        self.adapter: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.merged is not None:
             return F.linear(x.to(self.dtype), self.merged)
+        if self.adapter is not None:
+            return F.linear(x.to(self.dtype),
+                            self.adapter(self.weight).to(self.dtype))
         if self.quantized:
             return quant_dense(x.to(self.dtype), self.kernel_q, self.scale)
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
@@ -280,6 +287,20 @@ def use_weights(weights: Dict[PDense, torch.Tensor]):
     finally:
         for m, w in old.items():
             m.merged = w
+
+
+@contextlib.contextmanager
+def use_adapters(adapters: Dict[PDense, Callable[[torch.Tensor], torch.Tensor]]):
+    """Run the ``PDense`` layers of ``adapters`` with the given ``adapter``
+    until the block ends; the layers' previous state is restored then."""
+    old = {m: m.adapter for m in adapters}
+    for m, fn in adapters.items():
+        m.adapter = fn
+    try:
+        yield
+    finally:
+        for m, fn in old.items():
+            m.adapter = fn
 
 
 class RMSNorm(nn.Module):
@@ -641,15 +662,16 @@ class Sampler(nn.Module):
                                       generator=generator))
                     if stochastic else None)
 
-            # the merged LoRA weights of this call, which the backward
-            # pass's rerun must use too
-            merged = {m: m.merged for m in layer.modules()
-                      if isinstance(m, PDense) and m.merged is not None}
+            # the LoRA adapters of this call, which the backward pass's
+            # rerun must merge too: from the weights gathered again then,
+            # so no merged weight lives from the forward to the backward
+            adapters = {m: m.adapter for m in layer.modules()
+                        if isinstance(m, PDense) and m.adapter is not None}
 
-            def run(x, layer=layer, seed=seed, merged=merged):
+            def run(x, layer=layer, seed=seed, adapters=adapters):
                 g = (None if seed is None else
                      torch.Generator(device=x.device).manual_seed(seed))
-                with use_weights(merged), batch_shard(shard):
+                with use_adapters(adapters), batch_shard(shard):
                     return layer(x, freqs, mask, train, g)
 
             h = checkpoint(run, h, use_reentrant=False,

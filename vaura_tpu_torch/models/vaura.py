@@ -48,8 +48,9 @@ rank, draws of the whole batch's noise (``ops/sampling.py``), and the codes
 and audio gathered to every rank or to rank 0 when the caller asks
 (``gather``). Inside ``replicated`` every rank runs the same call on the
 whole batch instead (a server's B=1 stream, the tracked training files).
-LoRA adapters stay whole on every rank and merge into this rank's gathered
-weights at each entry call.
+LoRA adapters stay whole on every rank and merge into this rank's weights
+(``lora_merged``): once a generation call into the gathered weights, at
+each use of a layer in training into the block's weight FSDP2 gathered.
 """
 
 from __future__ import annotations
@@ -72,6 +73,7 @@ from vaura_tpu_torch.models.sampler import (
     Sampler,
     SamplerConfig,
     default_tokens_per_frame,
+    use_adapters,
     use_weights,
 )
 from vaura_tpu_torch.ops.dropout import batch_shard
@@ -83,9 +85,10 @@ from vaura_tpu_torch.ops.patterns import (
 from vaura_tpu_torch.ops.sampling import cfg_blend, sample_tokens
 from vaura_tpu_torch.train.lora import (
     DEFAULT_TARGETS,
+    adapted_layers,
     init_lora,
-    lora_pairs,
     merge_lora,
+    merged_weight,
 )
 from vaura_tpu_torch.utils import DeviceLike, StageClock, resolve_device
 
@@ -130,7 +133,7 @@ def _within(context: str):
 
 # the LoRA merge where the JAX package resolves its parameters
 # (``_resolve_params``), and a mesh's weights gathered once a generation;
-# a generation gathers first, so the merge reads this rank's whole (local)
+# a generation gathers first, so its merge reads this rank's whole (local)
 # weights and not an FSDP2 shard of them
 _merges_lora = _within("lora_merged")
 _gathers_weights = _within("gathered_weights")
@@ -275,31 +278,49 @@ class VauraSystem(nn.Module):
     @contextlib.contextmanager
     def lora_merged(self):
         """Run the sampler with the LoRA adapters merged into its weights
-        until the block ends: each adapted ``PDense`` gets ``W + (alpha / r)
-        * lora_b @ lora_a`` once (``train/lora.py::merge_lora``), not at each
-        use, and gradients reach the adapters through it. Without adapters,
-        and inside an enclosing block (its layers already hold merged
-        weights), it does nothing. The nesting is read from the layers, not
-        kept on the system, so a copy of the system taken inside a block (a
-        hot reload's view) merges on its own next call. Under a mesh the
-        adapters are whole on every rank and the weights this rank's
-        (gathered, and over ``model`` its rows or columns): each delta takes
-        its weight's cut (``MeshPlacement.model_part``)."""
+        until the block ends, ``W + (alpha / r) * lora_b @ lora_a``
+        (``train/lora.py::merged_weight``). A call that records no graph and
+        holds its weights whole (one device, or gathered under a mesh: a
+        generation) merges once, not at each use: each adapted ``PDense``
+        gets its merged weight (``use_weights``). A call that records a
+        graph, or whose weights are FSDP2 shards (training and validation
+        under a mesh), installs each layer's merge as its ``adapter``
+        (``use_adapters``), which the layer runs at each use on the weight
+        its module holds then: under FSDP2 the block's gathered weight, so
+        no rank holds the whole sampler gathered, and a remat block merges
+        again in the backward rerun. Gradients reach the adapters through
+        either. Without adapters, and inside an enclosing block (its layers
+        already hold merged weights or adapters), it does nothing. The
+        nesting is read from the layers, not kept on the system, so a copy
+        of the system taken inside a block (a hot reload's view) merges on
+        its own next call. Under a mesh the adapters are whole on every
+        rank and the weights this rank's (over ``model`` its rows or
+        columns): each delta takes its weight's cut
+        (``MeshPlacement.model_part``)."""
         if self.lora_sampler is None:
             yield
             return
-        layers = {name: self.sampler.get_submodule(name)
-                  for name in lora_pairs(self.lora_sampler)}
-        if any(m.merged is not None for m in layers.values()):
+        layers = adapted_layers(self.sampler, self.lora_sampler)
+        if any(m.merged is not None or m.adapter is not None
+               for m, _ in layers.values()):
             yield
             return
         pl = self.placement
         cut = (None if pl is None else
                lambda name, delta: pl.model_part(f"sampler.{name}.weight",
                                                  delta))
+        if torch.is_grad_enabled() or (pl is not None and pl.shards
+                                       and not self._weights_gathered):
+            adapters = {dense: functools.partial(
+                            merged_weight, pair=pair, alpha=self.lora_alpha,
+                            cut=cut and functools.partial(cut, name))
+                        for name, (dense, pair) in layers.items()}
+            with use_adapters(adapters):
+                yield
+            return
         merged = merge_lora(self.sampler, self.lora_sampler, self.lora_alpha,
                             cut)
-        with use_weights({layers[name]: w for name, w in merged.items()}):
+        with use_weights({layers[name][0]: w for name, w in merged.items()}):
             yield
 
     def load_state_dicts(self, state_dicts: Dict[str, Dict[str, torch.Tensor]]):

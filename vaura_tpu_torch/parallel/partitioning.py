@@ -91,6 +91,16 @@ HEAD_ALIGNED = r"^sampler\.layers\.\d+\.attention\.wqkv\.(weight|kernel_q|scale)
 SPLIT_SCALES = r"^sampler\.(layers\.\d+\.(attention\.wqkv|feed_forward\.w[13])|lm_head)\.scale$"
 
 
+def adapted_weight(name: str) -> str:
+    """The base weight a LoRA leaf adapts
+    (``lora_sampler.layers.0.attention.wqkv.lora_a`` ->
+    ``sampler.layers.0.attention.wqkv.weight``)."""
+    if not name.startswith("lora_sampler."):
+        raise ValueError(f"{name}: not a LoRA leaf")
+    layer = name[len("lora_sampler."):].rsplit(".", 1)[0]
+    return f"sampler.{layer}.weight"
+
+
 def spec_for(path: str, ndim: int) -> Spec:
     """The JAX package's spec of the parameter at ``path`` (``ndim`` axes,
     JAX's layout) as a tuple."""
@@ -334,17 +344,21 @@ class MeshPlacement:
                                  "does not fit this system")
             view.copy_(part)
 
-    def global_norm(self, names, grads) -> torch.Tensor:
+    def global_norm(self, names, grads, replicated=frozenset()
+                    ) -> torch.Tensor:
         """The L2 norm over every whole leaf of ``grads`` (this rank's local
         shards, by ``names``): the squares of the shards summed over fsdp,
         then those of the leaves the model axis splits over model (each
         leaf counted once; ranks that differ in ``data`` hold the same
-        shards)."""
+        shards). The leaves named in ``replicated`` (LoRA adapters) are
+        whole and alike on every rank, and are counted once as they are."""
         zero = torch.zeros((), device=grads[0].device)
-        split, whole = zero, zero
+        split, whole, rep = zero, zero, zero
         for n, g in zip(names, grads):
             q = g.float().pow(2).sum()
-            if model_dim(n, g.ndim) is not None:
+            if n in replicated:
+                rep = rep + q
+            elif model_dim(n, g.ndim) is not None:
                 split = split + q
             else:
                 whole = whole + q
@@ -353,7 +367,23 @@ class MeshPlacement:
         split, whole = both[0:1].clone(), both[1]
         if self.model_size > 1:
             dist.all_reduce(split, group=self.model_group)
-        return (split[0] + whole).sqrt()
+        return (split[0] + whole + rep).sqrt()
+
+    def sum_replicated_grads(self, names, grads) -> None:
+        """Sum, in place, the gradients ``grads`` of the LoRA leaves
+        ``names``, which every rank holds whole outside FSDP2 and whose
+        gradient each rank has from its rows of the batch and, over
+        ``model``, through its cut of the delta: over the batch's shards
+        (plain sums: each rank's loss is its rows' share of the global
+        loss), then over ``model`` for an adapter whose base weight the
+        model axis splits (one held whole there has the same gradient on
+        every model rank). One flat all-reduce a group."""
+        if self.batch_size > 1:
+            _sum_flat(grads, self.batch_group)
+        if self.model_size > 1:
+            _sum_flat([g for n, g in zip(names, grads)
+                       if model_dim(adapted_weight(n), 2) is not None],
+                      self.model_group)
 
     def full_tree(self, tree):
         """``full`` of every tensor of a ``TrainState.state_dict()``-like
@@ -366,6 +396,17 @@ class MeshPlacement:
                 return self.full(name, node)
             return node
         return walk(tree)
+
+
+def _sum_flat(tensors, group) -> None:
+    """All-reduce (sum) ``tensors`` over ``group`` in place, as one flat
+    buffer."""
+    if not tensors:
+        return
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
+        t.copy_(part.view_as(t))
 
 
 def _fully_shard(module, placement: MeshPlacement, names: Dict[int, str],
@@ -448,12 +489,6 @@ def place_modules(placement: MeshPlacement, modules) -> None:
         _fully_shard(modules["bridge"], placement, names)
 
 
-LORA_TRAINING = (
-    "training LoRA adapters under a mesh is not ported (ROADMAP.md, section "
-    "1): train them in one process; a system with adapters generates and "
-    "serves on any mesh (shard_module(..., train=False))")
-
-
 @torch.no_grad()
 def shard_module(system, mesh, *, train: bool = True) -> MeshPlacement:
     """Place ``system`` (a ``VauraSystem`` holding its whole weights, the
@@ -467,12 +502,12 @@ def shard_module(system, mesh, *, train: bool = True) -> MeshPlacement:
     ``train=False`` places a system that only generates: at ``fsdp`` 1 no
     module is sharded (every rank holds the whole weights, or over
     ``model`` its part, as JAX's ``param_shardings`` leaves every leaf whole
-    at ``fsdp = model = 1``), and LoRA adapters stay whole on every rank,
-    merged into this rank's part of each weight at each entry call
-    (``VauraSystem.lora_merged``). A system with adapters that will be
-    trained raises ``NotImplementedError``."""
-    if train and system.lora_sampler is not None:
-        raise NotImplementedError(LORA_TRAINING)
+    at ``fsdp`` = ``model`` = 1). LoRA adapters stay whole on every rank,
+    as JAX's specs leave them, and merge into this rank's part of each
+    weight (``VauraSystem.lora_merged``): once a generation call into the
+    gathered weights, or in training at each use into the block's
+    all-gathered weight. Their gradients are summed over the mesh by
+    ``MeshPlacement.sum_replicated_grads``."""
     placement = MeshPlacement(mesh, system.sampler_config,
                               shards=train or mesh.size(1) > 1)
     place_modules(placement, {"sampler": system.sampler,

@@ -160,14 +160,18 @@ def run_eval(cfg: dict):
     and returns the report. Without the two directories it prints where
     the metrics come from and returns None. The device is the config's
     (``config_device``), resolved first: without CUDA and without
-    ``trainer.platform`` the action raises."""
+    ``trainer.platform`` the action raises. In a run of several processes
+    every rank computes the report on its own card, and rank 0 alone
+    prints."""
+    from vaura_tpu_torch.parallel.multihost import is_main_process
     from vaura_tpu_torch.scripts.generate import config_device
 
     device = config_device(cfg)
+    say = print if is_main_process() else (lambda *a: None)
     gen_dir = cfg.get("generated_dir") or cfg.get("output_dir")
     ref_dir = cfg.get("reference_dir")
     if not (gen_dir and ref_dir):
-        print(
+        say(
             "eval: pass generated_dir=... reference_dir=... for the "
             "in-repo objective metrics (vaura_tpu_torch/scripts/"
             "eval_metrics.py), or use an external FAD/KLD framework as the "
@@ -179,7 +183,7 @@ def run_eval(cfg: dict):
         embedder=str(cfg.get("embedder", "melstats")),
         embedder_ckpt=cfg.get("embedder_ckpt"), device=device,
     )
-    print(json.dumps(report["mean"], indent=2))
+    say(json.dumps(report["mean"], indent=2))
     return report
 
 

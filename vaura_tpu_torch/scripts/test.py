@@ -15,11 +15,10 @@ import logging
 
 from vaura_tpu_torch.data import get_datamodule_from_type
 from vaura_tpu_torch.scripts.generate import config_device
-from vaura_tpu_torch.scripts.train import init_system
+from vaura_tpu_torch.scripts.train import init_system, run_directory
 from vaura_tpu_torch.train.checkpoint import load_trainable_
 from vaura_tpu_torch.train.loop import Trainer
 from vaura_tpu_torch.train.steps import split_params
-from vaura_tpu_torch.utils.experiment import init_log_directory, save_hparams
 
 logger = logging.getLogger(__name__)
 
@@ -30,11 +29,8 @@ def test(cfg: dict) -> dict:
     trainer_cfg = cfg["trainer"]
     model_cfg = cfg["model"]
     device = config_device(cfg)
-    dirs = init_log_directory(
-        trainer_cfg.get("log_dir", "./logs"),
-        trainer_cfg.get("experiment_name", "test"),
-    )
-    save_hparams(dirs["experiment"], cfg)
+    dirs = run_directory(trainer_cfg,
+                         trainer_cfg.get("experiment_name", "test"), cfg)
 
     datamodule = get_datamodule_from_type(
         cfg["dataloader"]["dataset_type"], cfg["dataloader"]

@@ -14,13 +14,17 @@ out]``), so ``lora_a`` is ``[r, in]`` and ``lora_b`` ``[out, r]`` (JAX's
 equals the base model at step 0.
 
 ``merge_lora`` returns the merged weights; ``VauraSystem.lora_merged``
-installs them on the sampler's ``PDense`` layers for one entry call, so a
-decode loop reads them without recomputing the products at each step, and
-gradients reach the adapters through them in ``train_forward``.
+installs them on the sampler's ``PDense`` layers for one generation call,
+so a decode loop reads them without recomputing the products at each
+step. A call that records a graph, or whose weights are FSDP2 shards,
+gets each layer's ``merged_weight`` as its ``adapter`` instead: the layer
+merges at each use, from the weight its module holds then (under FSDP2 the
+block's gathered weight), and gradients reach the adapters through it.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -83,16 +87,26 @@ def lora_pairs(lora: nn.Module) -> Dict[str, LoraPair]:
             if isinstance(m, LoraPair)}
 
 
-def merge_lora(sampler: nn.Module, lora: nn.Module,
-               alpha: Optional[float] = None,
-               cut: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None
-               ) -> Dict[str, torch.Tensor]:
-    """``{name: W + (alpha / r) * lora_b @ lora_a}`` in ``W``'s dtype for
-    every adapted layer of ``sampler``; ``alpha`` defaults to the rank
-    (scale 1). ``cut(name, delta)``, when given, takes the part of each
-    whole delta that ``W`` holds (a rank's rows or columns under a model
-    axis). Raises ``ValueError`` on an int8 layer: the adapters cannot be
-    merged into int8 weights."""
+def merged_weight(W: torch.Tensor, pair: LoraPair, alpha: Optional[float],
+                  cut: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                  ) -> torch.Tensor:
+    """``W + (alpha / r) * lora_b @ lora_a`` in ``W``'s dtype; ``alpha``
+    defaults to the rank (scale 1). ``cut(delta)``, when given, takes the
+    part of the whole delta that ``W`` holds (a rank's rows or columns
+    under a model axis)."""
+    rank = pair.lora_a.shape[0]
+    scale = (alpha if alpha is not None else float(rank)) / float(rank)
+    delta = (pair.lora_b @ pair.lora_a) * scale
+    if cut is not None:
+        delta = cut(delta)
+    return W + delta.to(W.dtype)
+
+
+def adapted_layers(sampler: nn.Module, lora: nn.Module
+                   ) -> Dict[str, Tuple[PDense, LoraPair]]:
+    """``{name: (PDense, LoraPair)}`` of every adapted layer of
+    ``sampler``. Raises ``ValueError`` on an int8 layer: the adapters
+    cannot be merged into int8 weights."""
     out = {}
     for name, pair in lora_pairs(lora).items():
         dense = sampler.get_submodule(name)
@@ -101,14 +115,21 @@ def merge_lora(sampler: nn.Module, lora: nn.Module,
                 f"LoRA adapters cannot be merged into int8 weights ({name}): "
                 "generate without quantize, or merge the adapters into the "
                 "float weights before quantizing")
-        W = dense.weight
-        rank = pair.lora_a.shape[0]
-        scale = (alpha if alpha is not None else float(rank)) / float(rank)
-        delta = (pair.lora_b @ pair.lora_a) * scale
-        if cut is not None:
-            delta = cut(name, delta)
-        out[name] = W + delta.to(W.dtype)
+        out[name] = (dense, pair)
     return out
+
+
+def merge_lora(sampler: nn.Module, lora: nn.Module,
+               alpha: Optional[float] = None,
+               cut: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None
+               ) -> Dict[str, torch.Tensor]:
+    """``{name: merged_weight(W, ...)}`` for every adapted layer of
+    ``sampler`` (``adapted_layers``); ``cut(name, delta)`` as
+    ``merged_weight``'s, given the layer's name."""
+    return {name: merged_weight(
+                dense.weight, pair, alpha,
+                None if cut is None else functools.partial(cut, name))
+            for name, (dense, pair) in adapted_layers(sampler, lora).items()}
 
 
 def count_lora_params(lora: nn.Module) -> int:

@@ -41,7 +41,9 @@ made ``zeros_like`` them), and the update runs on each rank's local shards.
 A sharded leaf keeps its global shape, so the rank of the decay quirk is
 the whole leaf's. Global-norm clipping takes the norm over every shard of
 every leaf (``MeshPlacement.global_norm``), as optax's
-``clip_by_global_norm`` does over the whole tree. ``state_dict`` gathers
+``clip_by_global_norm`` does over the whole tree. LoRA adapters are plain
+tensors beside the shards, whole on every rank (and so are their moments),
+and count once in that norm. ``state_dict`` gathers
 every leaf whole and ``load_state_dict`` takes whole leaves, so a
 checkpoint is the one-process checkpoint whatever the mesh.
 """
@@ -156,6 +158,7 @@ class Optimizer:
                params: Params, placement=None) -> None:
         names = list(params)
         labels = param_labels(params)  # on the whole leaves' ranks
+        replicated = replicated_leaves(params)
         mu_of, nu_of, acc_of = state.mu, state.nu, state.acc
         if placement is not None:  # the local shards of every leaf
             params = {k: _local(v) for k, v in params.items()}
@@ -182,7 +185,8 @@ class Optimizer:
             elif self.gradient_clip_algorithm == "norm":
                 norm = (torch.linalg.vector_norm(
                     torch.stack(torch._foreach_norm(g)))
-                    if placement is None else placement.global_norm(names, g))
+                    if placement is None else
+                    placement.global_norm(names, g, replicated))
                 scale = torch.where(norm < clip, torch.ones_like(norm),
                                     clip / norm)
                 g = torch._foreach_mul(g, scale)
@@ -263,6 +267,13 @@ class Optimizer:
         torch._foreach_copy_(mu, m)
         torch._foreach_copy_(nu, v)
         return step
+
+
+def replicated_leaves(params: Params) -> frozenset:
+    """The names of the leaves of ``params`` that are not FSDP2 shards:
+    under a mesh, the LoRA adapters, whole on every rank."""
+    return frozenset(k for k, v in params.items()
+                     if not hasattr(v, "to_local"))
 
 
 def _local(t: torch.Tensor) -> torch.Tensor:

@@ -10,7 +10,10 @@ the state names the trainable ones.
 Under a mesh (``parallel.shard_module``) each rank steps on its rows of the
 batch (``batch_to_device(..., mesh=)``): its loss is its rows' share of the
 global loss, ``backward`` lets FSDP2 sum the gradients over the batch's
-shards (its hooks read ``.grad``), and the metrics are the whole batch's.
+shards (its hooks read ``.grad``), the LoRA adapters' gradients, which
+FSDP2 does not hold, are summed over the mesh
+(``MeshPlacement.sum_replicated_grads``), and the metrics are the whole
+batch's.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import numpy as np
 import torch
 
 from vaura_tpu_torch.models.vaura import VauraSystem
-from vaura_tpu_torch.train.state import TrainState
+from vaura_tpu_torch.train.state import TrainState, replicated_leaves
 
 
 def split_params(system: VauraSystem
@@ -111,7 +114,8 @@ def make_train_step(system: VauraSystem) -> Callable:
             vis_feats=batch.get("vis_feats"), codes=batch.get("codes"))
         mark("forward")
         names = list(state.params)
-        if system.placement is None:
+        pl = system.placement
+        if pl is None:
             grads = torch.autograd.grad(
                 loss, [state.params[k] for k in names], allow_unused=True)
         else:  # FSDP2 sums the shards' gradients into .grad
@@ -121,6 +125,9 @@ def make_train_step(system: VauraSystem) -> Callable:
         # decays), as in the JAX package
         grads = {k: torch.zeros_like(state.params[k]) if g is None else g
                  for k, g in zip(names, grads)}
+        if pl is not None:  # the LoRA adapters, outside FSDP2
+            rep = sorted(replicated_leaves(state.params))
+            pl.sum_replicated_grads(rep, [grads[k] for k in rep])
         mark("backward")
         state = state.apply_gradients(grads)
         if system.placement is not None:
