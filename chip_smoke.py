@@ -171,6 +171,18 @@ result line):
              rank. The dry run, both generate actions and the LoRA train
              action on the mesh run in one ``torchrun`` launch
              (``chip_smoke.py --rank-jobs``).
+ 17. bench   the benchmark entry points as a user runs them
+             (``vaura_tpu_torch.bench``'s ``main`` in this process, each
+             JSON line parsed): generate mode at its defaults (B=128, the
+             int8 cache, the DAC in bf16; its peak memory), ``--no-int8
+             --with-encoder`` (B=32), encoder mode with the int8 encoder,
+             long mode at B=8 over 5.12 s, train mode (B=12); exact launch
+             counts for the first four (the warm-up call and one timed
+             call each); the burst bench as a subprocess (16 requests at
+             batch 8, no error) and the codes precompute tool on the dummy
+             datamodule. Every value finite and positive under the JAX
+             bench's metric names, with the card's name
+             (``bench: {...}``).
 
 It prints the action runs' wall times and audio-s/s (``action: {...}``),
 the train action's runs (``train_action: {...}``),
@@ -179,7 +191,8 @@ mesh in ``mesh: {...}``), the
 finetune and generate runs' walls and peak memory (``finetune: {...}``),
 the eval action's walls and metrics (``eval: {...}``), the encoder
 variants' forwards, remat steps and card-vs-CPU errors
-(``encoder_variants: {...}``), the kernels JSON line, the card's name and power limit, and as its last
+(``encoder_variants: {...}``), the benchmark's numbers (``bench:
+{...}``), the kernels JSON line, the card's name and power limit, and as its last
 line ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``. It needs one CUDA card and exits non-zero
 without one.
@@ -1266,6 +1279,20 @@ def phase_int8(gen, report):
     return launches
 
 
+def _long_decode_steps(system, total, stride, max_tokens) -> int:
+    """Decode steps of ``generate_long`` (each of every layer): a chunk of n
+    tokens has S = n + 9 steps; the first starts at step 1, the others at
+    the step of the prompt's first timestep to generate (+ 1 for the BOS
+    row); the prompts go through ``prefill``."""
+    sizes = system.long_chunk_schedule(total, stride, max_tokens)
+    steps, prompt = 0, 0
+    for n_new in sizes:
+        S = system.prepare_generation(n_new + prompt)[2]
+        steps += S - (1 if prompt == 0 else prompt + 1)
+        prompt = max(0, n_new + prompt - stride)
+    return steps
+
+
 def phase_long(gen, report):
     """5.12 s (441 tokens) from frames [2, 8, 3, 16, 224, 224] at flagship
     width: ``generate_long`` at a stride of 55 tokens (chunks of 221 whose
@@ -1294,15 +1321,7 @@ def phase_long(gen, report):
                                             "tokens_per_frame")}
     problems, res = [], {}
 
-    # decode steps of generate_long: a chunk of n tokens has S = n + 9
-    # steps; the first starts at step 1, the others at the step of the
-    # prompt's first timestep to generate (+ 1 for the BOS row)
-    sizes = system.long_chunk_schedule(total, stride, max_tokens)
-    steps, prompt = 0, 0
-    for n_new in sizes:
-        S = system.prepare_generation(n_new + prompt)[2]
-        steps += S - (1 if prompt == 0 else prompt + 1)
-        prompt = max(0, n_new + prompt - stride)
+    steps = _long_decode_steps(system, total, stride, max_tokens)
     encoder_launches = {"encoder_attention": 2 * depth, "encoder_mlp": depth,
                         "grouped_cls_attention": 0,
                         "decode_attention_int8": 0}
@@ -4166,6 +4185,208 @@ def phase_mesh(gen, report):
     return total
 
 
+# ---------------------------------------------------------------------------
+# the benchmark entry points (vaura_tpu_torch.bench, the burst bench, the
+# codes precompute tool)
+BENCH_BURST = ["--config", SERVE_CONFIG, "--batch", "8", "--requests", "16",
+               "--concurrency", "16"]
+BENCH_BURST_TIMEOUT_S = 600
+BENCH_CODES = ["configs/experiments/dummy.yaml", "--split", "validation",
+               "--batch", "2", "--limit", "4"]
+
+
+def _bench_line(argv):
+    """``vaura_tpu_torch.bench.main(argv)`` in this process: its JSON line,
+    parsed from what it printed, and its ``#`` lines."""
+    import io
+
+    from vaura_tpu_torch import bench
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        bench.main(argv)
+    lines = buf.getvalue().splitlines()
+    results = [ln for ln in lines if ln.startswith("{")]
+    if len(results) != 1:
+        raise AssertionError(f"bench {argv}: {len(results)} JSON lines in "
+                             f"{lines}")
+    return json.loads(results[0]), [ln for ln in lines if ln.startswith("#")]
+
+
+def _positive(tag, line, keys, problems):
+    for k in keys:
+        v = line.get(k)
+        if not (isinstance(v, (int, float)) and math.isfinite(v) and v > 0):
+            problems.append(f"{tag}: {k} = {v!r}, not finite and > 0")
+
+
+def phase_bench(gen, report):
+    """The benchmark as a user runs it (``python -m vaura_tpu_torch.bench``,
+    here ``bench.main(argv)`` in this process, each JSON line parsed): (a)
+    generate mode at its defaults (B=128, the int8 cache over bf16 weights,
+    the DAC in bf16) with its peak memory; (b) ``--no-int8 --with-encoder``
+    (B=32, frames through the fused encoder); (c) encoder mode with the int8
+    encoder (B = 1, 8, 16, 32); (d) long mode at B=8 over 5.12 s (int8
+    weights and cache); (e) train mode (B=12, 2 timed steps); each with
+    ``--iters 1`` but train, its counters zeroed before and read after,
+    exact launch counts for (a) to (d). Then (f) the burst bench as a
+    subprocess (the server it starts is another), 16 requests at batch 8 and
+    concurrency 16, and (g) the codes precompute tool on the dummy
+    datamodule, its files checked as the CPU test checks them. Every value
+    finite and positive, under the JAX bench's metric names, with the card's
+    name beside it."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vaura_tpu_torch.flagship import GENERATE_KW, flagship_system
+    from vaura_tpu_torch.models.motionformer import MotionFormerConfig
+    from vaura_tpu_torch.models.sampler import SamplerConfig
+
+    name = report["device"]
+    res, problems, total = {}, [], {}
+    layers, depth = SamplerConfig().num_layers, MotionFormerConfig().depth
+    # the decode steps of a generation and of 5.12 s at a 0.64 s stride
+    # (tables only: a system without weights, on the host)
+    probe = flagship_system("cpu", None, sampler_layers=1, encoder=False)
+    steps = probe.prepare_generation(GENERATE_KW["max_new_tokens"])[2] - 1
+    long_steps = _long_decode_steps(probe, int(5.12 * 86), int(0.64 * 86),
+                                    GENERATE_KW["max_new_tokens"])
+    del probe
+    runs = (
+        ("a_generate", ["--iters", "1"],
+         "audio_sec_per_sec_per_chip",
+         {"decode_attention_int8": 2 * layers * steps}),
+        ("b_generate_encoder", ["--no-int8", "--with-encoder", "--iters", "1"],
+         "frames_to_audio_sec_per_sec_per_chip",
+         {"decode_attention": 2 * layers * steps,
+          "encoder_attention": 2 * 2 * depth, "encoder_mlp": 2 * depth}),
+        ("c_encoder", ["--mode", "encoder", "--int8-encoder", "--iters", "1"],
+         "encoder_ms_per_clip", {"grouped_cls_attention": 8 * 2 * depth}),
+        ("d_long", ["--mode", "long", "--batch", "8", "--duration", "5.12",
+                    "--iters", "1"], "long_audio_sec_per_sec_per_chip",
+         {"decode_attention_int8": 2 * layers * long_steps}),
+        ("e_train", ["--mode", "train", "--iters", "2"],
+         "train_codec_tokens_per_sec_per_chip", {}),
+    )
+    for tag, argv, metric, want in runs:
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counters()
+        t0 = time.time()
+        try:
+            line, notes = _bench_line(argv)
+        except Exception as e:  # the other runs go on; the phase fails
+            problems.append(f"{tag}: {type(e).__name__}: {e}")
+            traceback.print_exc()
+            continue
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = _counters()
+        res[tag] = {"argv": argv, "line": line, "notes": notes,
+                    "wall_s": wall, "launches": launches,
+                    "expected_launches": want, "form_launches": _form_counts(),
+                    "held_gib": held / 2 ** 30,
+                    "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        log(f"[bench] {tag}: {json.dumps(line)}; wall {wall:.1f} s, peak "
+            f"{res[tag]['peak_mem_gib']:.2f} GiB ({held / 2 ** 30:.2f} held "
+            f"before), launches {launches}")
+        for note in notes:
+            log(f"[bench] {tag} {note}")
+        if line.get("metric") != metric:
+            problems.append(f"{tag}: metric {line.get('metric')!r}")
+        if name not in str(line.get("device")):
+            problems.append(f"{tag}: device {line.get('device')!r}")
+        _positive(tag, line, ["value"] + (["mfu"] if tag == "e_train" else []),
+                  problems)
+        if tag == "c_encoder":
+            _positive(tag, line["sweep"], list(line["sweep"]), problems)
+        if _differs(launches, want):
+            problems.append(f"{tag}: launches {launches}, expected {want}")
+
+    # (f) the burst bench, as a user starts it
+    from vaura_tpu_torch.dryrun import _free_port
+
+    port = _free_port()
+    cmd = [sys.executable, "-m", "vaura_tpu_torch.scripts.burst_bench",
+           *BENCH_BURST, "--port", str(port)]
+    t0 = time.time()
+    try:
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=BENCH_BURST_TIMEOUT_S)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        if proc.returncode != 0 or len(lines) != 1:
+            log_path = os.path.join(tempfile.gettempdir(),
+                                    f"burst_serve_{port}.log")
+            tail = ""
+            if os.path.exists(log_path):
+                with open(log_path) as f:
+                    tail = f.read()[-3000:]
+            raise AssertionError(f"exit {proc.returncode}: {proc.stderr[-2000:]}"
+                                 f"\nserver log: {tail}")
+        line = json.loads(lines[0])
+        res["f_burst"] = {"argv": BENCH_BURST, "line": line,
+                          "wall_s": time.time() - t0}
+        log(f"[bench] f_burst: {json.dumps(line)}; wall "
+            f"{res['f_burst']['wall_s']:.1f} s")
+        if line["errors"] != 0 or line["requests"] != 16:
+            problems.append(f"f_burst: {line['requests']} requests answered, "
+                            f"{line['errors']} errors")
+        if name not in str(line.get("device")):
+            problems.append(f"f_burst: device {line.get('device')!r}")
+        _positive("f_burst", line, ["audio_sec_per_s", "req_per_s", "p50_s",
+                                    "p95_s", "first_request_s"], problems)
+    except Exception as e:  # noqa: BLE001 — recorded, the phase fails
+        problems.append(f"f_burst: {type(e).__name__}: {e}")
+
+    # (g) the codes precompute tool on the dummy datamodule
+    from vaura_tpu_torch.scripts import precompute_codes
+
+    out = tempfile.mkdtemp(prefix="bench_codes_")
+    t0 = time.time()
+    try:
+        n, dirs = precompute_codes.main([os.path.join(ROOT, BENCH_CODES[0]),
+                                         *BENCH_CODES[1:], "--out", out])
+        files = sorted(f for f in os.listdir(out) if f.endswith(".codes.npy"))
+        codes = [np.load(os.path.join(out, f)) for f in files]
+        res["g_precompute"] = {"argv": BENCH_CODES, "files": files,
+                               "shapes": [list(c.shape) for c in codes],
+                               "wall_s": time.time() - t0}
+        log(f"[bench] g_precompute: {res['g_precompute']}")
+        if n != 4 or files != [f"{i}.codes.npy" for i in range(4)]:
+            problems.append(f"g_precompute: {n} files {files}")
+        for f, c in zip(files, codes):
+            if not (c.dtype == np.int16 and c.shape == (3, 48)
+                    and 0 <= c.min() and c.max() < 16):
+                problems.append(f"g_precompute: {f} {c.dtype} {c.shape} "
+                                f"in [{c.min()}, {c.max()}]")
+    except Exception as e:  # noqa: BLE001 — recorded, the phase fails
+        problems.append(f"g_precompute: {type(e).__name__}: {e}")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+    report["bench"] = res
+    print("bench: " + json.dumps({
+        tag: {**{k: r["line"].get(k) for k in (
+            "metric", "value", "batch", "quant_mode", "mfu", "sweep",
+            "p50_batch_seconds", "p50_s", "p95_s", "req_per_s",
+            "audio_sec_per_s") if k in r.get("line", {})},
+              "wall_s": r["wall_s"],
+              **({"peak_mem_gib": r["peak_mem_gib"]} if "peak_mem_gib" in r
+                 else {})}
+        for tag, r in res.items() if "line" in r}), flush=True)
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return total
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--rank"]:  # a rank of the mesh phase's torchrun
         return rank_main(sys.argv[2], sys.argv[3:])
@@ -4243,6 +4464,7 @@ def main() -> int:
     quant_launches = run("quant_modes", phase_quant_modes, gen, report) or {}
     run("quant_quality", phase_quant_quality, gen, report)
     mesh_launches = run("mesh", phase_mesh, gen, report) or {}
+    bench_launches = run("bench", phase_bench, gen, report) or {}
     if (report.get("finetune") or {}).get("tmp"):  # L's experiment
         import shutil
 
@@ -4253,8 +4475,9 @@ def main() -> int:
     # the int8 decode kernel, the three training steps for the grouped
     # attention, the generate action's three runs and the server's
     # requests, the finetune runs, and the encoder variants' generation
-    # (decode attention) and int8 encoder (grouped attention), and the last
-    # sampler modes (the int4 and int8 x int8 decode kernels)
+    # (decode attention) and int8 encoder (grouped attention), the last
+    # sampler modes (the int4 and int8 x int8 decode kernels), and the
+    # benchmark's runs in this process
     for entry in kernels:
         name = entry["name"]
         entry["launches"] = (
@@ -4266,7 +4489,8 @@ def main() -> int:
             + finetune_launches.get(name, 0)
             + variant_launches.get(name, 0)
             + quant_launches.get(name, 0)
-            + mesh_launches.get(name, 0))
+            + mesh_launches.get(name, 0)
+            + bench_launches.get(name, 0))
     report["kernels"] = kernels
     report["failed"] = failed
     os.makedirs(OUT_DIR, exist_ok=True)

@@ -1,5 +1,7 @@
 """Rules of the PyTorch port that no parity test sees: it imports nothing
-of JAX, and its entry points never fall back to the CPU unasked."""
+of JAX, nor the JAX package's root tools (``scripts``, ``bench.py``,
+``main.py``, ``demo.py``), and its entry points never fall back to the CPU
+unasked."""
 
 import ast
 from pathlib import Path
@@ -8,7 +10,8 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "vaura_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "vaura_tpu",
+             "scripts", "bench", "main", "demo")
 
 
 def _port_files():
@@ -120,6 +123,8 @@ def test_generate_entry_point_loads_nothing_of_jax_or_yaml():
     code = ("import sys\n"
             "import vaura_tpu_torch.main, vaura_tpu_torch.scripts.generate\n"
             "import vaura_tpu_torch.scripts.serve\n"
+            "import vaura_tpu_torch.bench, vaura_tpu_torch.scripts.burst_bench\n"
+            "import vaura_tpu_torch.scripts.precompute_codes\n"
             "import vaura_tpu_torch.data.vggsound, vaura_tpu_torch.models.convert\n"
             "from vaura_tpu_torch.config import registry\n"
             "registry.ensure_aliases()\n"
@@ -314,3 +319,27 @@ def test_mesh_serving_modules_are_covered_and_need_a_device(monkeypatch):
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True)
     assert r.returncode == 0, r.stderr
+
+
+def test_benchmark_modules_are_covered_and_need_a_device(monkeypatch,
+                                                         tmp_path):
+    """The benchmark (``bench.py``), the burst bench, its client and the
+    codes precompute tool are under the import rule above, load nothing of
+    JAX, PyYAML or the JAX package's root tools (the import check of
+    ``test_generate_entry_point_loads_nothing_of_jax_or_yaml``), and run on
+    the card unless the CPU is asked: without CUDA they raise before writing
+    anything."""
+    names = {str(f.relative_to(ROOT)) for f in _port_files()}
+    for mod in ("bench.py", "scripts/burst_bench.py", "scripts/client.py",
+                "scripts/precompute_codes.py"):
+        assert f"vaura_tpu_torch/{mod}" in names, mod
+    from vaura_tpu_torch import bench
+    from vaura_tpu_torch.scripts import precompute_codes
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bench.main(["--iters", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        precompute_codes.main([str(ROOT / "configs/experiments/dummy.yaml"),
+                               "--out", str(tmp_path / "codes")])
+    assert not any(tmp_path.iterdir())

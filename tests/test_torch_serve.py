@@ -360,11 +360,14 @@ def test_batch_buckets(server):
     assert 0 < _metrics(base)["vaura_batch_fill_ratio"] <= 1
 
 
-def test_client_library(server):
-    """The JAX package's client drives every endpoint of the port's
-    server: the wire format is shared."""
-    from scripts import client
+@pytest.mark.parametrize("client_module", ["scripts.client",
+                                           "vaura_tpu_torch.scripts.client"])
+def test_client_library(server, client_module):
+    """The JAX package's client and the port's copy of it drive every
+    endpoint of the port's server: the wire format is shared."""
+    import importlib
 
+    client = importlib.import_module(client_module)
     base, service = server
     assert client.health(base)["status"] == "ok"
     rng = np.random.default_rng(11)
@@ -377,6 +380,61 @@ def test_client_library(server):
     stream = b"".join(client.generate_long_stream(base, seg))
     assert stream[:4] == b"RIFF"
     assert (len(stream) - 44) // 2 == service.stream_tokens * 8
+
+
+def test_port_client_loadtest(server):
+    from vaura_tpu_torch.scripts import client
+
+    base, service = server
+    feats = np.zeros((4, service.cond_dim), np.float32)
+    stats = client.loadtest(base, feats, n_requests=4, concurrency=2)
+    assert stats["requests"] == 4 and stats["errors"] == 0
+    assert list(stats) == ["requests", "errors", "wall_s", "req_per_s",
+                           "p50_s", "p90_s", "p95_s", "p99_s", "mean_s"]
+    assert 0 < stats["p50_s"] <= stats["p95_s"] <= stats["p99_s"]
+
+
+# the keys of the JSON line of scripts/burst_bench.py (the load test's
+# ``requests`` overwrites the burst's, in the burst's place)
+BURST_KEYS = ["mode", "batch", "requests", "concurrency", "health_after_s",
+              "first_request_s", "audio_sec_per_s", "errors", "wall_s",
+              "req_per_s", "p50_s", "p90_s", "p95_s", "p99_s", "mean_s"]
+
+
+def test_burst_bench_measure(server):
+    """``burst_bench.measure`` against a running server: JAX's keys, the
+    burst answered whole, the device the server runs on."""
+    from vaura_tpu_torch.scripts import burst_bench
+
+    base, service = server
+    args = burst_bench.build_parser().parse_args(
+        ["--config", "configs/experiments/dummy.yaml", "--batch", "2",
+         "--requests", "4", "--concurrency", "2", "--duration", "0.15"])
+    out = burst_bench.measure(base, args, t_health=1.0)
+    assert list(out) == BURST_KEYS + ["device"]
+    assert out["requests"] == 4 and out["errors"] == 0
+    assert out["mode"] == "bf16" and out["batch"] == 2
+    assert out["health_after_s"] == 1.0 and out["first_request_s"] > 0
+    assert out["audio_sec_per_s"] == round(out["req_per_s"] * service.duration, 2)
+    assert out["device"] == "cpu"
+
+
+def test_burst_bench_server_command():
+    """The burst bench starts the port's server with the keys
+    ``scripts/burst_bench.py`` gives ``scripts/serve.py``."""
+    from vaura_tpu_torch.scripts import burst_bench
+
+    args = burst_bench.build_parser().parse_args(
+        ["--config", "configs/generate_vgg.yaml", "--batch", "8", "--port",
+         "8123", "--quantize", "cache", "--extra", "batch_buckets=1,8",
+         "trainer.platform=cpu"])
+    cmd = burst_bench.server_command(args)
+    assert cmd == [sys.executable, "-m", "vaura_tpu_torch",
+                   "config=configs/generate_vgg.yaml", "action=serve",
+                   "port=8123", "batch=8", "duration=2.56", "quantize=cache",
+                   "batch_buckets=1,8", "trainer.platform=cpu"]
+    args.quantize = None
+    assert "quantize=false" in burst_bench.server_command(args)
 
 
 @pytest.mark.parametrize("buckets,batch", [

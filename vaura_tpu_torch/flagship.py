@@ -43,7 +43,7 @@ from typing import Optional
 
 import torch
 
-from vaura_tpu_torch.models.dac.model import config_for_sample_rate
+from vaura_tpu_torch.models.dac.model import DacConfig, config_for_sample_rate
 from vaura_tpu_torch.models.motionformer import MotionFormer, MotionFormerConfig
 from vaura_tpu_torch.models.sampler import Sampler, SamplerConfig
 from vaura_tpu_torch.models.vaura import VauraSystem
@@ -78,7 +78,9 @@ def flagship_system(device: DeviceLike = None,
                     training: bool = False,
                     sampler_overrides: Optional[dict] = None,
                     encoder_overrides: Optional[dict] = None,
-                    quantize_encoder: bool = False) -> VauraSystem:
+                    quantize_encoder: bool = False,
+                    dac_config: Optional[DacConfig] = None,
+                    encoder: bool = True) -> VauraSystem:
     """The flagship system; ``sampler_layers``/``encoder_depth`` cut depth
     only and the ``*_overrides`` replace fields of the two configurations
     (``{"remat": True}``, dropout rates, the encoder's ``attn_layer``).
@@ -87,7 +89,10 @@ def flagship_system(device: DeviceLike = None,
     ``load_state_dicts``. ``quantize_encoder`` makes the int8 encoder
     (``MotionFormerConfig.quantize``) from the seeded bf16 weights, as
     ``sampler_overrides={"quantize_weights": True}`` makes the int8
-    sampler. See the module docstring for ``training``."""
+    sampler. ``dac_config`` replaces the 44.1 kHz codec's configuration
+    (the benchmark decodes in bf16); ``encoder=False`` leaves the visual
+    encoder out, and the system then takes features. See the module
+    docstring for ``training``."""
     store = torch.float32 if training else torch.bfloat16
     s_cfg = dataclasses.replace(SamplerConfig(), param_dtype=store,
                                 **(sampler_overrides or {}))
@@ -102,7 +107,9 @@ def flagship_system(device: DeviceLike = None,
         if training:
             raise ValueError("int8 weights are for inference")
         s_cfg = dataclasses.replace(s_cfg, quantize_weights=False)
-    system = VauraSystem(s_cfg, config_for_sample_rate(44100), e_cfg,
+    system = VauraSystem(s_cfg, dac_config or config_for_sample_rate(44100),
+                         e_cfg if encoder else None,
+                         use_visual_conditioning=encoder,
                          freeze_feature_extractor=False, device=device)
     if generator is not None:
         seeded_init_(system, generator)

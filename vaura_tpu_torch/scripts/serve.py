@@ -9,7 +9,7 @@ Endpoints::
 
     GET  /healthz            -> {"status": "ok"|"draining", "batch": B,
                                  "mesh": {"data", "fsdp", "model"} | null,
-                                 ...}
+                                 "device": "cuda"|"cpu", ...}
     GET  /metrics            -> Prometheus counters (requests, batches,
                                 fill ratio, latency avg, inflight, mesh)
     POST /generate           body: {"features": [[...cond_dim floats...] x Tv]}
@@ -1150,6 +1150,7 @@ def make_handler(service: GenerationService):
                     "cond_dim": service.cond_dim,
                     "ckpt_path": service.ckpt_path,
                     "mesh": service.mesh_shape,
+                    "device": service.system.device.type,
                 }
                 self._reply(200, json.dumps(info).encode())
             else:
