@@ -93,6 +93,20 @@ result line):
              service's config under ``torchrun``. Launch counters zeroed
              after each service's warm-up; the direct generations that
              check the server are not counted.
+ 10b. aot   serving from exported graphs as a user runs it: the server of
+             ``configs/experiments/flagship_smoke.yaml`` (flagship, seeded
+             weights, batch 8, 2.56 s) started with ``aot_export=`` with
+             the bf16 cache and with ``quantize=cache`` (the warm-up, then
+             ``torch.export`` of the prologue, the device-position decode
+             step and the epilogue, timed), one eager batch of seeded
+             features through ``_generate``; the served state saved once;
+             then a fresh process (``chip_smoke.py --aot-load``) that
+             imports nothing of ``vaura_tpu_torch.models`` loads the state
+             and each artifact and answers the same batch and seed (bf16
+             twice): its codes equal to the eager server's, the mode's decode
+             kernel launched 24 x 228 times an answer, 24 decode-attention
+             operators in the exported step, the artifact under 1% of the
+             state's bytes (``aot: {...}``);
  11. finetune the finetune action as a user runs it (``action=finetune``
              on ``configs/experiments/flagship_smoke.yaml``, seeded random
              weights): L trains LoRA adapters of rank 8 for 3 steps from a
@@ -187,7 +201,8 @@ result line):
 It prints the action runs' wall times and audio-s/s (``action: {...}``),
 the train action's runs (``train_action: {...}``),
 the server's burst, stream and request times (``serve: {...}``; on the
-mesh in ``mesh: {...}``), the
+mesh in ``mesh: {...}``), the export, load and batch times of the exported
+graphs (``aot: {...}``), the
 finetune and generate runs' walls and peak memory (``finetune: {...}``),
 the eval action's walls and metrics (``eval: {...}``), the encoder
 variants' forwards, remat steps and card-vs-CPU errors
@@ -4188,6 +4203,231 @@ def phase_mesh(gen, report):
 # ---------------------------------------------------------------------------
 # the benchmark entry points (vaura_tpu_torch.bench, the burst bench, the
 # codes precompute tool)
+AOT_CONFIG = "configs/experiments/flagship_smoke.yaml"
+# the server of AOT_CONFIG (the flagship, seeded weights, its default batch
+# of 8 and 2.56 s) with the bf16 cache and with quantize=cache: the mode's
+# tag, its overrides and the decode kernel its steps launch
+AOT_MODES = (("bf16", [], "decode_attention"),
+             ("cache", ["quantize=cache"], "decode_attention_int8"))
+AOT_TIMEOUT_S = 400
+
+
+def _decode_kernel_counts(da) -> dict:
+    """The decode kernels' counts of ``launch_counts`` from the wrapper
+    module alone (the aot process imports nothing of the models)."""
+    return {"decode_attention": da.launches - da.int8_launches
+            - da.int4_launches - da.int8_dots_launches,
+            "decode_attention_int8": da.int8_launches}
+
+
+def aot_load_main(out) -> int:
+    """``chip_smoke.py --aot-load OUT``: a fresh process that answers from
+    the ``aot`` phase's artifacts without the model code. It loads
+    ``OUT/state.pt`` onto the card, then for each mode ``OUT/<tag>.pt2``
+    (``load_generate``), and answers ``OUT/feats.npy`` with seed 0: the
+    first mode twice (its first answer pays the process's first launches),
+    the others once, each after the first a batch wall; the first answer's
+    seconds counted from the start of the loads; the decode kernels'
+    counters zeroed before each answer and read after it. Writes
+    ``OUT/<tag>_aot_codes.npy`` and
+    ``OUT/aot_load.json``; fails if ``vaura_tpu_torch.models`` or JAX was
+    imported."""
+    t_start = time.time()
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from vaura_tpu_torch.ops import decode_attention as da
+    from vaura_tpu_torch.utils.aot import load_generate
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as main() sets it
+    res = {"import_s": time.time() - t_start}
+    t0 = time.time()
+    state = {k: v.to("cuda") for k, v in torch.load(
+        os.path.join(out, "state.pt"), weights_only=True, mmap=True).items()}
+    feats = torch.from_numpy(np.load(os.path.join(out, "feats.npy"))).cuda()
+    torch.cuda.synchronize()
+    res["state_load_s"] = time.time() - t0
+    for tag, _, _ in AOT_MODES:
+        r = res[tag] = {}
+        t1 = time.time()
+        fn, meta = load_generate(os.path.join(out, f"{tag}.pt2"))
+        r["artifact_load_s"] = time.time() - t1
+        r["answers"] = 2 if tag == AOT_MODES[0][0] else 1
+        for i in range(r["answers"]):
+            _zero_counters()
+            t2 = time.time()
+            audio, codes = fn(state, feats, 0)
+            codes = codes.cpu().numpy()
+            finite = bool(torch.isfinite(audio).all())
+            r[f"answer{i}_s"] = time.time() - t2
+            r[f"launches{i}"] = _decode_kernel_counts(da)
+            r[f"forms{i}"] = dict(da.form_launches)
+        r["load_to_first_answer_s"] = (r["artifact_load_s"] + r["answer0_s"]
+                                       + (res["state_load_s"]
+                                          if tag == AOT_MODES[0][0] else 0.0))
+        r["audio_finite"], r["meta_device"] = finite, meta["device_name"]
+        np.save(os.path.join(out, f"{tag}_aot_codes.npy"), codes)
+    res["modules_loaded"] = sorted(
+        m for m in sys.modules if m.startswith("vaura_tpu_torch.models")
+        or m.split(".")[0] in ("jax", "vaura_tpu"))
+    with open(os.path.join(out, "aot_load.json"), "w") as f:
+        json.dump(res, f)
+    return 1 if res["modules_loaded"] else 0
+
+
+def phase_aot(gen, report):
+    """Serving from exported graphs (``utils/aot.py``) as a user runs it:
+    the server of ``AOT_CONFIG`` started with ``aot_export=`` in each mode
+    of ``AOT_MODES`` (``GenerationService``: the warm-up, then the export
+    of its three programs, timed), one eager batch of seeded features
+    through ``_generate`` with seed 0 (its codes, wall and launches); the
+    served state saved once to a ``state.pt``; then a fresh process
+    (``chip_smoke.py --aot-load``) loads the state and each artifact and
+    answers the same batch and seed without importing the model code (the
+    first mode twice, the warm second answer its batch wall). Held:
+    the aot codes equal the eager server's in both modes; the exported step
+    holds the decode-attention operator once per layer; each aot answer
+    launches the mode's decode kernel layers x steps times, and so does the
+    eager batch; the artifact under 1% of the state's bytes. Printed
+    (``aot: {...}``, beside the card's name and power limit): export
+    seconds, artifact and state bytes, the load-to-first-answer seconds and
+    the batch wall, aot against eager. Returns the counted launches (the
+    eager batches' and the aot answers')."""
+    import io
+    import shutil
+    import tempfile
+    import zipfile
+
+    import numpy as np
+    import torch
+
+    from vaura_tpu_torch.main import get_config
+    from vaura_tpu_torch.scripts.serve import GenerationService
+    from vaura_tpu_torch.utils.aot import serving_state
+
+    res, problems, total = {}, [], {}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip().splitlines()
+    res["card"] = smi[0] if smi else report["device"]
+    tmp = tempfile.mkdtemp(prefix="aot_")
+    try:
+        feats = None
+        for tag, extra, kernel in AOT_MODES:
+            r = res[tag] = {}
+            art = os.path.join(tmp, f"{tag}.pt2")
+            cfg = get_config([f"config={os.path.join(ROOT, AOT_CONFIG)}",
+                              "action=serve", *extra, f"aot_export={art}"])
+            t0 = time.time()
+            service = GenerationService(cfg)
+            service.start()
+            r["start_s"] = time.time() - t0
+            r["export_s"] = service.aot_export_s
+            layers = service.system.sampler_config.num_layers
+            want = layers * _decode_steps(service, service.tokens)
+            if feats is None:
+                feats = np.random.default_rng(0).standard_normal(
+                    (service.batch, service.tv, service.cond_dim)
+                ).astype(np.float32)
+                np.save(os.path.join(tmp, "feats.npy"), feats)
+            torch.cuda.synchronize()
+            _zero_counters()
+            t0 = time.time()
+            with torch.no_grad():
+                out = service._generate(service._put_batch(feats), 0)
+            codes = out["codes"].cpu().numpy()
+            r["eager_batch_s"] = time.time() - t0
+            launches = _counters()
+            r["eager_launches"] = launches[kernel]
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            if launches[kernel] != want or sum(launches.values()) != want:
+                problems.append(f"{tag}: eager launches {launches}, expected "
+                                f"{want} of {kernel}")
+            np.save(os.path.join(tmp, f"{tag}_eager_codes.npy"), codes)
+            state = serving_state(service.system)
+            r["state_bytes"] = sum(t.numel() * t.element_size()
+                                   for t in state.values())
+            r["artifact_bytes"] = (os.path.getsize(art)
+                                   + os.path.getsize(art + ".json"))
+            if tag == AOT_MODES[0][0]:  # both modes serve these weights
+                t0 = time.time()
+                torch.save({k: v.cpu() for k, v in state.items()},
+                           os.path.join(tmp, "state.pt"))
+                r["state_save_s"] = time.time() - t0
+            # the operator's nodes in the serialized step graph
+            with zipfile.ZipFile(art) as zf, zipfile.ZipFile(
+                    io.BytesIO(zf.read("step.pt2"))) as inner:
+                graph = inner.read(next(n for n in inner.namelist()
+                                        if n.endswith("models/model.json")))
+            r["step_graph_ops"] = graph.count(
+                b'"target": "torch.ops.vaura_torch.decode_attention.default"')
+            if r["step_graph_ops"] != layers:
+                problems.append(f"{tag}: the exported step holds "
+                                f"{r['step_graph_ops']} decode-attention "
+                                f"operators, expected {layers}")
+            if not r["artifact_bytes"] < 0.01 * r["state_bytes"]:
+                problems.append(f"{tag}: artifact {r['artifact_bytes']} B, "
+                                f"not under 1% of {r['state_bytes']} B")
+            r["want_launches"] = want
+            service.close(timeout=30)
+            del service, state, out
+            torch.cuda.empty_cache()
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--aot-load", tmp], capture_output=True, text=True,
+            timeout=AOT_TIMEOUT_S)
+        res["process_s"] = time.time() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"the aot process exited {proc.returncode}:"
+                                 f"\n{proc.stderr[-4000:]}")
+        with open(os.path.join(tmp, "aot_load.json")) as f:
+            sub = json.load(f)
+        res["import_s"], res["state_load_s"] = (sub["import_s"],
+                                                sub["state_load_s"])
+        for tag, _, kernel in AOT_MODES:
+            r, s = res[tag], sub[tag]
+            last = s["answers"] - 1
+            r.update({k: s[k] for k in ("artifact_load_s", "answer0_s",
+                                        "load_to_first_answer_s")})
+            r["forms"] = s[f"forms{last}"]
+            r["aot_batch_s"] = s[f"answer{last}_s"]
+            r["aot_over_eager"] = r["aot_batch_s"] / r["eager_batch_s"]
+            eager = np.load(os.path.join(tmp, f"{tag}_eager_codes.npy"))
+            aot = np.load(os.path.join(tmp, f"{tag}_aot_codes.npy"))
+            r["codes_equal"] = bool(np.array_equal(eager, aot))
+            r["codes_differ"] = int((eager != aot).sum())
+            if not r["codes_equal"]:
+                problems.append(f"{tag}: aot codes differ from the eager "
+                                f"server's in {r['codes_differ']} tokens")
+            if not s["audio_finite"]:
+                problems.append(f"{tag}: aot audio not finite")
+            for i in range(s["answers"]):
+                got = s[f"launches{i}"]
+                total[kernel] = total.get(kernel, 0) + got[kernel]
+                if got[kernel] != r["want_launches"] or sum(
+                        got.values()) != r["want_launches"]:
+                    problems.append(f"{tag}: aot answer {i} launched {got}, "
+                                    f"expected {r['want_launches']} of "
+                                    f"{kernel}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    report["aot"] = res
+    print("aot: " + json.dumps(res), flush=True)
+    for tag, _, _ in AOT_MODES:
+        r = res.get(tag, {})
+        log(f"[aot] {tag}: export {r.get('export_s')} s, artifact "
+            f"{r.get('artifact_bytes')} B of state {r.get('state_bytes')} B, "
+            f"load to first answer {r.get('load_to_first_answer_s')} s, "
+            f"batch aot {r.get('aot_batch_s')} s vs eager "
+            f"{r.get('eager_batch_s')} s ({res['card']})")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return total
+
+
 BENCH_BURST = ["--config", SERVE_CONFIG, "--batch", "8", "--requests", "16",
                "--concurrency", "16"]
 BENCH_BURST_TIMEOUT_S = 600
@@ -4392,6 +4632,8 @@ def main() -> int:
         return rank_main(sys.argv[2], sys.argv[3:])
     if sys.argv[1:2] == ["--rank-jobs"]:
         return rank_jobs(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--aot-load"]:  # the aot phase's fresh process
+        return aot_load_main(sys.argv[2])
     try:
         import torch
     except ImportError as e:
@@ -4454,6 +4696,7 @@ def main() -> int:
     train_action_launches = run("train_action", phase_train_action, gen,
                                 report) or {}
     serve_launches = run("serve", phase_serve, gen, report) or {}
+    aot_launches = run("aot", phase_aot, gen, report) or {}
     finetune_launches = run("finetune", phase_finetune, gen, report) or {}
     if "finetune" in report:
         run("eval", phase_eval, gen, report)
@@ -4486,6 +4729,7 @@ def main() -> int:
                else 0) + action_launches.get(name, 0)
             + train_action_launches.get(name, 0)
             + serve_launches.get(name, 0)
+            + aot_launches.get(name, 0)
             + finetune_launches.get(name, 0)
             + variant_launches.get(name, 0)
             + quant_launches.get(name, 0)

@@ -343,3 +343,47 @@ def test_benchmark_modules_are_covered_and_need_a_device(monkeypatch,
         precompute_codes.main([str(ROOT / "configs/experiments/dummy.yaml"),
                                "--out", str(tmp_path / "codes")])
     assert not any(tmp_path.iterdir())
+
+
+def test_aot_and_host_tool_modules_are_covered_and_need_a_device(
+        monkeypatch, tmp_path):
+    """The exported serving graphs (``utils/aot.py``, the registered
+    decode-attention operator of ``kernels/ops.py``) and the host tools
+    (``scripts/convert_checkpoints.py``, ``generate_video.py``,
+    ``reencode_videos.py``, ``preprocess_greatest_hit.py``,
+    ``make_demo_assets.py``, ``io_overlap_bench.py``) are under the import
+    rule above and load nothing of JAX or PyYAML; the loader of an artifact
+    loads nothing of the models either. The loader and the overlap bench run
+    on the card unless the CPU is asked: without CUDA they raise before
+    reading or writing anything."""
+    names = {str(f.relative_to(ROOT)) for f in _port_files()}
+    tools = ("convert_checkpoints", "generate_video", "reencode_videos",
+             "preprocess_greatest_hit", "make_demo_assets",
+             "io_overlap_bench")
+    for mod in ("utils/aot.py", "kernels/ops.py",
+                *(f"scripts/{t}.py" for t in tools)):
+        assert f"vaura_tpu_torch/{mod}" in names, mod
+    from vaura_tpu_torch.scripts import io_overlap_bench
+    from vaura_tpu_torch.utils.aot import load_generate
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_generate(tmp_path / "missing.pt2")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        io_overlap_bench.main(["--tiny"])
+    assert not any(tmp_path.iterdir())
+    import subprocess
+    import sys
+
+    for imports, extra in (
+            (["vaura_tpu_torch.utils.aot", "vaura_tpu_torch.kernels.ops"],
+             "or m.startswith('vaura_tpu_torch.models')"),
+            ([f"vaura_tpu_torch.scripts.{t}" for t in tools], "")):
+        code = ("import sys\n"
+                + "".join(f"import {m}\n" for m in imports)
+                + "bad = [m for m in sys.modules if m.split('.')[0] in "
+                f"{FORBIDDEN + ('yaml',)!r} {extra}]\n"
+                "assert not bad, bad\n")
+        r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                           capture_output=True, text=True)
+        assert r.returncode == 0, r.stderr

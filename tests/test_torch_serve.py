@@ -458,9 +458,9 @@ def test_batch_buckets_validation():
 
     with pytest.raises(ValueError, match="batch_buckets"):
         GenerationService(_cfg(batch=2, batch_buckets="3", duration=0.15))
-    with pytest.raises(NotImplementedError, match="no graph to export"):
-        GenerationService(_cfg(batch=2, duration=0.15,
-                               aot_load="x.jaxexport"))
+    with pytest.raises(ValueError, match="batch_buckets and aot_export"):
+        GenerationService(_cfg(batch=2, batch_buckets="1", duration=0.15,
+                               aot_load="x.pt2"))
     with pytest.raises(ValueError, match="stream_mode"):
         GenerationService(_cfg(batch=2, stream_mode="bogus"))
 

@@ -33,8 +33,16 @@ layer never writes the cache: it reads the rows below the current one through
 ``ops.decode_attention`` and returns the current position's K/V, which
 ``decode_step`` commits in place after the step, quantized for an int8
 cache (the JAX package's contract, ``sampler.py:228-238,864-883``; in place
-here, where JAX returns an updated copy). ``prefill`` fills a fresh cache
-from a causal forward over a prompt.
+here, where JAX returns an updated copy; ``decode_rows`` returns the rows
+and commits nothing). ``prefill`` fills a fresh cache from a causal forward
+over a prompt.
+
+The decode step takes its position as a host ``int`` (the eager loops) or
+as a 0-d int64 tensor on the device (the device-position form, which
+``torch.export`` traces once for every step: ``utils/aot.py``): then nothing
+indexes with a host ``int`` and decode attention is reached through the
+registered operator ``torch.ops.vaura_torch.decode_attention``
+(``kernels/ops.py``).
 
 ``quantize_weights`` stores the decoder blocks' and the LM head's matmul
 weights as int8 with per-output-channel scales (``kernel_q``/``scale``,
@@ -60,6 +68,7 @@ from torch.utils.checkpoint import (
     noop_context_fn,
 )
 
+from vaura_tpu_torch.kernels.ops import decode_attention_op
 from vaura_tpu_torch.ops.decode_attention import decode_attention
 from vaura_tpu_torch.ops.dropout import (
     batch_shard,
@@ -76,6 +85,9 @@ from vaura_tpu_torch.ops.quantization import (
 from vaura_tpu_torch.ops.rope import apply_rotary_emb, precompute_freqs_cis
 from vaura_tpu_torch.parallel import tensor_parallel as tp_ops
 from vaura_tpu_torch.utils import ANY, drop_unported_fields
+
+# a decode position: a host int, or a 0-d int64 tensor on the device
+Pos = Union[int, torch.Tensor]
 
 
 _aten = torch.ops.aten
@@ -407,14 +419,17 @@ class Attention(nn.Module):
     def decode(self, x: torch.Tensor, freqs_cis: torch.Tensor,
                cache_layer: Tuple[torch.Tensor, ...],
                row: Union[int, torch.Tensor],
-               chunk_starts: Optional[torch.Tensor] = None
+               chunk_starts: Optional[torch.Tensor] = None,
+               op: bool = False
                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         """``x [B, 1, d_model]`` whose RoPE row is ``freqs_cis``;
         ``cache_layer`` one layer's ``(k, v)`` ``[B, S, H_kv, hd]`` (and, for
         a quantized cache, ``(k_scale, v_scale) [B, S, H_kv]``), read below
         ``row`` only (an ``int`` or a one-element int32 tensor on ``x``'s
-        device); ``chunk_starts`` the quantization groups of ``int8_dots``.
-        Returns the output and this position's ``(k, v) [B, H_kv, hd]``."""
+        device); ``chunk_starts`` the quantization groups of ``int8_dots``;
+        ``op`` reaches decode attention through the registered operator (a
+        tensor ``row``). Returns the output and this position's ``(k, v)
+        [B, H_kv, hd]``."""
         cfg = self.cfg
         B = x.shape[0]
         H, Hkv, hd = self.n_heads, self.n_kv, cfg.head_dim
@@ -423,7 +438,8 @@ class Attention(nn.Module):
         k = apply_rotary_emb(k.reshape(B, 1, Hkv, hd), freqs_cis)[:, 0]
         v = v.reshape(B, Hkv, hd).contiguous()
         k_cache, v_cache, *scales = cache_layer
-        out = decode_attention(
+        attend = decode_attention_op if op else decode_attention
+        out = attend(
             q.contiguous(), k_cache, v_cache, k.contiguous(), v, row, *scales,
             cache_bits=cfg.cache_bits,
             int8_dots=cfg.int8_dots and cfg.quantize_cache,
@@ -458,9 +474,10 @@ class TransformerBlock(nn.Module):
         h = x + a
         return h + self.feed_forward(self.ffn_norm(h)), kv
 
-    def decode(self, x, freqs_cis, cache_layer, row, chunk_starts=None):
+    def decode(self, x, freqs_cis, cache_layer, row, chunk_starts=None,
+               op=False):
         a, kv = self.attention.decode(self.attention_norm(x), freqs_cis,
-                                      cache_layer, row, chunk_starts)
+                                      cache_layer, row, chunk_starts, op)
         h = x + a
         return h + self.feed_forward(self.ffn_norm(h)), kv
 
@@ -769,8 +786,8 @@ class Sampler(nn.Module):
 
     @torch.no_grad()
     def decode_step(self, tokens_t: torch.Tensor, cond_t: torch.Tensor,
-                    cache: Dict[str, torch.Tensor], pos: int,
-                    row: Optional[int] = None) -> torch.Tensor:
+                    cache: Dict[str, torch.Tensor], pos: Pos,
+                    row: Optional[Pos] = None) -> torch.Tensor:
         """One step at position ``pos``: ``tokens_t [B, K, 1]``,
         ``cond_t [B, 1, cond_dim]``. Returns next-token logits
         ``[B, K, vocab]`` and commits this position's K/V into cache row
@@ -781,25 +798,59 @@ class Sampler(nn.Module):
         the cache's ``positions``, added to a cache that lacks it); RoPE and
         the cache write index with the host ``int``. Under ``int8_dots`` the
         cache's ``chunk_starts`` are the probabilities' quantization
-        groups."""
-        pos = int(pos)
-        row = pos if row is None else int(row)
-        if "positions" not in cache:
-            cache["positions"] = self._positions(cache["k"].shape[2],
-                                                 cache["k"].device)
-        row_t = cache["positions"][row:row + 1]
+        groups. ``pos`` and ``row`` may instead be 0-d int64 tensors on the
+        device (``decode_rows``), and the write is then an ``index_copy_``."""
+        row = pos if row is None else row
+        logits, rows = self.decode_rows(tokens_t, cond_t, cache, pos, row)
+        self.commit_rows(cache, rows, row)
+        return logits
+
+    @torch.no_grad()
+    def decode_rows(self, tokens_t: torch.Tensor, cond_t: torch.Tensor,
+                    cache: Dict[str, torch.Tensor], pos: Pos,
+                    row: Optional[Pos] = None
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """``decode_step`` without the write: ``(logits [B, K, vocab], this
+        position's rows {name: [L, B, ...]})``, the rows as the cache stores
+        them (quantized for an int8 or int4 cache), for ``commit_rows``.
+        With a tensor ``pos`` (and ``row``) the RoPE row is an
+        ``index_select``, the cache row an int32 copy of ``row`` and decode
+        attention the registered operator: a graph traced once serves every
+        position."""
+        device_pos = isinstance(pos, torch.Tensor)
+        if device_pos:
+            row = pos if row is None else row
+            row_t = row.reshape(1).to(torch.int32)
+            freqs = self.freqs_cis.index_select(0, pos.reshape(1))
+        else:
+            pos = int(pos)
+            row = pos if row is None else int(row)
+            if "positions" not in cache:
+                cache["positions"] = self._positions(cache["k"].shape[2],
+                                                     cache["k"].device)
+            row_t = cache["positions"][row:row + 1]
+            freqs = self.freqs_cis[pos:pos + 1]
         tok_emb = self.tok_embeddings(tokens_t)
         h = torch.cat([cond_t.to(tok_emb.dtype), tok_emb], dim=-1)
-        freqs = self.freqs_cis[pos:pos + 1]
         names = ("k", "v", "k_scale", "v_scale") if self.cfg.quantize_cache \
             else ("k", "v")
         ks, vs = [], []
         starts = cache.get("chunk_starts")
         for layer, *cache_layer in zip(self.layers, *(cache[n] for n in names)):
             h, (k, v) = layer.decode(h, freqs, tuple(cache_layer), row_t,
-                                     starts)
+                                     starts, device_pos)
             ks.append(k)
             vs.append(v)
-        for name, t in self._store(torch.stack(ks), torch.stack(vs)).items():
-            cache[name][:, :, row] = t
-        return self._logits(h)[:, :, 0, :]
+        return (self._logits(h)[:, :, 0, :],
+                self._store(torch.stack(ks), torch.stack(vs)))
+
+    @staticmethod
+    def commit_rows(cache: Dict[str, torch.Tensor],
+                    rows: Dict[str, torch.Tensor], row: Pos) -> None:
+        """Write ``decode_rows``' rows into cache row ``row`` in place (an
+        ``index_copy_`` for a tensor ``row``)."""
+        for name, t in rows.items():
+            if isinstance(row, torch.Tensor):
+                cache[name].index_copy_(2, row.reshape(1), t.unsqueeze(2))
+            else:
+                cache[name][:, :, int(row)] = t

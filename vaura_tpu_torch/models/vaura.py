@@ -517,34 +517,84 @@ class VauraSystem(nn.Module):
         return self.sampler.build_cond_seq(cond_emb, S, tokens_per_frame)
 
     def generation_step(self, cache, gen_seq: torch.Tensor,
-                        cond_seq: torch.Tensor, s: int,
+                        cond_seq: torch.Tensor, s,
                         valid_mask: torch.Tensor,
                         generator: Optional[torch.Generator], *,
                         use_sampling: bool, temp: float, top_k: int,
                         top_p: float, cfg_scale: float,
-                        row: Optional[int] = None) -> None:
+                        row=None) -> None:
         """Step ``s``: feed the token at ``s-1``, advance the cache (its row
         ``row``, by default ``s-1``), blend CFG, sample, force the special
         token on invalid codebook slots and write ``gen_seq[:, :, s]`` where
         it is still UNKNOWN (prompt tokens win). Updates ``gen_seq`` and
-        ``cache`` in place."""
-        B = gen_seq.shape[0]
-        use_cfg = cfg_scale > 1.0
+        ``cache`` in place. ``s`` (and ``row``) may be 0-d int64 tensors on
+        the device: the device-position form (``step_rows``), whose writes
+        are ``index_copy_``."""
+        kw = dict(use_sampling=use_sampling, temp=temp, top_k=top_k,
+                  top_p=top_p, cfg_scale=cfg_scale)
+        if isinstance(s, torch.Tensor):
+            col, rows = self.step_rows(cache, gen_seq, cond_seq, s,
+                                       valid_mask, generator, row=row, **kw)
+            self.sampler.commit_rows(cache, rows, s - 1 if row is None
+                                     else row)
+            gen_seq.index_copy_(2, s.reshape(1), col.unsqueeze(2))
+            return
         tok_in = gen_seq[:, :, s - 1:s]
-        if use_cfg:
+        if cfg_scale > 1.0:
             tok_in = tok_in.repeat(2, 1, 1)
         logits = self.sampler.decode_step(tok_in, cond_seq[:, s - 1:s], cache,
                                           s - 1, row)
-        if use_cfg:
+        gen_seq[:, :, s] = self._next_tokens(logits, gen_seq[:, :, s],
+                                             valid_mask[:, s], generator,
+                                             **kw)
+
+    def step_rows(self, cache, gen_seq: torch.Tensor, cond_seq: torch.Tensor,
+                  s: torch.Tensor, valid_mask: torch.Tensor,
+                  generator: Optional[torch.Generator] = None, *,
+                  use_sampling: bool, temp: float, top_k: int, top_p: float,
+                  cfg_scale: float, row: Optional[torch.Tensor] = None,
+                  noise: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The device-position step, which writes nothing: ``s`` (and
+        ``row``) 0-d int64 tensors on the device, ``valid_mask [K, S]`` a
+        device bool tensor; every index is an ``index_select`` and decode
+        attention the registered operator (``Sampler.decode_rows``), so one
+        traced graph serves every step. ``noise`` is the sampling's uniform
+        draw (``ops.sampling.uniform_noise``), else drawn from
+        ``generator``. Returns ``(the column gen_seq[:, :, s] becomes [B,
+        K], this position's cache rows)``."""
+        prev = (s - 1).reshape(1)
+        tok_in = gen_seq.index_select(2, prev)
+        if cfg_scale > 1.0:
+            tok_in = tok_in.repeat(2, 1, 1)
+        logits, rows = self.sampler.decode_rows(
+            tok_in, cond_seq.index_select(1, prev), cache, s - 1,
+            s - 1 if row is None else row)
+        col = self._next_tokens(
+            logits, gen_seq.index_select(2, s.reshape(1))[..., 0],
+            valid_mask.index_select(1, s.reshape(1))[:, 0], generator,
+            noise=noise, use_sampling=use_sampling, temp=temp, top_k=top_k,
+            top_p=top_p, cfg_scale=cfg_scale)
+        return col, rows
+
+    def _next_tokens(self, logits: torch.Tensor, cur: torch.Tensor,
+                     valid: torch.Tensor,
+                     generator: Optional[torch.Generator], *,
+                     use_sampling: bool, temp: float, top_k: int,
+                     top_p: float, cfg_scale: float,
+                     noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The column a step writes: the CFG blend of ``logits``, a sample,
+        the special token where ``valid [K]`` is false, and ``cur [B, K]``
+        (the column as it stands) where it is not UNKNOWN."""
+        B = cur.shape[0]
+        if cfg_scale > 1.0:
             logits = cfg_blend(logits[:B], logits[B:], cfg_scale)
         next_tok = sample_tokens(logits, generator=generator,
                                  use_sampling=use_sampling, temp=temp,
                                  top_k=top_k, top_p=top_p,
-                                 rows=self._sample_rows(B))
-        next_tok = torch.where(valid_mask[None, :, s], next_tok,
-                               self.special_token_id)
-        cur = gen_seq[:, :, s]
-        gen_seq[:, :, s] = torch.where(cur == UNKNOWN_TOKEN, next_tok, cur)
+                                 rows=self._sample_rows(B), noise=noise)
+        next_tok = torch.where(valid[None], next_tok, self.special_token_id)
+        return torch.where(cur == UNKNOWN_TOKEN, next_tok, cur)
 
     @torch.no_grad()
     def generate_tokens(

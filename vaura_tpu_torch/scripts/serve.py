@@ -33,12 +33,20 @@ Usage::
     python -m vaura_tpu_torch config=CONFIG.yaml action=serve
         [experiment_path=...] [ckpt_path=...] [port=8800] [batch=8]
         [batch_buckets=1,4] [duration=2.56] [quantize=cache|true]
-        [stream_mode=reprefill|kv] [trainer.platform=cpu]
+        [stream_mode=reprefill|kv] [aot_export=PATH | aot_load=PATH]
+        [trainer.platform=cpu]
     torchrun --nproc_per_node=N -m vaura_tpu_torch config=... action=serve
         [mesh_serving=true] [trainer.mesh.fsdp=1] [trainer.mesh.model=1]
 
 The server runs on ``cuda`` unless ``trainer.platform=cpu``.
-``aot_export`` / ``aot_load`` raise (eager PyTorch has no graph to export);
+``aot_export=PATH`` writes the generation pipeline as exported graphs after
+the warm-up (``utils/aot.py``: ``torch.export``, the weights outside them);
+``aot_load=PATH`` answers every batch from such an artifact with the
+served weights and the batch's seed, the codes of the eager path. An
+artifact whose ``batch``, ``tv``, ``cond_dim`` or sampling differs from the
+server's, or one traced for another device type, is refused with
+``ValueError``, as are ``batch_buckets`` and a serving mesh with either key
+(JAX ``scripts/serve.py:346-350,386-416``).
 ``compilation_cache_dir`` is logged and ignored; ``decode_buckets`` (8 by
 default) matters only under ``int8_dots``, whose probabilities are quantized
 per chunk (``VauraSystem.generate_tokens``). A LoRA
@@ -231,10 +239,6 @@ class GenerationService:
     processes one rank's part of them (``leader``: rank 0)."""
 
     def __init__(self, cfg: dict):
-        if cfg.get("aot_export") or cfg.get("aot_load"):
-            raise NotImplementedError(
-                "aot_export/aot_load serialize a jax.export graph; eager "
-                "PyTorch has no graph to export: drop both keys")
         cache_dir = cfg.get("compilation_cache_dir") or (
             cfg.get("trainer") or {}
         ).get("compilation_cache_dir")
@@ -301,6 +305,24 @@ class GenerationService:
                                   self.device.type)
         self.mesh_shape = (None if self.mesh is None else dict(zip(
             self.mesh.mesh_dim_names, self.mesh.mesh.shape)))
+        # the exported serving graphs (utils/aot.py): ``aot_load`` answers
+        # from an artifact, ``aot_export`` writes one after the warm-up
+        self.aot_export = cfg.get("aot_export")
+        self.aot_export_s = None  # the export's seconds, once written
+        aot_load = cfg.get("aot_load")
+        self._aot = None
+        if self.mesh is not None and (self.aot_export or aot_load):
+            raise ValueError(
+                "aot_export/aot_load and mesh serving are mutually "
+                "exclusive (exported artifacts are single-device); "
+                "set mesh_serving=false to use AOT graphs"
+            )
+        if (self.aot_export or aot_load) and len(self.batch_buckets) > 1:
+            raise ValueError(
+                "batch_buckets and aot_export/aot_load are mutually "
+                "exclusive (exported artifacts are single fixed-batch "
+                "graphs); drop the buckets or the AOT flags"
+            )
         self.leader = multihost.is_main_process()
         self.channel = None
         if self.mesh is not None or multihost.process_count() > 1:
@@ -428,6 +450,8 @@ class GenerationService:
         self.system = system
         self.cond_dim = system.sampler_config.cond_in_dim
         self.sample_rate = system.dac.cfg.sample_rate
+        if aot_load:
+            self._load_aot(aot_load)
         self._next_seed = seed
         self._q: "queue.Queue" = queue.Queue()
         self._worker = threading.Thread(target=self._loop, daemon=True)
@@ -447,6 +471,35 @@ class GenerationService:
         self._reload_lock = threading.Lock()
         self._inflight = 0
         self._draining = False
+
+    def _load_aot(self, path: str) -> None:
+        """Answer every batch from the artifact at ``path``; its input
+        contract and its sampling must be the server's."""
+        from vaura_tpu_torch.utils.aot import load_generate
+
+        fn, meta = load_generate(path, self.device)
+        for key, want in (("batch", self.batch), ("tv", self.tv),
+                          ("cond_dim", self.cond_dim)):
+            got = meta.get(key)
+            if got is not None and int(got) != int(want):
+                raise ValueError(
+                    f"aot_load artifact {key}={got} does not match "
+                    f"server {key}={want} (re-export with this config)"
+                )
+        # sampling is BAKED into the exported graph: a mismatch would
+        # silently serve the artifact's temperature/top_k/cfg, not the
+        # configured ones
+        baked = meta.get("sampling")
+        mine = {k: str(v) for k, v in self.sampling.items()}
+        if baked is not None and baked != mine:
+            raise ValueError(
+                f"aot_load artifact sampling {baked} does not match "
+                f"server sampling {mine} (re-export, or start the "
+                "server with the artifact's sampling config)"
+            )
+        self._aot = fn
+        logger.info("loaded AOT generation graph %s (%s, %s)", path,
+                    meta.get("device"), meta.get("device_name"))
 
     # ------------------------------------------------------------------ #
     @torch.no_grad()
@@ -586,6 +639,23 @@ class GenerationService:
         start the micro-batch worker. A follower then calls ``follow``."""
         if self.system is not None:
             self._warmup()
+        if self.aot_export and self.system is not None:
+            from vaura_tpu_torch.utils.aot import export_generate
+
+            t0 = time.time()
+            meta = export_generate(
+                self.system,
+                batch=self.batch, tv=self.tv,
+                max_new_tokens=self.tokens,
+                sampling=self.sampling,
+                decode_buckets=self.decode_buckets,
+                dac_chunk_size=self.dac_chunk_size,
+                path=self.aot_export,
+            )
+            self.aot_export_s = time.time() - t0
+            logger.info("exported AOT generation graph to %s (%s, %.1fs)",
+                        self.aot_export, meta["device_name"],
+                        self.aot_export_s)
         if self.leader:
             self._worker.start()
 
@@ -595,7 +665,13 @@ class GenerationService:
         once): ``{"audio" [B, 1, samples], "codes" [B, K, tokens]}`` on the
         device. On a mesh every rank calls it with the whole padded batch,
         generates its rows, and rank 0 gets the whole batch (the others'
-        values are None)."""
+        values are None). With ``aot_load`` the loaded artifact answers,
+        with the served weights and the same seed."""
+        if self._aot is not None:
+            from vaura_tpu_torch.utils.aot import serving_state
+
+            audio, codes = self._aot(serving_state(self.system), feats, seed)
+            return {"audio": audio, "codes": codes}
         kw = {}
         if self.mesh is not None:
             from vaura_tpu_torch.parallel.mesh import batch_rows

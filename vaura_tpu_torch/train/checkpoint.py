@@ -281,7 +281,8 @@ def restore_trainable_params(
     trainer_cfg: Optional[dict] = None,
 ) -> Dict[str, torch.Tensor]:
     """The trainable parameters of a params-only file (``{"params":
-    {name: tensor}}`` or the bare mapping) or of a training checkpoint
+    {name: tensor}}`` or the bare mapping; it may also hold the frozen
+    modules' leaves, which are not read) or of a training checkpoint
     (``{"params", "opt_state", "step"}``). ``trainable`` names every leaf
     (real or ``meta`` tensors: only names, shapes and dtypes are read). For
     a training checkpoint the optimizer is rebuilt from the configs, as the
@@ -311,6 +312,13 @@ def restore_trainable_params(
         skeleton = tx.init({k: v.to("meta") for k, v in trainable.items()})
         skeleton.load_state_dict(payload["opt_state"])
     params = payload["params"] if "params" in payload else payload
+    if not (isinstance(payload, Mapping) and "opt_state" in payload):
+        # a params-only file may hold the frozen modules too (a converted
+        # whole tree, scripts/convert_checkpoints.py): the leaves of the
+        # trainable modules are taken, and must be all of theirs
+        tops = {k.split(".", 1)[0] for k in trainable}
+        params = {k: v for k, v in params.items()
+                  if k.split(".", 1)[0] in tops}
     out = {k: torch.empty_like(v, device="meta") for k, v in trainable.items()}
     copy_leaves(out, params, "params")  # names and shapes
     return {k: params[k].to(device="cpu" if v.is_meta else v.device,
