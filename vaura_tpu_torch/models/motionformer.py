@@ -83,6 +83,7 @@ from vaura_tpu_torch.ops.encoder_fused import (
 )
 from vaura_tpu_torch.ops.quantization import int8_dense
 from vaura_tpu_torch.utils import ANY, drop_unported_fields
+from vaura_tpu_torch.utils.spans import span
 
 TEL = "TransformerEncoderLayer"
 AVG = "AveragePooling"
@@ -612,60 +613,63 @@ class MotionFormer(nn.Module):
         B, S, C, T, H, W = frames.shape
         t, hw, D = T // cfg.z_block_size, cfg.num_spatial_patches, cfg.embed_dim
         dt = cfg.dtype
-        x = frames.reshape(B * S, C, T, H, W).to(dt)
-        pe = self.patch_embed_3d
-        x = F.conv3d(x, pe.weight.to(dt), pe.bias.to(dt), stride=pe.stride)
-        x = x.flatten(2).transpose(1, 2)  # [BS, t*hw, D]
-        if cfg.pos_embed_type == "separate":
-            pos = self.pos_embed
-            total = torch.cat(
-                [pos[:, :1],
-                 pos[:, 1:].repeat(1, cfg.temporal_resolution, 1)
-                 + self.temp_embed.repeat_interleave(hw, dim=1)],
-                dim=1,
-            )
-        else:
-            total = self.st_embed
-        x = torch.cat([self.cls_token.to(x.dtype).expand(B * S, 1, D), x],
-                      dim=1) + total.to(x.dtype)
-        x = dropout(x, cfg.drop_rate, train, generator)
+        with span("encoder.embed"):
+            x = frames.reshape(B * S, C, T, H, W).to(dt)
+            pe = self.patch_embed_3d
+            x = F.conv3d(x, pe.weight.to(dt), pe.bias.to(dt), stride=pe.stride)
+            x = x.flatten(2).transpose(1, 2)  # [BS, t*hw, D]
+            if cfg.pos_embed_type == "separate":
+                pos = self.pos_embed
+                total = torch.cat(
+                    [pos[:, :1],
+                     pos[:, 1:].repeat(1, cfg.temporal_resolution, 1)
+                     + self.temp_embed.repeat_interleave(hw, dim=1)],
+                    dim=1,
+                )
+            else:
+                total = self.st_embed
+            x = torch.cat([self.cls_token.to(x.dtype).expand(B * S, 1, D), x],
+                          dim=1) + total.to(x.dtype)
+            x = dropout(x, cfg.drop_rate, train, generator)
 
-        if self._fused(x, train, t, hw):
-            if x.is_cuda and torch.is_grad_enabled() and any(
-                    p.requires_grad for p in self.parameters()):
-                raise RuntimeError(
-                    "the fused encoder sublayers have no backward: call "
-                    "under torch.no_grad(), or with train=True for the "
-                    "differentiable blocks")
-            x_cls, x_tok = x[:, :1], x[:, 1:]
-            for block in self.blocks:
-                x_cls, x_tok = block(x_cls, x_tok, t, hw)
-        else:
-            dpr = np.linspace(0.0, cfg.drop_path_rate, cfg.depth)
-            for block, rate in zip(self.blocks, dpr):
-                x = block.forward_unfused(x, t, hw, train, float(rate),
-                                          generator)
-            x_tok = x[:, 1:]
-        x = self.norm(x_tok)
-        done = (lambda f, g=None: (f, g)) if return_global else (lambda f: f)
-        if not cfg.factorize_space_time:
-            return done(x.reshape(B, S, t * hw, D))
+        with span("encoder.blocks"):
+            if self._fused(x, train, t, hw):
+                if x.is_cuda and torch.is_grad_enabled() and any(
+                        p.requires_grad for p in self.parameters()):
+                    raise RuntimeError(
+                        "the fused encoder sublayers have no backward: call "
+                        "under torch.no_grad(), or with train=True for the "
+                        "differentiable blocks")
+                x_cls, x_tok = x[:, :1], x[:, 1:]
+                for block in self.blocks:
+                    x_cls, x_tok = block(x_cls, x_tok, t, hw)
+            else:
+                dpr = np.linspace(0.0, cfg.drop_path_rate, cfg.depth)
+                for block, rate in zip(self.blocks, dpr):
+                    x = block.forward_unfused(x, t, hw, train, float(rate),
+                                              generator)
+                x_tok = x[:, 1:]
+        with span("encoder.pool"):
+            x = self.norm(x_tok)
+            done = (lambda f, g=None: (f, g)) if return_global else (lambda f: f)
+            if not cfg.factorize_space_time:
+                return done(x.reshape(B, S, t * hw, D))
 
-        x = x.reshape(B * S, t, hw, D)
-        if cfg.agg_space_module == TEL:  # per frame over its hw locations
-            x = self.spatial_attn_agg(x.reshape(B * S * t, hw, D), train,
-                                      generator).reshape(B * S, t, D)
-        else:
-            x = x.mean(dim=2)
-        if cfg.agg_time_module == TEL:
-            x = self.temp_attn_agg(x, train, generator)
-        elif cfg.agg_time_module == AVG:
-            x = x.mean(dim=1)
-        feats = x.reshape(B, S, *x.shape[1:])
-        if not return_global:
-            return feats
-        global_repr = None
-        if cfg.add_global_repr and feats.ndim == 3:
-            global_repr = (feats.mean(dim=1) if cfg.agg_segments_module == AVG
-                           else self.global_attn_agg(feats, train, generator))
-        return feats, global_repr
+            x = x.reshape(B * S, t, hw, D)
+            if cfg.agg_space_module == TEL:  # per frame over its hw locations
+                x = self.spatial_attn_agg(x.reshape(B * S * t, hw, D), train,
+                                          generator).reshape(B * S, t, D)
+            else:
+                x = x.mean(dim=2)
+            if cfg.agg_time_module == TEL:
+                x = self.temp_attn_agg(x, train, generator)
+            elif cfg.agg_time_module == AVG:
+                x = x.mean(dim=1)
+            feats = x.reshape(B, S, *x.shape[1:])
+            if not return_global:
+                return feats
+            global_repr = None
+            if cfg.add_global_repr and feats.ndim == 3:
+                global_repr = (feats.mean(dim=1) if cfg.agg_segments_module == AVG
+                               else self.global_attn_agg(feats, train, generator))
+            return feats, global_repr

@@ -91,6 +91,7 @@ from vaura_tpu_torch.train.lora import (
     merged_weight,
 )
 from vaura_tpu_torch.utils import DeviceLike, StageClock, resolve_device
+from vaura_tpu_torch.utils.spans import span
 
 UNKNOWN_TOKEN = -1
 
@@ -412,15 +413,19 @@ class VauraSystem(nn.Module):
             with ctx:
                 if chunk_size and B > chunk_size:
                     c = _largest_divisor(B, chunk_size)
-                    feats = torch.cat([self.encoder(frames[i:i + c])
+                    feats = torch.cat([self._encoder_chunk(frames[i:i + c])
                                        for i in range(0, B, c)])
                 else:
-                    feats = self.encoder(frames, train, generator)
+                    feats = self._encoder_chunk(frames, train, generator)
             B, S, t, D = feats.shape
             feats = feats.reshape(B, S * t, D)
         if self.bridge is not None:
             feats = self.bridge(feats)
         return feats
+
+    def _encoder_chunk(self, frames: torch.Tensor, *args) -> torch.Tensor:
+        with span("encoder.chunk"):
+            return self.encoder(frames, *args)
 
     # ------------------------------------------------------------------ #
     def encode_audio(self, audio: torch.Tensor) -> torch.Tensor:
@@ -452,31 +457,35 @@ class VauraSystem(nn.Module):
                 audio = audio.reshape(B0 * n_clips, *audio.shape[2:])
                 if frames is not None and frames.shape[1] == n_clips:
                     frames = frames.reshape(B0 * n_clips, 1, *frames.shape[2:])
-            codes = self.encode_audio(audio)
+            with span("train.codec_encode"):
+                codes = self.encode_audio(audio)
         codes = codes.to(self.device).long().detach()
         B, _, Ta = codes.shape
 
         if vis_feats is None:
-            vis_feats = self.visual_features(
-                frames, train=train and not self.freeze_feature_extractor,
-                generator=generator)
-        pattern = self.pattern_provider.get_pattern(Ta)
-        # implicit BOS shift: the sequence is built over codes[:, :, :-1]
-        seq, _, _ = pattern.build_pattern_sequence(codes[:, :K, :-1],
-                                                   self.special_token_id)
-        logits = self.sampler(seq, vis_feats.to(self.device), train,
-                              generator=generator)  # [B, K, S, card]
-        # align the logits with the codes' timesteps; NaN marks the slots
-        # no sequence step predicts
-        reverted, _, logits_mask = pattern.revert_pattern_logits(
-            logits.permute(0, 3, 1, 2), float("nan"))
-        reverted = reverted.permute(0, 2, 3, 1)  # [B, K, Ta, card]
-        mask = torch.as_tensor(logits_mask, device=self.device)[None].expand(
-            B, K, Ta)
-        targets = codes[:, :K]
-        loss, loss_per_cb = masked_codebook_cross_entropy(
-            reverted, targets, mask,
-            self.placement.batch_sum if self._shards_rows() else None)
+            with span("train.encoder"):
+                vis_feats = self.visual_features(
+                    frames, train=train and not self.freeze_feature_extractor,
+                    generator=generator)
+        with span("train.sampler"):
+            pattern = self.pattern_provider.get_pattern(Ta)
+            # implicit BOS shift: the sequence is built over codes[:, :, :-1]
+            seq, _, _ = pattern.build_pattern_sequence(codes[:, :K, :-1],
+                                                       self.special_token_id)
+            logits = self.sampler(seq, vis_feats.to(self.device), train,
+                                  generator=generator)  # [B, K, S, card]
+        with span("train.loss"):
+            # align the logits with the codes' timesteps; NaN marks the
+            # slots no sequence step predicts
+            reverted, _, logits_mask = pattern.revert_pattern_logits(
+                logits.permute(0, 3, 1, 2), float("nan"))
+            reverted = reverted.permute(0, 2, 3, 1)  # [B, K, Ta, card]
+            mask = torch.as_tensor(logits_mask, device=self.device)[None].expand(
+                B, K, Ta)
+            targets = codes[:, :K]
+            loss, loss_per_cb = masked_codebook_cross_entropy(
+                reverted, targets, mask,
+                self.placement.batch_sum if self._shards_rows() else None)
         return loss, {"loss_per_codebook": loss_per_cb, "logits": reverted,
                       "targets": targets, "mask": mask}
 
@@ -488,9 +497,13 @@ class VauraSystem(nn.Module):
         B = codes.shape[0]
         if chunk_size and B > chunk_size:
             c = _largest_divisor(B, chunk_size)
-            return torch.cat([self.dac.decode(codes[i:i + c])
+            return torch.cat([self._dac_slice(codes[i:i + c])
                               for i in range(0, B, c)])
-        return self.dac.decode(codes)
+        return self._dac_slice(codes)
+
+    def _dac_slice(self, codes: torch.Tensor) -> torch.Tensor:
+        with span("dac.slice"):
+            return self.dac.decode(codes)
 
     # ------------------------------------------------------------------ #
     def prepare_generation(self, max_new_tokens: int):
@@ -539,14 +552,17 @@ class VauraSystem(nn.Module):
                                      else row)
             gen_seq.index_copy_(2, s.reshape(1), col.unsqueeze(2))
             return
-        tok_in = gen_seq[:, :, s - 1:s]
-        if cfg_scale > 1.0:
-            tok_in = tok_in.repeat(2, 1, 1)
-        logits = self.sampler.decode_step(tok_in, cond_seq[:, s - 1:s], cache,
-                                          s - 1, row)
-        gen_seq[:, :, s] = self._next_tokens(logits, gen_seq[:, :, s],
-                                             valid_mask[:, s], generator,
-                                             **kw)
+        with span("decode_step"):
+            with span("decode_step.forward"):
+                tok_in = gen_seq[:, :, s - 1:s]
+                if cfg_scale > 1.0:
+                    tok_in = tok_in.repeat(2, 1, 1)
+                logits = self.sampler.decode_step(
+                    tok_in, cond_seq[:, s - 1:s], cache, s - 1, row)
+            with span("decode_step.sample"):
+                gen_seq[:, :, s] = self._next_tokens(
+                    logits, gen_seq[:, :, s], valid_mask[:, s], generator,
+                    **kw)
 
     def step_rows(self, cache, gen_seq: torch.Tensor, cond_seq: torch.Tensor,
                   s: torch.Tensor, valid_mask: torch.Tensor,
@@ -699,51 +715,56 @@ class VauraSystem(nn.Module):
         clock.mark("encoder")
         B = vis_feats.shape[0]
 
-        gen_codes = torch.full((B, K, max_new_tokens), UNKNOWN_TOKEN,
-                               dtype=torch.long, device=dev)
         start_offset = 0
         if audio_prompt_codes is not None:
             start_offset = int(audio_prompt_codes.shape[-1])
             if start_offset >= max_new_tokens:
                 raise ValueError("the prompt must be shorter than max_new_tokens")
-            gen_codes[:, :, :start_offset] = audio_prompt_codes.to(dev).long()
-        gen_seq, _, _ = pattern.build_pattern_sequence(gen_codes,
-                                                       self.special_token_id)
-        use_cfg = cfg_scale > 1.0
-        cond_seq = self.build_cond_seq_for_generation(vis_feats, S,
-                                                      tokens_per_frame, cfg=use_cfg)
-        # a long prompt (a long-horizon chunk carries about 3/4 of one): one
-        # causal forward writes its K/V, and the loop starts at the first
-        # step that holds a timestep to generate. Rows from there on hold
-        # K/V of the UNKNOWN placeholders (read as token 0); every step
-        # reads only rows below its own, which the loop has rewritten
-        start_step, initial_cache = 1, None
-        if start_offset > 0:
-            first = pattern.get_first_step_with_timesteps(start_offset)
-            if first is not None and first > 16:
-                tok_in = gen_seq.repeat(2, 1, 1) if use_cfg else gen_seq
-                _, initial_cache = self.sampler.prefill(tok_in.clamp_min(0),
-                                                        cond_seq)
-                start_step = first
+        with span("decode_setup"):
+            gen_codes = torch.full((B, K, max_new_tokens), UNKNOWN_TOKEN,
+                                   dtype=torch.long, device=dev)
+            if audio_prompt_codes is not None:
+                gen_codes[:, :, :start_offset] = audio_prompt_codes.to(dev).long()
+            gen_seq, _, _ = pattern.build_pattern_sequence(
+                gen_codes, self.special_token_id)
+            use_cfg = cfg_scale > 1.0
+            cond_seq = self.build_cond_seq_for_generation(
+                vis_feats, S, tokens_per_frame, cfg=use_cfg)
+            # a long prompt (a long-horizon chunk carries about 3/4 of one):
+            # one causal forward writes its K/V, and the loop starts at the
+            # first step that holds a timestep to generate. Rows from there
+            # on hold K/V of the UNKNOWN placeholders (read as token 0);
+            # every step reads only rows below its own, which the loop has
+            # rewritten
+            start_step, initial_cache = 1, None
+            if start_offset > 0:
+                first = pattern.get_first_step_with_timesteps(start_offset)
+                if first is not None and first > 16:
+                    tok_in = gen_seq.repeat(2, 1, 1) if use_cfg else gen_seq
+                    _, initial_cache = self.sampler.prefill(
+                        tok_in.clamp_min(0), cond_seq)
+                    start_step = first
         gen_seq = self.generate_tokens(
             cond_seq, gen_seq, generator, S=S, valid_mask=valid_mask,
             start_step=start_step, initial_cache=initial_cache,
             use_sampling=use_sampling, temp=temp, top_k=top_k, top_p=top_p,
             cfg_scale=cfg_scale, decode_buckets=decode_buckets)
 
-        if check:
-            seq = gen_seq.cpu().numpy()
-            assert not (seq == UNKNOWN_TOKEN).any(), "unfilled positions"
-            assert (seq == np.where(valid_mask[None], seq,
-                                    self.special_token_id)).all(), (
-                "sequence/mask mismatch")
-        out_codes, _, _ = pattern.revert_pattern_sequence(gen_seq, UNKNOWN_TOKEN)
-        out_codes = out_codes[..., :max_new_tokens]
-        if check:
-            assert int(out_codes.min()) >= 0 and int(
-                out_codes.max()) <= self.special_token_id
-        if remove_prompts:
-            out_codes = out_codes[..., start_offset:]
+        with span("decode_revert"):
+            if check:
+                seq = gen_seq.cpu().numpy()
+                assert not (seq == UNKNOWN_TOKEN).any(), "unfilled positions"
+                assert (seq == np.where(valid_mask[None], seq,
+                                        self.special_token_id)).all(), (
+                    "sequence/mask mismatch")
+            out_codes, _, _ = pattern.revert_pattern_sequence(gen_seq,
+                                                              UNKNOWN_TOKEN)
+            out_codes = out_codes[..., :max_new_tokens]
+            if check:
+                assert int(out_codes.min()) >= 0 and int(
+                    out_codes.max()) <= self.special_token_id
+            if remove_prompts:
+                out_codes = out_codes[..., start_offset:]
         clock.mark("decode_loop")
         result: Dict[str, object] = {"codes": out_codes}
         if decode_to_audio:
@@ -781,9 +802,9 @@ class VauraSystem(nn.Module):
         B = frames.shape[0]
         if chunk_size and B > chunk_size:
             c = _largest_divisor(B, chunk_size)
-            return torch.cat([self.encoder(frames[i:i + c])
+            return torch.cat([self._encoder_chunk(frames[i:i + c])
                               for i in range(0, B, c)])
-        return self.encoder(frames)
+        return self._encoder_chunk(frames)
 
     @staticmethod
     def long_chunk_schedule(total_tokens: int, stride_tokens: int,
@@ -911,17 +932,18 @@ class VauraSystem(nn.Module):
                 "— raise SamplerConfig.block_size_audio")
         feats = self._long_encode_segments(frames, vis_feats_segments,
                                            encoder_chunk_size)
-        B, S_total, t_seg, D = feats.shape
-        n_feat = -(-S // tokens_per_frame)
-        n_seg = -(-n_feat // t_seg)
-        segs = torch.as_tensor(np.arange(n_seg) % S_total)
-        vis_all = feats[:, segs].reshape(B, n_seg * t_seg, D)
-        cond_seq = self.build_cond_seq_for_generation(
-            vis_all, S, tokens_per_frame, cfg=cfg_scale > 1.0)
-        gen_codes = torch.full((B, K, total_tokens), UNKNOWN_TOKEN,
-                               dtype=torch.long, device=self.device)
-        gen_seq, _, _ = pattern.build_pattern_sequence(gen_codes,
-                                                       self.special_token_id)
+        with span("decode_setup"):
+            B, S_total, t_seg, D = feats.shape
+            n_feat = -(-S // tokens_per_frame)
+            n_seg = -(-n_feat // t_seg)
+            segs = torch.as_tensor(np.arange(n_seg) % S_total)
+            vis_all = feats[:, segs].reshape(B, n_seg * t_seg, D)
+            cond_seq = self.build_cond_seq_for_generation(
+                vis_all, S, tokens_per_frame, cfg=cfg_scale > 1.0)
+            gen_codes = torch.full((B, K, total_tokens), UNKNOWN_TOKEN,
+                                   dtype=torch.long, device=self.device)
+            gen_seq, _, _ = pattern.build_pattern_sequence(
+                gen_codes, self.special_token_id)
         return pattern, valid_mask, S, cond_seq, gen_seq
 
     @staticmethod
@@ -1112,11 +1134,13 @@ class VauraSystem(nn.Module):
             cond_seq, gen_seq, generator, S=S, valid_mask=valid_mask,
             window_chunks=window_chunks, chunk_steps=chunk_steps,
             sink_chunks=sink_chunks, **sampling)
-        codes, _, _ = pattern.revert_pattern_sequence(gen_seq, UNKNOWN_TOKEN)
-        codes = codes[..., :total_tokens]
-        if check:
-            assert int(codes.min()) >= 0
-            assert int(codes.max()) <= self.special_token_id
+        with span("decode_revert"):
+            codes, _, _ = pattern.revert_pattern_sequence(gen_seq,
+                                                          UNKNOWN_TOKEN)
+            codes = codes[..., :total_tokens]
+            if check:
+                assert int(codes.min()) >= 0
+                assert int(codes.max()) <= self.special_token_id
         clock.mark("decode_loop")
         result: Dict[str, object] = {"codes": codes}
         if decode_to_audio:

@@ -7,10 +7,13 @@ VARIANT is one of ``VARIANTS`` (all by default): the flagship ViT-B/16
 sublayers, the trajectory encoder exact and with each approximation, the
 joint encoder and the int8 encoder (the divided one's weights quantized).
 For each, on frames ``[batch, 4, 3, 16, 224, 224]``: one warm-up forward,
-three timed between CUDA events, then one under ``torch.profiler`` with
-its wall time, the device time summed over kernels, the busy share, the
-launches and the kernels that take the most device time, and the peak
-memory. Writes ``profile_encoder.json`` into ``--out``. Needs a CUDA card.
+three timed between CUDA events, then one under ``torch.profiler`` (the
+CUDA activity) with the program's spans recorded (``utils.spans``: the
+encoder's ``encoder.embed``, ``encoder.blocks`` and ``encoder.pool``), and
+per span the host time, the device time of the work issued inside it, the
+busy share, the launches and the kernels that take the most device time,
+and the peak memory. Writes ``profile_encoder.json`` into ``--out``. Needs
+a CUDA card.
 """
 
 from __future__ import annotations
@@ -35,17 +38,18 @@ def main() -> int:
     import dataclasses
 
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     from vaura_tpu_torch.flagship import random_frames
     from vaura_tpu_torch.models.motionformer import MotionFormer, MotionFormerConfig
     from vaura_tpu_torch.ops.quantization import quantize_encoder_params
     from vaura_tpu_torch.profile_generate import (
         nvidia_smi,
-        print_stages,
-        stage_report,
+        print_spans,
+        span_report,
     )
     from vaura_tpu_torch.utils import seeded_init_
+    from vaura_tpu_torch.utils.spans import recording
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("variants", nargs="*", help=", ".join(VARIANTS))
@@ -88,17 +92,15 @@ def main() -> int:
                 b.synchronize()
                 ms.append(a.elapsed_time(b))
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            stage = f"encoder/{name}"
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                with record_function(stage):
-                    enc(frames)
-                    torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+                    recording() as records:
+                enc(frames)
+                torch.cuda.synchronize()
         report["variants"][name] = {"forward_ms": ms, "peak_mem_gib": peak,
-                                    **stage_report(prof, (stage,))[stage]}
+                                    "spans": span_report(prof, records)}
         print(f"[{name}] forward ms {', '.join(f'{t:.1f}' for t in ms)}; "
               f"peak {peak:.2f} GiB")
-        print_stages({stage: report["variants"][name]})
+        print_spans(report["variants"][name]["spans"])
         del enc
         torch.cuda.empty_cache()
     os.makedirs(args.out, exist_ok=True)

@@ -6,8 +6,11 @@
 
 Runs the flagship path (``flagship.py``: frames -> codes -> audio, CFG 6.0,
 top-k 128, 221 tokens) once to warm up and once timed with CUDA events per
-stage, then once more under ``torch.profiler`` and reports, per stage, the
-wall time, the device time summed over kernels, the device busy share and
+stage, then once more under ``torch.profiler`` (the CUDA activity) with
+the program's spans recorded (``utils.spans``), and reports per span name
+(the stages, ``encoder.*``, ``decode_setup``, ``decode_step`` and its
+forward and sampling, ``decode_revert``, ``dac.slice``) the host time, the
+device time of the work issued inside the spans, the device busy share and
 the launches, plus the kernels that take the most device time.
 ``--quantize-cache`` runs it with the int8 KV cache (the JAX package's
 serving default), ``--cache-bits 4`` with the int4 cache, ``--int8-dots``
@@ -27,6 +30,8 @@ import os
 import subprocess
 import time
 
+import numpy as np
+
 
 def nvidia_smi() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
@@ -36,50 +41,71 @@ def nvidia_smi() -> str:
     return smi.stdout.strip()
 
 
-def stage_report(prof, stages) -> dict:
-    """Per ``record_function`` range named in ``stages``: its profiled wall
-    time, the device time summed over the kernels started inside it, the
-    device busy share, the launches and the kernels that take most time.
-    Reads the profiler's raw events (a long generation records millions;
-    ``prof.events()`` would build a Python object tree of them all)."""
-    events = prof.profiler.kineto_results.events()
-    # the longest range of each name: autograd's worker threads repeat the
-    # name of the range they were started under
-    ranges = {}
-    kernels = []  # (start, end, name) of device-side events
-    for e in events:
-        name = e.name()
+def _union_ns(iv: np.ndarray) -> int:
+    """Nanoseconds that the ``[n, 2]`` intervals cover."""
+    if len(iv) == 0:
+        return 0
+    iv = iv[np.argsort(iv[:, 0], kind="stable")]
+    ends = np.maximum.accumulate(iv[:, 1])
+    starts = iv[:, 0].copy()
+    starts[1:] = np.maximum(starts[1:], ends[:-1])
+    return int(np.clip(iv[:, 1] - starts, 0, None).sum())
+
+
+def span_report(prof, records) -> dict:
+    """Per span name of ``records`` (``utils.spans``, recorded over the
+    profiled call): how many, their host milliseconds, the device
+    milliseconds of the work issued inside them (the union of the intervals
+    of the kernels and copies whose runtime call starts inside one, matched
+    by correlation id), that over the host time, the launches and the
+    kernels that take the most device time. Reads the profiler's raw events
+    (a long generation records millions; ``prof.events()`` would build a
+    Python object tree of them all)."""
+    issued = {}  # correlation id -> the host start of its runtime call
+    dev, names, corr = [], [], []
+    for e in prof.profiler.kineto_results.events():
         if e.device_type().name == "CUDA":
-            if name not in stages:  # not the stages' own annotation ranges
-                kernels.append((e.start_ns(), e.end_ns(), name))
-        elif name in stages:
-            a, b = e.start_ns(), e.end_ns()
-            if name not in ranges or b - a > ranges[name][1] - ranges[name][0]:
-                ranges[name] = (a, b)
+            dev.append((e.start_ns(), e.end_ns()))
+            names.append(e.name())
+            corr.append(e.correlation_id())
+        else:
+            c, t = e.correlation_id(), e.start_ns()
+            if t < issued.get(c, t + 1):
+                issued[c] = t
+    dev = np.asarray(dev, dtype=np.int64).reshape(-1, 2)
+    names = np.asarray(names, dtype=object)
+    at = np.asarray([issued.get(c, -1) for c in corr], dtype=np.int64)
+    by_name = {}
+    for name, _, a, b in records:
+        by_name.setdefault(name, []).append((a, b))
     out = {}
-    for name, (a, b) in ranges.items():
-        inside = [k for k in kernels if a <= k[0] < b]
-        busy_ns = sum(k1 - k0 for k0, k1, _ in inside)
-        by_name = {}
-        for k0, k1, kname in inside:
-            d = by_name.setdefault(kname, [0, 0])
+    for name, iv in sorted(by_name.items(), key=lambda kv: kv[1][0][0]):
+        iv = np.asarray(sorted(iv), dtype=np.int64)
+        i = np.searchsorted(iv[:, 0], at, side="right") - 1
+        inside = (at >= 0) & (i >= 0) & (at < iv[np.maximum(i, 0), 1])
+        host_ns = int((iv[:, 1] - iv[:, 0]).sum())
+        busy_ns = _union_ns(dev[inside])
+        by_kernel = {}
+        for kname, (k0, k1) in zip(names[inside], dev[inside]):
+            d = by_kernel.setdefault(kname, [0, 0])
             d[0] += 1
-            d[1] += k1 - k0
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+            d[1] += int(k1 - k0)
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:12]
         out[name] = {
-            "profiled_wall_ms": (b - a) / 1e6,
+            "count": len(iv),
+            "host_ms": host_ns / 1e6,
             "device_busy_ms": busy_ns / 1e6,
-            "busy_share": busy_ns / max(b - a, 1),
-            "launches": len(inside),
+            "busy_share": busy_ns / max(host_ns, 1),
+            "launches": int(inside.sum()),
             "top_kernels": [{"name": n[:90], "launches": c, "ms": t / 1e6}
                             for n, (c, t) in top],
         }
     return out
 
 
-def print_stages(stages: dict) -> None:
-    for name, st in stages.items():
-        print(f"[{name}] profiled wall {st['profiled_wall_ms']:.1f} ms, device "
+def print_spans(spans: dict) -> None:
+    for name, st in spans.items():
+        print(f"[{name}] x{st['count']}: host {st['host_ms']:.1f} ms, device "
               f"busy {st['device_busy_ms']:.1f} ms ({100 * st['busy_share']:.1f}%),"
               f" {st['launches']} launches")
         for k in st["top_kernels"][:6]:
@@ -88,7 +114,7 @@ def print_stages(stages: dict) -> None:
 
 def main() -> int:
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     from vaura_tpu_torch.flagship import (
         GENERATE_KW,
@@ -101,6 +127,7 @@ def main() -> int:
         flagship_system,
         random_frames,
     )
+    from vaura_tpu_torch.utils.spans import recording
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batch", type=int, default=2)
@@ -137,25 +164,11 @@ def main() -> int:
 
         def run():
             return fn(frames, seed=0, **kw)
-
-        def encode():
-            return system._long_encode_segments(frames, None)
-
-        def decode_loop(feats):
-            return fn(vis_feats_segments=feats, seed=0, decode_to_audio=False,
-                      **kw)
     else:
         frames = random_frames(args.batch, gen, "cuda")
 
         def run():
             return system.generate(frames, seed=0, **GENERATE_KW)
-
-        def encode():
-            return system.visual_features(frames)
-
-        def decode_loop(feats):
-            return system.generate(vis_feats=feats, seed=0,
-                                   decode_to_audio=False, **GENERATE_KW)
 
     run()  # build kernels, warm up
     torch.cuda.synchronize()
@@ -167,18 +180,11 @@ def main() -> int:
     codes_shape = list(timed["codes"].shape)
     audio_s = args.batch * codes_shape[-1] / TOKENS_PER_SECOND
 
-    # the same call split by stage, under the profiler
-    stages = ("encoder", "decode_loop", "dac")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        with record_function("encoder"):
-            feats = encode()
-            torch.cuda.synchronize()
-        with record_function("decode_loop"):
-            out = decode_loop(feats)
-            torch.cuda.synchronize()
-        with record_function("dac"):
-            system.decode_audio(out["codes"])
-            torch.cuda.synchronize()
+    # the same call under the profiler, split by the program's spans
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+            recording() as records:
+        run()
+        torch.cuda.synchronize()
 
     mode = (f"int{args.cache_bits}_cache" if quantize_cache else "") + (
         "_int8_dots" if args.int8_dots else "") + (
@@ -190,7 +196,7 @@ def main() -> int:
               "nvidia_smi": nvidia_smi(), "mode": mode or "bf16",
               "codes_shape": codes_shape, "audio_seconds": audio_s,
               "wall_s": wall_s, "audio_s_per_s": audio_s / wall_s,
-              "stage_ms": stage_ms, "stages": stage_report(prof, stages)}
+              "stage_ms": stage_ms, "spans": span_report(prof, records)}
     os.makedirs(args.out, exist_ok=True)
     name = f"profile_generate_{mode}.json" if mode else "profile_generate.json"
     with open(os.path.join(args.out, name), "w") as f:
@@ -198,7 +204,7 @@ def main() -> int:
     print(f"{report['device']} ({report['nvidia_smi']}), {report['mode']}, "
           f"batch {args.batch}, codes {codes_shape}: wall {wall_s:.3f} s "
           f"({report['audio_s_per_s']:.3f} audio-s/s), stages (ms) {stage_ms}")
-    print_stages(report["stages"])
+    print_spans(report["spans"])
     return 0
 
 

@@ -5,11 +5,14 @@
 Builds the flagship training configuration (``flagship.py``: float32
 parameters, bf16 compute, unfrozen encoder, audio through the DAC encoder),
 takes two steps to warm up, times three with CUDA events (forward, backward,
-optimizer), then takes one more under ``torch.profiler`` and reports, for
-each of the three stages, the wall time, the device time summed over
-kernels, the device busy share, the launches and the kernels that take the
-most device time, and the peak memory. Writes ``profile_train.json`` into
-``--out``. Needs a CUDA card.
+optimizer), then takes one more under ``torch.profiler`` (the CUDA
+activity) with the program's spans recorded (``utils.spans``) and reports
+per span name (the three stages, ``train.codec_encode``,
+``train.encoder`` and the encoder's parts, ``train.sampler``,
+``train.loss``, ``train.backward``, ``train.optimizer``) the host time, the
+device time of the work issued inside the spans, the device busy share,
+the launches and the kernels that take the most device time, and the peak
+memory. Writes ``profile_train.json`` into ``--out``. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -17,34 +20,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-
-# range names no event of torch's own carries
-STAGES = ("train_step/forward", "train_step/backward", "train_step/optimizer")
-
-
-class _ProfilerClock:
-    """The ``clock`` of ``train_step`` as profiler ranges: the range of a
-    stage is open until the step marks its end, and ends after the device
-    has finished the stage's work."""
-
-    def __init__(self):
-        import torch
-        from torch.profiler import record_function
-
-        self._torch, self._record = torch, record_function
-        self._todo = list(STAGES)
-        self._open = None
-        self._next()
-
-    def _next(self):
-        self._open = self._record(self._todo.pop(0)) if self._todo else None
-        if self._open is not None:
-            self._open.__enter__()
-
-    def mark(self, name: str):
-        self._torch.cuda.synchronize()
-        self._open.__exit__(None, None, None)
-        self._next()
 
 
 def main() -> int:
@@ -58,11 +33,12 @@ def main() -> int:
     )
     from vaura_tpu_torch.profile_generate import (
         nvidia_smi,
-        print_stages,
-        stage_report,
+        print_spans,
+        span_report,
     )
     from vaura_tpu_torch.train.steps import make_train_step
     from vaura_tpu_torch.utils import StageClock
+    from vaura_tpu_torch.utils.spans import recording
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batch", type=int, default=2)
@@ -91,14 +67,17 @@ def main() -> int:
         timed.append({**clock.ms(), "loss": float(metrics["loss"])})
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        state, _ = train_step(state, batch, gen, clock=_ProfilerClock())
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+            recording() as records:
+        clock = StageClock(system.device)
+        clock.mark("start")
+        state, _ = train_step(state, batch, gen, clock=clock)
         torch.cuda.synchronize()
 
     report = {"device": torch.cuda.get_device_name(0), "batch": args.batch,
               "remat": args.remat, "nvidia_smi": nvidia_smi(),
               "step_ms": timed, "peak_mem_gib": peak_gib,
-              "stages": stage_report(prof, STAGES)}
+              "spans": span_report(prof, records)}
     os.makedirs(args.out, exist_ok=True)
     name = "profile_train_remat.json" if args.remat else "profile_train.json"
     with open(os.path.join(args.out, name), "w") as f:
@@ -108,7 +87,7 @@ def main() -> int:
     for t in timed:
         print("    " + ", ".join(f"{k} {v:.1f}" for k, v in t.items()
                                  if k != "loss") + f", loss {t['loss']:.5f}")
-    print_stages(report["stages"])
+    print_spans(report["spans"])
     return 0
 
 

@@ -25,6 +25,7 @@ import torch
 
 from vaura_tpu_torch.models.vaura import VauraSystem
 from vaura_tpu_torch.train.state import TrainState, replicated_leaves
+from vaura_tpu_torch.utils.spans import span
 
 
 def split_params(system: VauraSystem
@@ -103,7 +104,11 @@ def make_train_step(system: VauraSystem) -> Callable:
     ``vis_feats``) and ``audio`` (or ``codes``); the dropout masks come from
     ``generator``. The parameters
     in ``state`` are updated in place. ``clock.mark(name)``, when given, is
-    called after the forward, the backward and the optimizer."""
+    called after the forward, the backward and the optimizer. Spans
+    (``utils.spans``): ``train.codec_encode``, ``train.encoder``,
+    ``train.sampler`` and ``train.loss`` in the forward
+    (``VauraSystem.train_forward``), then ``train.backward`` and
+    ``train.optimizer``."""
 
     def train_step(state: TrainState, batch: dict,
                    generator: Optional[torch.Generator] = None, clock=None):
@@ -113,26 +118,28 @@ def make_train_step(system: VauraSystem) -> Callable:
             batch.get("frames"), batch.get("audio"), generator, train=True,
             vis_feats=batch.get("vis_feats"), codes=batch.get("codes"))
         mark("forward")
-        names = list(state.params)
-        pl = system.placement
-        if pl is None:
-            grads = torch.autograd.grad(
-                loss, [state.params[k] for k in names], allow_unused=True)
-        else:  # FSDP2 sums the shards' gradients into .grad
-            loss.backward()
-            grads = [state.params[k].grad for k in names]
-        # a leaf the loss does not reach has a zero gradient (and still
-        # decays), as in the JAX package
-        grads = {k: torch.zeros_like(state.params[k]) if g is None else g
-                 for k, g in zip(names, grads)}
-        if pl is not None:  # the LoRA adapters, outside FSDP2
-            rep = sorted(replicated_leaves(state.params))
-            pl.sum_replicated_grads(rep, [grads[k] for k in rep])
+        with span("train.backward"):
+            names = list(state.params)
+            pl = system.placement
+            if pl is None:
+                grads = torch.autograd.grad(
+                    loss, [state.params[k] for k in names], allow_unused=True)
+            else:  # FSDP2 sums the shards' gradients into .grad
+                loss.backward()
+                grads = [state.params[k].grad for k in names]
+            # a leaf the loss does not reach has a zero gradient (and still
+            # decays), as in the JAX package
+            grads = {k: torch.zeros_like(state.params[k]) if g is None else g
+                     for k, g in zip(names, grads)}
+            if pl is not None:  # the LoRA adapters, outside FSDP2
+                rep = sorted(replicated_leaves(state.params))
+                pl.sum_replicated_grads(rep, [grads[k] for k in rep])
         mark("backward")
-        state = state.apply_gradients(grads)
-        if system.placement is not None:
-            for p in state.params.values():
-                p.grad = None
+        with span("train.optimizer"):
+            state = state.apply_gradients(grads)
+            if system.placement is not None:
+                for p in state.params.values():
+                    p.grad = None
         mark("optimizer")
         return state, {
             "loss": system.batch_total(loss.detach()),

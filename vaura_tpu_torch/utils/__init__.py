@@ -10,6 +10,8 @@ from typing import Dict, Union
 import torch
 from torch import nn
 
+from vaura_tpu_torch.utils.spans import stage_edge
+
 DeviceLike = Union[str, torch.device, None]
 
 
@@ -33,13 +35,16 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 class StageClock:
     """Milliseconds between successive ``mark(name)`` calls, each interval
     under the name of the mark that ends it: CUDA events on the card (read
-    once, after the last mark), the host clock on the CPU."""
+    once, after the last mark), the host clock on the CPU. While spans are
+    recorded (``utils.spans``), each interval is a span of that name too."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
         self.marks = []
+        self._since = None  # the host time of the last mark, while recording
 
     def mark(self, name: str):
+        self._since = stage_edge(name, self._since)
         if self.cuda:
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
