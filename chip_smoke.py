@@ -37,7 +37,18 @@ result line):
              frames [2, 4, 3, 16, 224, 224] -> MotionFormer -> CFG 6.0,
              top-k 128 decode of 221 tokens -> DAC -> audio [2, 1, 113152],
              seeded random weights made on the card; every kernel's launch
-             counter is zeroed just before and read just after;
+             counter is zeroed just before and read just after, the
+             decode steps replayed from the CUDA graph of the step counted
+             (all but ``GRAPH_WARMUP_STEPS``);
+  3b. decode_graph  the decode loop replayed from a CUDA graph against
+             the eager loop on one seed, from features, at batch 2 (bf16
+             cache) and at batch 64 (int8 cache, as the benchmark serves):
+             the share of equal tokens (all), the steps replayed and run
+             eagerly, the launches of each run (a replay counts what its
+             recording launched), the host ms of the recording, of a
+             replayed step and of an eager step, the decode loop's ms and
+             the memory the graph's pool reserved (``decode_graph:
+             {...}``);
   4. int8    the same with the int8 KV cache (the serving default): every
              decode step through the int8 instantiation;
   5. train   the flagship training configuration (float32 parameters,
@@ -1180,6 +1191,8 @@ def phase_main(gen, report):
     }
     torch.cuda.synchronize()
     _zero_counters()
+    from vaura_tpu_torch.models import vaura as V
+    steps = V.replayed_steps, V.eager_steps
     t0 = time.time()
     out = system.generate(frames, seed=0, **GENERATE_KW)
     torch.cuda.synchronize()
@@ -1187,6 +1200,7 @@ def phase_main(gen, report):
     launches, forms = _counters(), _form_counts()
     from vaura_tpu_torch.ops import decode_attention as da
     device_pos = da.device_pos_launches
+    replayed, eager = V.replayed_steps - steps[0], V.eager_steps - steps[1]
     expected["grouped_cls_attention"] = 0  # inference takes the fused blocks
     expected["decode_attention_int8"] = 0
     codes, audio = out["codes"], out["audio"]
@@ -1194,6 +1208,7 @@ def phase_main(gen, report):
         "wall_s": wall, "stage_ms": out["stage_ms"], "launches": launches,
         "expected_launches": expected, "form_launches": forms,
         "decode_attention_device_pos_launches": device_pos,
+        "replayed_steps": replayed, "eager_steps": eager,
         "codes_shape": list(codes.shape),
         "audio_shape": list(audio.shape),
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -1223,9 +1238,118 @@ def phase_main(gen, report):
     if forms != {"cluster": expected["decode_attention"], "serve": 0}:
         problems.append(f"decode_attention at batch 2: launches by form "
                         f"{forms}, expected the cluster form only")
+    if (replayed, eager) != (n_steps - V.GRAPH_WARMUP_STEPS,
+                             V.GRAPH_WARMUP_STEPS):
+        problems.append(f"{replayed} decode steps replayed, {eager} eager, "
+                        f"expected all but {V.GRAPH_WARMUP_STEPS} of "
+                        f"{n_steps} replayed")
     if problems:
         raise AssertionError("; ".join(problems))
     return launches
+
+
+def _graph_or_eager(system, feats, eager: bool) -> dict:
+    """One generation from features (no codec, seed 0, the flagship's
+    sampling) with the graph loop, or with the eager loop (``eager``: no
+    loop reaches ``GRAPH_MIN_STEPS`` then); its codes, decode-loop ms,
+    steps replayed and run eagerly, launches and the host ms of its spans
+    by name."""
+    import torch
+
+    from vaura_tpu_torch.flagship import GENERATE_KW
+    from vaura_tpu_torch.models import vaura as V
+    from vaura_tpu_torch.utils.spans import recording
+
+    torch.cuda.synchronize()
+    _zero_counters()
+    steps = V.replayed_steps, V.eager_steps
+    reserved = torch.cuda.memory_reserved()
+    min_steps = V.GRAPH_MIN_STEPS
+    if eager:
+        V.GRAPH_MIN_STEPS = 1 << 30
+    try:
+        with recording() as records:
+            out = system.generate(vis_feats=feats, seed=0,
+                                  decode_to_audio=False, **GENERATE_KW)
+            torch.cuda.synchronize()
+    finally:
+        V.GRAPH_MIN_STEPS = min_steps
+    spans = {}
+    for name, _, a, b in records:
+        d = spans.setdefault(name, [0, 0.0])
+        d[0] += 1
+        d[1] += (b - a) / 1e6
+    return {"codes": out["codes"],
+            "decode_loop_ms": out["stage_ms"]["decode_loop"],
+            "replayed_steps": V.replayed_steps - steps[0],
+            "eager_steps": V.eager_steps - steps[1],
+            "launches": _counters(), "form_launches": _form_counts(),
+            "reserved_growth_mib": (torch.cuda.memory_reserved()
+                                    - reserved) / 2 ** 20,
+            "span_host_ms": {n: {"count": c, "mean_ms": ms / c}
+                             for n, (c, ms) in spans.items()}}
+
+
+def phase_decode_graph(report):
+    """The decode loop replayed from a CUDA graph against the eager loop
+    on one seed: batch 2 with the bf16 cache (``phase_main``'s flagship)
+    and batch 64 with the int8 cache (as the benchmark serves). Weights and
+    features come from a generator of its own, so the phases after it draw
+    from the shared one what they drew before this phase was added."""
+    import torch
+
+    from vaura_tpu_torch.flagship import GENERATE_KW, flagship_system
+    from vaura_tpu_torch.models import vaura as V
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    res, problems = {}, []
+    for tag, batch, overrides, kernel in (
+            ("b2_bf16", 2, {}, "decode_attention"),
+            ("b64_int8", 64, {"quantize_cache": True},
+             "decode_attention_int8")):
+        system = flagship_system("cuda", gen, sampler_overrides=overrides,
+                                 encoder=False)
+        cfg = system.sampler_config
+        feats = torch.randn(batch, 32, cfg.cond_in_dim, generator=gen,
+                            device="cuda")
+        n_steps = system.prepare_generation(
+            GENERATE_KW["max_new_tokens"])[2] - 1
+        want = {kernel: cfg.num_layers * n_steps}
+        _graph_or_eager(system, feats, False)  # the path warmed up
+        graph = _graph_or_eager(system, feats, False)
+        eager = _graph_or_eager(system, feats, True)
+        equal = float((graph["codes"] == eager["codes"]).float().mean())
+        r = {"batch": batch, "steps": n_steps, "equal_token_share": equal,
+             "expected_launches": want}
+        for side, run in (("graph", graph), ("eager", eager)):
+            r[side] = {k: v for k, v in run.items() if k != "codes"}
+        res[tag] = r
+        log(f"[decode_graph] {tag}: equal tokens {100 * equal:.4f}%; graph "
+            f"{graph['replayed_steps']} replayed + {graph['eager_steps']} "
+            f"eager steps, loop {graph['decode_loop_ms']:.1f} ms; eager "
+            f"loop {eager['decode_loop_ms']:.1f} ms; spans (host ms) "
+            f"{graph['span_host_ms']}; pool reserved "
+            f"{graph['reserved_growth_mib']:.1f} MiB")
+        if equal != 1.0:
+            problems.append(f"{tag}: {100 * equal:.4f}% of the replayed "
+                            "tokens equal the eager loop's")
+        if (graph["replayed_steps"], graph["eager_steps"]) != (
+                n_steps - V.GRAPH_WARMUP_STEPS, V.GRAPH_WARMUP_STEPS):
+            problems.append(f"{tag}: {graph['replayed_steps']} replayed, "
+                            f"{graph['eager_steps']} eager steps")
+        if (eager["replayed_steps"], eager["eager_steps"]) != (0, n_steps):
+            problems.append(f"{tag}: the eager loop replayed "
+                            f"{eager['replayed_steps']} steps")
+        for side, run in (("graph", graph), ("eager", eager)):
+            if _differs(run["launches"], want):
+                problems.append(f"{tag} {side}: launches {run['launches']}, "
+                                f"expected {want}")
+        del system
+        torch.cuda.empty_cache()
+    report["decode_graph"] = res
+    print("decode_graph: " + json.dumps(res, default=str))
+    if problems:
+        raise AssertionError("; ".join(problems))
 
 
 def _check_generation(tag, out, codes_shape, problems):
@@ -4688,6 +4812,7 @@ def main() -> int:
                                                  entry["tol"]):
             failed.append(f"{entry['name']} tolerance")
     launches = run("main", phase_main, gen, report) or {}
+    run("decode_graph", phase_decode_graph, report)
     int8_launches = run("int8", phase_int8, gen, report) or {}
     train_launches = run("train", phase_train, gen, report) or {}
     run("long", phase_long, gen, report)

@@ -25,7 +25,11 @@ step, ``generate_tokens``, ``generate_tokens_streaming``, ``generate``,
 ``generate_long``, ``long_chunk_schedule``, ``generate_long_kv``, the two
 streaming generators, ``decode_audio``). JAX runs the decode loop as a
 compiled ``lax.scan``; here it is a Python loop over steps whose position
-is a host integer, so nothing waits for the device inside it. The loop
+is a host integer, so nothing waits for the device inside it. On a card
+without a mesh ``generate_tokens`` records one step in the device-position
+form (position, noise and cache in buffers that live through the loop) as a
+CUDA graph and replays it: one graph launch a step for the ~1,200 kernel
+launches of the flagship's step (``_device_loop``). The loop
 keeps ONE preallocated cache ``[L, 2B, S, H_kv, hd]``: the decode-attention
 kernel reads only the rows below the current one, which is what
 ``decode_buckets`` achieved with chunk buffers on the TPU. The rolling cache
@@ -76,13 +80,16 @@ from vaura_tpu_torch.models.sampler import (
     use_adapters,
     use_weights,
 )
+from vaura_tpu_torch.ops import decode_attention as da
+from vaura_tpu_torch.ops import divided_attention as ga
+from vaura_tpu_torch.ops import encoder_fused as ef
 from vaura_tpu_torch.ops.dropout import batch_shard
 from vaura_tpu_torch.ops.losses import masked_codebook_cross_entropy
 from vaura_tpu_torch.ops.patterns import (
     CodebooksPatternProvider,
     DelayedPatternProvider,
 )
-from vaura_tpu_torch.ops.sampling import cfg_blend, sample_tokens
+from vaura_tpu_torch.ops.sampling import cfg_blend, draws_noise, sample_tokens
 from vaura_tpu_torch.train.lora import (
     DEFAULT_TARGETS,
     adapted_layers,
@@ -94,6 +101,62 @@ from vaura_tpu_torch.utils import DeviceLike, StageClock, resolve_device
 from vaura_tpu_torch.utils.spans import span
 
 UNKNOWN_TOKEN = -1
+
+# decode steps since import, kept as ``ops/decode_attention.py`` keeps its
+# launch counters: replayed from a CUDA graph of the step, or run eagerly
+# (every step of a loop that records no graph, and a graph's warm-up)
+replayed_steps = 0
+eager_steps = 0
+
+# the graph loop (``VauraSystem._device_loop``): eager steps on the capture
+# stream before the recording (they make the step's lazy state, such as
+# cuBLAS's workspace for that stream), and the fewest steps a loop must run
+# for the recording to pay: on an H100 the flagship's recording took 25-48
+# ms of host, an eager step 25 ms and a replay 0.015 ms, for 4-13 ms of
+# device work a step at batch 2-512, so a replay saves 12-25 ms
+# (``PERF.md`` §6, PR 21)
+GRAPH_WARMUP_STEPS = 1
+GRAPH_MIN_STEPS = 8
+
+# the kernel wrappers' launch counters, by module; a replayed step adds what
+# its recording launched
+_LAUNCH_COUNTERS = (
+    (da, ("launches", "device_pos_launches", "int8_launches", "int4_launches",
+          "int8_dots_launches", "form_launches")),
+    (ef, ("attention_launches", "mlp_launches")),
+    (ga, ("launches",)),
+)
+_capture_streams: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def _launch_counts() -> Dict[tuple, int]:
+    """``{(module, name, key): count}`` of ``_LAUNCH_COUNTERS`` (``key`` the
+    entry of a counter that is a dict, else None)."""
+    out = {}
+    for mod, names in _LAUNCH_COUNTERS:
+        for name in names:
+            value = getattr(mod, name)
+            if isinstance(value, dict):
+                out.update(((mod, name, k), v) for k, v in value.items())
+            else:
+                out[(mod, name, None)] = value
+    return out
+
+
+def _add_launch_counts(counts: Dict[tuple, int]) -> None:
+    for (mod, name, key), n in counts.items():
+        if key is None:
+            setattr(mod, name, getattr(mod, name) + n)
+        else:
+            getattr(mod, name)[key] += n
+
+
+def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The side stream on which the graph loop warms up and records (a
+    graph cannot be recorded on the default stream); one a device."""
+    if device not in _capture_streams:
+        _capture_streams[device] = torch.cuda.Stream(device)
+    return _capture_streams[device]
 
 
 def _largest_divisor(n: int, cap: int) -> int:
@@ -535,19 +598,21 @@ class VauraSystem(nn.Module):
                         generator: Optional[torch.Generator], *,
                         use_sampling: bool, temp: float, top_k: int,
                         top_p: float, cfg_scale: float,
-                        row=None) -> None:
+                        row=None,
+                        noise: Optional[torch.Tensor] = None) -> None:
         """Step ``s``: feed the token at ``s-1``, advance the cache (its row
         ``row``, by default ``s-1``), blend CFG, sample, force the special
         token on invalid codebook slots and write ``gen_seq[:, :, s]`` where
         it is still UNKNOWN (prompt tokens win). Updates ``gen_seq`` and
         ``cache`` in place. ``s`` (and ``row``) may be 0-d int64 tensors on
-        the device: the device-position form (``step_rows``), whose writes
-        are ``index_copy_``."""
+        the device: the device-position form (``step_rows``, which takes
+        ``noise``), whose writes are ``index_copy_``."""
         kw = dict(use_sampling=use_sampling, temp=temp, top_k=top_k,
                   top_p=top_p, cfg_scale=cfg_scale)
         if isinstance(s, torch.Tensor):
             col, rows = self.step_rows(cache, gen_seq, cond_seq, s,
-                                       valid_mask, generator, row=row, **kw)
+                                       valid_mask, generator, row=row,
+                                       noise=noise, **kw)
             self.sampler.commit_rows(cache, rows, s - 1 if row is None
                                      else row)
             gen_seq.index_copy_(2, s.reshape(1), col.unsqueeze(2))
@@ -644,7 +709,13 @@ class VauraSystem(nn.Module):
         and is not made. Under ``int8_dots`` (with a quantized cache) the
         attention probabilities are quantized per chunk, and the chunks'
         first rows (``chunk_bounds``) become the cache's
-        ``chunk_starts``."""
+        ``chunk_starts``.
+
+        On a card without a mesh, with at least ``GRAPH_MIN_STEPS`` steps,
+        the steps are replayed from a CUDA graph (``_device_loop``): the
+        same kernels on the same values, the same draws from
+        ``generator``."""
+        global eager_steps
         cache = (initial_cache if initial_cache is not None else
                  self.sampler.init_cache(cond_seq.shape[0], S, dtype=cache_dtype))
         if self._quantizes_probs():
@@ -653,12 +724,103 @@ class VauraSystem(nn.Module):
                 dtype=torch.int32, device=cache["k"].device)
         gen_seq = gen_seq_init.clone()
         vm = torch.as_tensor(valid_mask, device=gen_seq.device)
-        for s in range(start_step, S):
-            self.generation_step(
-                cache, gen_seq, cond_seq, s, vm, generator,
-                use_sampling=use_sampling, temp=temp, top_k=top_k, top_p=top_p,
-                cfg_scale=cfg_scale)
+        kw = dict(use_sampling=use_sampling, temp=temp, top_k=top_k,
+                  top_p=top_p, cfg_scale=cfg_scale)
+        steps = range(start_step, S)
+        if self._replays_steps(cache, len(steps)):
+            with torch.cuda.device_of(gen_seq):  # its device's streams
+                self._device_loop(cache, gen_seq, cond_seq, vm, generator,
+                                  steps, graph=True, **kw)
+            return gen_seq
+        for s in steps:
+            self.generation_step(cache, gen_seq, cond_seq, s, vm, generator,
+                                 **kw)
+        eager_steps += len(steps)
         return gen_seq
+
+    def _replays_steps(self, cache, steps: int) -> bool:
+        """Whether ``generate_tokens`` replays its steps from a CUDA graph:
+        the cache on a card, no mesh (tensor parallelism's all-reduces stay
+        eager) and at least ``GRAPH_MIN_STEPS`` steps to run."""
+        return (cache["k"].is_cuda and self.placement is None
+                and steps >= GRAPH_MIN_STEPS)
+
+    def _device_loop(self, cache, gen_seq: torch.Tensor,
+                     cond_seq: torch.Tensor, valid_mask: torch.Tensor,
+                     generator: Optional[torch.Generator], steps: range, *,
+                     graph: bool, **kw) -> None:
+        """Steps ``steps`` in the device-position form, in place: the
+        position a 0-d int64 tensor that each step advances by one, and
+        before each step the sampling's uniform draw made from
+        ``generator`` into one buffer (``uniform_noise``'s values, in its
+        order). The step reads and writes only tensors that live through
+        the loop, so with ``graph`` the loop runs the first
+        ``GRAPH_WARMUP_STEPS`` eagerly on a side stream, records the next
+        as a CUDA graph there (span ``decode_capture``) and replays it for
+        that step and every later one on the current stream (span
+        ``decode_step.replay``). A replay adds to the launch counters what
+        its recording launched; the recording counts none. The graph and
+        its memory pool go when the loop ends, the pool's memory back to the
+        card (without a pool of its own a released graph's memory stays
+        reserved: ~0.9 GiB a call at batch 512). Without ``graph`` every
+        step runs eagerly on the current stream."""
+        global replayed_steps, eager_steps
+        dev = gen_seq.device
+        s = torch.full((), steps.start, dtype=torch.int64, device=dev)
+        noise = None
+        if draws_noise(kw["use_sampling"], kw["temp"]):
+            noise = torch.empty(gen_seq.shape[0], self.num_codebooks,
+                                self.sampler_config.d_codebook, device=dev)
+
+        def draw():
+            if noise is not None:
+                noise.uniform_(generator=generator)
+
+        def step():
+            self.generation_step(cache, gen_seq, cond_seq, s, valid_mask,
+                                 None, noise=noise, **kw)
+            s.add_(1)
+
+        n_eager = min(GRAPH_WARMUP_STEPS, len(steps)) if graph else len(steps)
+        side = _capture_stream(dev) if graph else None
+        if graph:  # the side stream reads what the current one wrote
+            torch.cuda.current_stream(dev).synchronize()
+        with torch.cuda.stream(side) if graph else contextlib.nullcontext():
+            for _ in range(n_eager):
+                with span("decode_step"):
+                    draw()
+                    step()
+        eager_steps += n_eager
+        if n_eager == len(steps):
+            return
+        # the recording's memory: a pool of its own, whose segments go back
+        # to the card when the pool goes (after the graph, its other user)
+        pool = torch.cuda.MemPool()
+        recording = torch.cuda.CUDAGraph()
+        try:
+            with span("decode_capture"):  # while the warm-up runs
+                before = _launch_counts()
+                with torch.cuda.stream(side):
+                    recording.capture_begin(pool=pool.id,
+                                            capture_error_mode="thread_local")
+                    try:
+                        step()
+                    finally:
+                        recording.capture_end()
+                after = _launch_counts()
+                recorded = {k: after[k] - n for k, n in before.items()
+                            if after[k] != n}
+                _add_launch_counts({k: -n for k, n in recorded.items()})
+            side.synchronize()  # the replays read what the warm-up wrote
+            for _ in range(len(steps) - n_eager):
+                with span("decode_step"):
+                    draw()
+                    with span("decode_step.replay"):
+                        recording.replay()
+                _add_launch_counts(recorded)
+                replayed_steps += 1
+        finally:
+            recording.reset()
 
     @torch.no_grad()
     @_gathers_weights
@@ -1013,6 +1175,7 @@ class VauraSystem(nn.Module):
         ``row`` (its buffer row) is what ``decode_step`` writes and bounds
         attention with; RoPE scores depend only on position differences, so
         K/V keep their rows' values when they move."""
+        global eager_steps
         eff, bounds, kept_per_seg = self.rolling_cache_plan(
             S, chunk_steps, window_chunks, sink_chunks)
         size = lambda i: bounds[i + 1] - bounds[i]
@@ -1049,6 +1212,7 @@ class VauraSystem(nn.Module):
                     use_sampling=use_sampling, temp=temp, top_k=top_k,
                     top_p=top_p, cfg_scale=cfg_scale,
                     row=offset[j] + (s - 1) - bounds[j])
+            eager_steps += hi - lo
             lo = hi
             yield hi, gen_seq
 

@@ -11,7 +11,12 @@ the program's spans recorded (``utils.spans``), and reports per span name
 (the stages, ``encoder.*``, ``decode_setup``, ``decode_step`` and its
 forward and sampling, ``decode_revert``, ``dac.slice``) the host time, the
 device time of the work issued inside the spans, the device busy share and
-the launches, plus the kernels that take the most device time.
+the launches, plus the kernels that take the most device time. On one card
+the decode loop replays its step from a CUDA graph (``VauraSystem.
+_device_loop``): the report gives the share of the call's steps replayed,
+and a decode step's host and device ms as a replay (``decode_step.replay``)
+against the eager step's forward (``decode_step.forward``), from the same
+call profiled once more with the eager loop.
 ``--quantize-cache`` runs it with the int8 KV cache (the JAX package's
 serving default), ``--cache-bits 4`` with the int4 cache, ``--int8-dots``
 with the int8 x int8 attention products (both imply a quantized cache),
@@ -112,6 +117,39 @@ def print_spans(spans: dict) -> None:
             print(f"    {k['ms']:9.2f} ms {k['launches']:6d}x  {k['name']}")
 
 
+def replay_report(graphed: dict, eager: dict, replayed: int,
+                  eager_steps: int) -> dict:
+    """The share of a call's decode steps replayed from the graph, and a
+    step's host and device ms in ``decode_step.replay`` (``graphed``, a
+    ``span_report`` of the graph loop) and ``decode_step.forward``
+    (``eager``, of the eager loop); None where a span is missing."""
+    def per_step(spans, name):
+        st = spans.get(name)
+        if not st:
+            return None
+        return {"host_ms": st["host_ms"] / st["count"],
+                "device_ms": st["device_busy_ms"] / st["count"],
+                "launches": st["launches"] / st["count"]}
+
+    total = replayed + eager_steps
+    return {"replayed_steps": replayed, "eager_steps": eager_steps,
+            "replayed_share": replayed / total if total else None,
+            "decode_step.replay": per_step(graphed, "decode_step.replay"),
+            "decode_step.forward": per_step(eager, "decode_step.forward")}
+
+
+def print_replay(rep: dict) -> None:
+    share = rep["replayed_share"]
+    print(f"decode steps replayed: {rep['replayed_steps']} of "
+          f"{rep['replayed_steps'] + rep['eager_steps']}"
+          + (f" ({100 * share:.2f}%)" if share is not None else ""))
+    for name in ("decode_step.replay", "decode_step.forward"):
+        st = rep[name]
+        if st:
+            print(f"  {name} a step: host {st['host_ms']:.3f} ms, device "
+                  f"{st['device_ms']:.3f} ms, {st['launches']:.1f} launches")
+
+
 def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -127,6 +165,7 @@ def main() -> int:
         flagship_system,
         random_frames,
     )
+    from vaura_tpu_torch.models import vaura as V
     from vaura_tpu_torch.utils.spans import recording
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -180,11 +219,24 @@ def main() -> int:
     codes_shape = list(timed["codes"].shape)
     audio_s = args.batch * codes_shape[-1] / TOKENS_PER_SECOND
 
-    # the same call under the profiler, split by the program's spans
-    with profile(activities=[ProfilerActivity.CUDA]) as prof, \
-            recording() as records:
-        run()
-        torch.cuda.synchronize()
+    def profiled():
+        """The call under the profiler, split by the program's spans, with
+        the decode steps it replayed and ran eagerly."""
+        steps = V.replayed_steps, V.eager_steps
+        with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+                recording() as records:
+            run()
+            torch.cuda.synchronize()
+        return (span_report(prof, records), V.replayed_steps - steps[0],
+                V.eager_steps - steps[1])
+
+    spans, replayed, eager_steps = profiled()
+    # the same call with the eager loop: no loop has this many steps
+    min_steps, V.GRAPH_MIN_STEPS = V.GRAPH_MIN_STEPS, 1 << 30
+    try:
+        eager_spans = profiled()[0]
+    finally:
+        V.GRAPH_MIN_STEPS = min_steps
 
     mode = (f"int{args.cache_bits}_cache" if quantize_cache else "") + (
         "_int8_dots" if args.int8_dots else "") + (
@@ -196,7 +248,10 @@ def main() -> int:
               "nvidia_smi": nvidia_smi(), "mode": mode or "bf16",
               "codes_shape": codes_shape, "audio_seconds": audio_s,
               "wall_s": wall_s, "audio_s_per_s": audio_s / wall_s,
-              "stage_ms": stage_ms, "spans": span_report(prof, records)}
+              "stage_ms": stage_ms, "spans": spans,
+              "eager_loop_spans": eager_spans,
+              "replay": replay_report(spans, eager_spans, replayed,
+                                      eager_steps)}
     os.makedirs(args.out, exist_ok=True)
     name = f"profile_generate_{mode}.json" if mode else "profile_generate.json"
     with open(os.path.join(args.out, name), "w") as f:
@@ -205,6 +260,7 @@ def main() -> int:
           f"batch {args.batch}, codes {codes_shape}: wall {wall_s:.3f} s "
           f"({report['audio_s_per_s']:.3f} audio-s/s), stages (ms) {stage_ms}")
     print_spans(report["spans"])
+    print_replay(report["replay"])
     return 0
 
 
