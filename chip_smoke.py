@@ -208,6 +208,20 @@ result line):
              datamodule. Every value finite and positive under the JAX
              bench's metric names, with the card's name
              (``bench: {...}``).
+ 18. mla_moe the DeepSeek-V3 sampler (Moonlight-16B-A3B's block) at its
+             published widths (``port_bench/configs/vaura_moonlight16b.json``;
+             the latent-attention kernel against its plain version is a
+             kernel check, ``check_mla_decode_attention``): 2 clips
+             prefilled and decoded through the latent cache, eagerly and
+             replayed from a CUDA graph, every position's logits against
+             the float32 reference following the program's routing (with
+             the float8-cache control beside); one B=512 generation (steps
+             replayed, wall, the kernel's launches held to one a layer and
+             step); the generate action from
+             ``configs/generate_vgg_moonlight.yaml``, its launches held the
+             same way (``mla_moe: {...}``). ``python3 chip_smoke.py --phase
+             <name>`` runs the one phase ``phase_<name>`` alone, without
+             the kernel checks.
 
 It prints the action runs' wall times and audio-s/s (``action: {...}``),
 the train action's runs (``train_action: {...}``),
@@ -1160,8 +1174,10 @@ def _zero_counters():
     from vaura_tpu_torch.ops import decode_attention as da
     from vaura_tpu_torch.ops import divided_attention as ga
     from vaura_tpu_torch.ops import encoder_fused as ef
+    from vaura_tpu_torch.ops import mla_decode_attention as mla
 
     da.launches = ef.attention_launches = ef.mlp_launches = ga.launches = 0
+    mla.launches = 0
     da.device_pos_launches = da.int8_launches = 0
     da.int4_launches = da.int8_dots_launches = 0
     for form in da.form_launches:
@@ -1817,6 +1833,272 @@ def phase_reference(gen, report):
     del card, cpu
     _reference_train(gen, res)
     _reference_int8(gen, res)
+
+
+# latent attention: the kernel's output against its plain version (same
+# bf16 inputs, float32 outputs of about 1-5): the plain version rounds the
+# probabilities to bf16 against the global maximum, the kernel against
+# each tile's running one, and sums in another order (measured ~3e-3)
+TOL_MLA = 1e-2
+# the DeepSeek-V3 sampler at published widths in bf16 against the float32
+# reference following its routing: the relative L2 error of each
+# position's logits [K, V] (27 layers of bf16 weights and activations:
+# 1.9% over a whole forward, 2.3% at the worst of 96 positions, measured)
+# and the widest route gap (the program's choices below the reference's
+# own top-k, in sigmoid-score units: bf16 scores at near-ties, 0.011
+# measured over 96 positions and 26 layers; a missing expert reads 1)
+TOL_MLA_MOE_REL = 4e-2
+TOL_MLA_MOE_ROUTE = 3e-2
+MOONLIGHT = os.path.join("port_bench", "configs", "vaura_moonlight16b.json")
+
+
+def check_mla_decode_attention(gen, B=1024, H=16, S=230, R=512, r=64):
+    """The latent-attention decode kernel (``ops/mla_decode_attention.py``,
+    Triton) at the Moonlight cell's shapes (B = 512 clips x 2 for CFG, 16
+    heads, a 230-row cache of 512 + 64 values), ``pos`` in device memory,
+    at positions 0 .. 229 in steps of 13 against its plain version, then
+    timed at the last position (the bound: the cache's bytes over 3.35
+    TB/s), beside SDPA on the rows expanded to every head."""
+    import torch
+    import torch.nn.functional as F
+
+    from vaura_tpu_torch.ops import mla_decode_attention as M
+
+    q = torch.randn(B, H, R + r, device="cuda", generator=gen).bfloat16()
+    c = torch.randn(B, S, R, device="cuda", generator=gen).bfloat16()
+    pe = torch.randn(B, S, r, device="cuda", generator=gen).bfloat16()
+    cn = torch.randn(B, R, device="cuda", generator=gen).bfloat16()
+    pn = torch.randn(B, r, device="cuda", generator=gen).bfloat16()
+    scale = (128 + r) ** -0.5
+    err = 0.0
+    for p in list(range(0, S, 13)) + [S - 1]:
+        pos = torch.full((1,), p, dtype=torch.int32, device="cuda")
+        got = M.mla_decode_attention(q, c, pe, cn, pn, pos, scale)
+        want = M.mla_decode_attention_plain(q, c, pe, cn, pn, pos, scale)
+        err = max(err, max_err(got, want))
+    pos = torch.full((1,), S - 1, dtype=torch.int32, device="cuda")
+    ms = cuda_ms(lambda: M.mla_decode_attention(q, c, pe, cn, pn, pos, scale), 50)
+    plain_ms = cuda_ms(lambda: M.mla_decode_attention_plain(
+        q, c, pe, cn, pn, pos, scale), 5)
+    keys = torch.cat([c, pe], -1)[:, None].expand(B, H, S, R + r)
+    vals = c[:, None].expand(B, H, S, R)
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], keys[:, :, :S - 1], vals[:, :, :S - 1], scale=scale), 20)
+    bytes_ = B * ((S - 1) * (R + r) * 2 + H * (R + r) * 2 + (R + r) * 2
+                  + H * R * 4)
+    entry = {"name": "mla_decode_attention",
+             "route": "Triton, ops/mla_decode_attention.py, 1 launch a call",
+             "source": "vaura_tpu_torch/ops/mla_decode_attention.py",
+             "replaces": "none (the JAX package has no latent attention)",
+             "max_abs_err": err, "tol": TOL_MLA, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bytes_ / 3.35e12 * 1e3,
+             "bound_by": "bytes", "library_ms": lib}
+    log(f"[mla_decode_attention] B={B} S={S}: max err {err:.3e}, "
+        f"{ms:.4f} ms (bound {entry['bound_ms']:.4f}, plain {plain_ms:.3f}, "
+        f"SDPA {lib:.4f})")
+    return entry
+
+
+def _moonlight(seed: int):
+    """The Moonlight sampler as the benchmark builds it (its weights from
+    the seed, one copy), and the configuration."""
+    import torch
+
+    from port_bench.traffic import generate_mla_moe
+
+    config = json.loads(open(os.path.join(ROOT, MOONLIGHT)).read())
+    system, made = generate_mla_moe.build(config, torch.device("cuda"), seed)
+    return system, made, config
+
+
+def phase_mla_moe(gen, report):
+    """The DeepSeek-V3 sampler at published widths (Moonlight-16B-A3B's
+    block, ``port_bench/configs/vaura_moonlight16b.json``), bf16:
+    (a) 2 clips of 48 positions: ``prefill`` of 16, then decode steps
+    through the latent cache (host positions, eager) and the same steps
+    replayed from a CUDA graph of the device-position step, every
+    position's logits against the float32 reference's full forward, which
+    follows the program's routing (``route_gap`` judges the choices); the
+    latent cache rounded through float8 (a control) beside; (b) one
+    generation at B = 512 from features (CFG 6, top-k 128, 221 tokens):
+    the steps replayed, the kernel's launches, the wall; (c) the generate
+    action from ``configs/generate_vgg_moonlight.yaml`` at its batch of 16
+    (the dummy datamodule, seeded weights): WAVs written."""
+    import shutil
+
+    import torch
+
+    from port_bench import check
+    from port_bench.reference import sampler_mla_moe as ref
+    from vaura_tpu_torch.main import main as port_main
+    from vaura_tpu_torch.models import vaura as V
+    from vaura_tpu_torch.models.sampler import MoEFeedForward
+    from vaura_tpu_torch.ops import mla_decode_attention as M
+    from vaura_tpu_torch.ops.patterns import DelayedPatternProvider
+
+    res, problems = {}, []
+    system, made, config = _moonlight(7)
+    s, scfg = system.sampler, config["sampler"]
+    L = system.sampler_config.moe_layers
+    B, K, T, P = 2, 9, 48, 16
+    g = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(0, 1024, (B, K, T), device="cuda", generator=g)
+    feats = torch.randn(B, 32, 768, device="cuda", generator=g)
+    cond = s.build_cond_seq(s.embed_cond(feats), T, 7)
+    moe = [l.feed_forward for l in s.layers
+           if isinstance(l.feed_forward, MoEFeedForward)]
+
+    def decode(rounding=None, graph=False):
+        """Logits [B, K, T] of prefill + decode, and the routes [T, L, B, k]."""
+        store = s._store
+        if rounding:
+            s._store = lambda k_, v_: {n: t.to(rounding).to(t.dtype)
+                                       for n, t in store(k_, v_).items()}
+        try:
+            with torch.no_grad():
+                logits, pre = s.prefill(tokens[:, :, :P], cond[:, :P])
+                routes = torch.full((T, L, B, 6), 255, dtype=torch.uint8,
+                                    device="cuda")
+                routes[:P] = torch.stack([ff.routed_choice.reshape(B, P, 6)
+                                          for ff in moe], 1).permute(2, 1, 0, 3)
+                cache = s.init_cache(B, T)
+                for n in ("c", "k_pe"):
+                    cache[n][:, :, :P] = pre[n]
+                s.expert_choices = routes
+                out = [logits[:, :, p] for p in range(P)]
+                if not graph:
+                    for p in range(P, T):
+                        out.append(s.decode_step(tokens[:, :, p:p + 1],
+                                                 cond[:, p:p + 1], cache, p))
+                else:
+                    tok = tokens[:, :, P:P + 1].clone()
+                    cnd = cond[:, P:P + 1].clone()
+                    pos = torch.full((), P, dtype=torch.int64, device="cuda")
+                    buf = torch.empty(B, K, 1024, device="cuda")
+
+                    def step():
+                        lg, rows = s.decode_rows(tok, cnd, cache, pos)
+                        s.commit_rows(cache, rows, pos)
+                        buf.copy_(lg)
+                    side = torch.cuda.Stream()
+                    side.wait_stream(torch.cuda.current_stream())
+                    graph_ = torch.cuda.CUDAGraph()
+                    with torch.cuda.stream(side):
+                        step()  # the eager warm-up writes position P
+                        out.append(buf.clone())
+                        with torch.cuda.graph(graph_, stream=side):
+                            step()
+                    torch.cuda.current_stream().wait_stream(side)
+                    for p in range(P + 1, T):
+                        pos.fill_(p)
+                        tok.copy_(tokens[:, :, p:p + 1])
+                        cnd.copy_(cond[:, p:p + 1])
+                        graph_.replay()
+                        out.append(buf.clone())
+                return torch.stack(out, 2).float(), routes
+        finally:
+            s._store = store
+            s.expert_choices = None
+
+    eager, routes = decode()
+    launches = M.launches
+    replay, routes_g = decode(graph=True)
+    res["replay_launches"] = M.launches - launches
+    fp8, routes_f = decode(rounding=torch.float8_e4m3fn)
+    with torch.no_grad(), check.exact_matmuls():
+        def reference(r):
+            gaps = []
+            sd = made["sampler"]
+            c_ = ref.S.cond_sequence(sd, ref.S.project_cond(sd, feats), T, 7)
+            return ref.forward(sd, scfg, tokens, c_, r, gaps), max(
+                float(t.max()) for t in gaps)
+        want, gap = reference(routes)
+        want_g, gap_g = reference(routes_g)
+        want_f, gap_f = reference(routes_f)
+
+    def rel(a, b):
+        return ((a - b).pow(2).sum((1, 3)) / b.pow(2).sum((1, 3))).sqrt()
+
+    res["eager_rel"] = rel(eager, want).max().item()
+    res["replay_rel"] = rel(replay, want_g).max().item()
+    res["replay_vs_eager_max_abs"] = max_err(replay, eager)
+    res["fp8_rel"] = rel(fp8, want_f).max().item()
+    res["route_gap"] = {"eager": gap, "replay": gap_g, "fp8": gap_f}
+    res["per_position_rel"] = rel(eager, want).max(0).values.tolist()
+    log(f"[mla_moe] logits vs reference (relative L2 a position, worst): "
+        f"eager {res['eager_rel']:.4f}, replayed {res['replay_rel']:.4f} "
+        f"(replay vs eager max abs {res['replay_vs_eager_max_abs']:.3e}), "
+        f"fp8 latent cache {res['fp8_rel']:.4f}; route gap {res['route_gap']}")
+    for tag in ("eager_rel", "replay_rel"):
+        if not res[tag] <= TOL_MLA_MOE_REL:
+            problems.append(f"{tag} {res[tag]:.4f} > {TOL_MLA_MOE_REL}")
+    if not max(gap, gap_g) <= TOL_MLA_MOE_ROUTE:
+        problems.append(f"route gap {max(gap, gap_g)} > {TOL_MLA_MOE_ROUTE}")
+    # the warm-up step and the recording (a replay launches without the
+    # wrapper): one launch a layer each
+    if res["replay_launches"] != 2 * 27:
+        problems.append(f"the replayed decode's warm-up and recording "
+                        f"launched the kernel {res['replay_launches']} "
+                        "times, not 54")
+
+    # (b) the cell's batch through VauraSystem.generate: one launch a
+    # layer and step, a replay counting what its recording launched
+    x = torch.randn(512, 32, 768, device="cuda", generator=g)
+    n_layers = system.sampler_config.num_layers
+    want_b = n_layers * (system.prepare_generation(221)[2] - 1)
+    replayed, eager_n = V.replayed_steps, V.eager_steps
+    torch.cuda.synchronize()
+    _zero_counters()
+    t0 = time.time()
+    out = system.generate(vis_feats=x, max_new_tokens=221, cfg_scale=6.0,
+                          top_k=128, tokens_per_frame=7, dac_chunk_size=32,
+                          seed=5)
+    torch.cuda.synchronize()
+    res["b512"] = {"wall_s": time.time() - t0, "stage_ms": out["stage_ms"],
+                   "replayed": V.replayed_steps - replayed,
+                   "eager": V.eager_steps - eager_n,
+                   "mla_launches": M.launches,
+                   "expected_mla_launches": want_b,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    log(f"[mla_moe] B=512: {res['b512']}")
+    codes = out["codes"]
+    if res["b512"]["replayed"] < 227 or not (
+            0 <= int(codes.min()) and int(codes.max()) < 1024):
+        problems.append(f"B=512 generation: {res['b512']}")
+    if M.launches != want_b:
+        problems.append(f"B=512 generation: {M.launches} launches of "
+                        f"mla_decode_attention, expected {want_b}")
+    del out, system, made, s, x
+    torch.cuda.empty_cache()
+
+    # (c) the generate action, as a user runs it
+    root = os.path.join(OUT_DIR, "action", "moonlight")
+    shutil.rmtree(root, ignore_errors=True)
+    tokens_c = int(2.56 * 86)  # the yaml's 2.56 s clips
+    want_c = n_layers * (DelayedPatternProvider(9).get_pattern(
+        tokens_c)._build_seq_tables(tokens_c)[1].shape[1] - 1)
+    _zero_counters()
+    t0 = time.time()
+    result = port_main([
+        f"config={os.path.join(ROOT, 'configs/generate_vgg_moonlight.yaml')}",
+        "dataloader.dataset_type=dummy", "dataloader.num_workers=0",
+        "max_batches=1", f"output_dir={root}"])
+    wavs = sorted(f for f in os.listdir(root) if f.endswith(".wav"))
+    res["action"] = {"wall_s": time.time() - t0,
+                     "num_generated": result["num_generated"],
+                     "wavs": len(wavs), "mla_launches": M.launches,
+                     "expected_mla_launches": want_c}
+    log(f"[mla_moe] generate action: {res['action']}")
+    if result["num_generated"] != 16 or len(wavs) != 16 or \
+            M.launches != want_c:
+        problems.append(f"generate action: {res['action']}")
+    torch.cuda.empty_cache()
+    report["mla_moe"] = res
+    if problems:
+        raise AssertionError("; ".join(problems))
+    # the main paths' own launches: (b) and (c), not the checks before
+    return {"mla_decode_attention": res["b512"]["mla_launches"]
+            + res["action"]["mla_launches"]}
 
 
 # the generate action's runs: (tag, config, extra CLI arguments, batch,
@@ -4792,12 +5074,21 @@ def main() -> int:
             return None
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if sys.argv[1:2] == ["--phase"]:  # one phase alone, e.g. mla_moe
+        run(sys.argv[2], globals()["phase_" + sys.argv[2]], gen, report)
+        report["failed"] = failed
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, f"chip_smoke_{sys.argv[2]}.json"),
+                  "w") as f:
+            json.dump(report, f, indent=1, default=str)
+        print(json.dumps({"ok": not failed, "failed": failed}))
+        return 1 if failed else 0
     run("build", phase_build, report)
     kernels = []
     checks = (check_decode_attention, check_decode_attention_int8,
               check_decode_attention_int4, check_decode_attention_int8_dots,
               check_encoder_attention, check_encoder_mlp,
-              check_grouped_cls_attention)
+              check_grouped_cls_attention, check_mla_decode_attention)
     for check in checks:
         entry = run(check.__name__, check, gen)
         if entry is None:
@@ -4833,6 +5124,7 @@ def main() -> int:
     run("quant_quality", phase_quant_quality, gen, report)
     mesh_launches = run("mesh", phase_mesh, gen, report) or {}
     bench_launches = run("bench", phase_bench, gen, report) or {}
+    mla_launches = run("mla_moe", phase_mla_moe, gen, report) or {}
     if (report.get("finetune") or {}).get("tmp"):  # L's experiment
         import shutil
 
@@ -4859,7 +5151,8 @@ def main() -> int:
             + variant_launches.get(name, 0)
             + quant_launches.get(name, 0)
             + mesh_launches.get(name, 0)
-            + bench_launches.get(name, 0))
+            + bench_launches.get(name, 0)
+            + mla_launches.get(name, 0))
     report["kernels"] = kernels
     report["failed"] = failed
     os.makedirs(OUT_DIR, exist_ok=True)

@@ -186,6 +186,7 @@ def launch_counts() -> dict:
     from vaura_tpu_torch.ops import decode_attention as da
     from vaura_tpu_torch.ops import divided_attention as ga
     from vaura_tpu_torch.ops import encoder_fused as ef
+    from vaura_tpu_torch.ops import mla_decode_attention as mla
 
     return {"decode_attention": da.launches - da.int8_launches
             - da.int4_launches - da.int8_dots_launches,
@@ -194,7 +195,8 @@ def launch_counts() -> dict:
             "decode_attention_int8_dots": da.int8_dots_launches,
             "encoder_attention": ef.attention_launches,
             "encoder_mlp": ef.mlp_launches,
-            "grouped_cls_attention": ga.launches}
+            "grouped_cls_attention": ga.launches,
+            "mla_decode_attention": mla.launches}
 
 
 def _free_port() -> int:

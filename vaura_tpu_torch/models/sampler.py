@@ -47,6 +47,17 @@ registered operator ``torch.ops.vaura_torch.decode_attention``
 ``quantize_weights`` stores the decoder blocks' and the LM head's matmul
 weights as int8 with per-output-channel scales (``kernel_q``/``scale``,
 ``ops/quantization.py::quant_dense``), as the JAX package's ``PDense``.
+
+The DeepSeek-V3 block (``SamplerConfig``'s keys of its config.json, e.g.
+``configs/modules/samplers/moonlight_9cbs.yaml``; the port's own, the JAX
+package has none) replaces the Llama block: latent attention
+(``LatentAttention``), whose cache is ``c [L, B, S, kv_lora_rank]`` and
+``k_pe [L, B, S, qk_rope_head_dim]`` in the compute dtype, read by the
+absorbed decode through ``ops/mla_decode_attention.py``; and, after the
+first ``first_k_dense_replace`` dense layers, routed experts
+(``MoEFeedForward``). It generates only: the int8 and int4 caches, int8
+weights, LoRA, the mesh, the rolling cache, export and training raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -77,6 +88,7 @@ from vaura_tpu_torch.ops.dropout import (
     dropout,
     uniform,
 )
+from vaura_tpu_torch.ops.mla_decode_attention import mla_decode_attention
 from vaura_tpu_torch.ops.quantization import (
     quant_dense,
     quantize_kv,
@@ -85,6 +97,7 @@ from vaura_tpu_torch.ops.quantization import (
 from vaura_tpu_torch.ops.rope import apply_rotary_emb, precompute_freqs_cis
 from vaura_tpu_torch.parallel import tensor_parallel as tp_ops
 from vaura_tpu_torch.utils import ANY, drop_unported_fields
+from vaura_tpu_torch.utils.spans import span
 
 # a decode position: a host int, or a 0-d int64 tensor on the device
 Pos = Union[int, torch.Tensor]
@@ -166,6 +179,36 @@ class SamplerConfig:
     dac_factored_embeddings: bool = True
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32  # storage of the matmul weights
+    # The DeepSeek-V3 block (arXiv:2412.19437), under the names of its
+    # config.json (``PORT_ONLY_FIELDS``; the defaults keep the Llama block).
+    # Latent attention (``kv_lora_rank`` set): per head a query of
+    # ``qk_nope_head_dim + qk_rope_head_dim``, keys and values from one
+    # shared latent row of ``kv_lora_rank`` and a shared rope key of
+    # ``qk_rope_head_dim``, values of ``v_head_dim``; RoPE over the rope
+    # part alone. No query compression: ``q_lora_rank`` null only.
+    kv_lora_rank: Optional[int] = None
+    q_lora_rank: Optional[int] = None
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    # Routed experts (``n_routed_experts`` set) from layer
+    # ``first_k_dense_replace`` on; the layers before it are dense SwiGLU of
+    # ``intermediate_size`` (which, when set, is every dense layer's width).
+    # Sigmoid scores, the choice by score plus a correction bias (one group:
+    # ``n_group`` = ``topk_group`` = 1), the chosen scores renormalised
+    # (``norm_topk_prob``) and scaled by ``routed_scaling_factor``; the
+    # shared experts as one SwiGLU of ``n_shared_experts`` experts' width.
+    n_routed_experts: Optional[int] = None
+    num_experts_per_tok: int = 0
+    n_shared_experts: int = 0
+    moe_intermediate_size: int = 0
+    first_k_dense_replace: int = 0
+    intermediate_size: Optional[int] = None
+    n_group: int = 1
+    topk_group: int = 1
+    scoring_func: str = "sigmoid"
+    norm_topk_prob: bool = True
+    routed_scaling_factor: float = 1.0
 
     def __post_init__(self):
         if self.remat_policy not in REMAT_SAVED_OPS:
@@ -173,6 +216,57 @@ class SamplerConfig:
                              f"{sorted(map(str, REMAT_SAVED_OPS))}")
         if self.cache_bits not in (8, 4):
             raise ValueError(f"cache_bits {self.cache_bits}: 8 or 4")
+        if self.q_lora_rank is not None:
+            raise NotImplementedError(
+                "q_lora_rank: the latent attention takes no query "
+                "compression (null only)")
+        if self.mla and min(self.qk_nope_head_dim, self.qk_rope_head_dim,
+                            self.v_head_dim) <= 0:
+            raise ValueError("latent attention needs qk_nope_head_dim, "
+                             "qk_rope_head_dim and v_head_dim")
+        if self.moe:
+            if self.scoring_func != "sigmoid":
+                raise NotImplementedError(
+                    f"scoring_func {self.scoring_func!r}: sigmoid only")
+            if (self.n_group, self.topk_group) != (1, 1):
+                raise NotImplementedError(
+                    "group-limited routing (n_group, topk_group other than 1)")
+            if not 0 < self.num_experts_per_tok <= self.n_routed_experts:
+                raise ValueError("num_experts_per_tok: 1 to n_routed_experts")
+        if self.deepseek:
+            for name in ("quantize_cache", "quantize_weights"):
+                if getattr(self, name):
+                    raise NotImplementedError(
+                        f"{name} with the DeepSeek-V3 block: its latent "
+                        "cache and expert weights are bf16 only")
+
+    @property
+    def mla(self) -> bool:
+        """Multi-head latent attention in place of the fused-QKV one."""
+        return self.kv_lora_rank is not None
+
+    @property
+    def moe(self) -> bool:
+        """Routed experts from layer ``first_k_dense_replace`` on."""
+        return self.n_routed_experts is not None
+
+    @property
+    def deepseek(self) -> bool:
+        return self.mla or self.moe
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def rope_dim(self) -> int:
+        """The channels RoPE rotates: the rope part of a latent-attention
+        head, else the whole head."""
+        return self.qk_rope_head_dim if self.mla else self.head_dim
+
+    @property
+    def moe_layers(self) -> int:
+        return self.num_layers - self.first_k_dense_replace if self.moe else 0
 
     @property
     def block_size(self) -> int:
@@ -197,6 +291,8 @@ class SamplerConfig:
 
     @property
     def ffn_hidden_dim(self) -> int:
+        if self.intermediate_size is not None:
+            return self.intermediate_size
         hidden = int(2 * (4 * self.d_model) / 3)
         if self.ffn_dim_multiplier is not None:
             hidden = int(self.ffn_dim_multiplier * hidden)
@@ -222,6 +318,17 @@ _JAX_ONLY_FIELDS = {
     "scan_unroll": ANY,
     "use_visual_conditioning": ANY,
 }
+
+# SamplerConfig fields the JAX package has no field for (it builds the Llama
+# block only), with the default that keeps that block
+PORT_ONLY_FIELDS = {
+    f.name: f.default for f in dataclasses.fields(SamplerConfig)
+    if f.name in ("kv_lora_rank", "q_lora_rank", "qk_nope_head_dim",
+                  "qk_rope_head_dim", "v_head_dim", "n_routed_experts",
+                  "num_experts_per_tok", "n_shared_experts",
+                  "moe_intermediate_size", "first_k_dense_replace",
+                  "intermediate_size", "n_group", "topk_group",
+                  "scoring_func", "norm_topk_prob", "routed_scaling_factor")}
 
 
 def SamplerSpec(**kwargs) -> SamplerConfig:
@@ -333,14 +440,17 @@ class FeedForward(nn.Module):
     """SwiGLU: ``w2(silu(w1 x) * w3 x)``. Under tensor parallelism
     (``tp``, set by ``parallel.shard_module``) ``w1``/``w3`` hold this
     rank's hidden rows and ``w2`` its hidden columns; the partial outputs
-    are all-reduced."""
+    are all-reduced. ``hidden`` (default ``cfg.ffn_hidden_dim``) is the
+    width of the shared experts of a routed-expert layer."""
 
-    def __init__(self, cfg: SamplerConfig, device=None):
+    def __init__(self, cfg: SamplerConfig, device=None,
+                 hidden: Optional[int] = None):
         super().__init__()
+        hidden = hidden or cfg.ffn_hidden_dim
         self.dropout = cfg.dropout
-        self.w1 = PDense(cfg.d_model, cfg.ffn_hidden_dim, cfg, device)
-        self.w3 = PDense(cfg.d_model, cfg.ffn_hidden_dim, cfg, device)
-        self.w2 = PDense(cfg.ffn_hidden_dim, cfg.d_model, cfg, device)
+        self.w1 = PDense(cfg.d_model, hidden, cfg, device)
+        self.w3 = PDense(cfg.d_model, hidden, cfg, device)
+        self.w2 = PDense(hidden, cfg.d_model, cfg, device)
         self.tp = None
 
     def forward(self, x: torch.Tensor, train: bool = False,
@@ -448,14 +558,232 @@ class Attention(nn.Module):
         return tp_ops.reduce(self.tp, out), (k, v)
 
 
-class TransformerBlock(nn.Module):
-    """Pre-norm residual block."""
+class LatentAttention(nn.Module):
+    """DeepSeek-V3's multi-head latent attention without query compression
+    (arXiv:2412.19437 §2.1.1; the names of its inference code): ``wq``
+    gives each head's ``[q_nope; q_pe]``, ``wkv_a`` one latent row ``c``
+    (normed by ``kv_norm``) and one rope key ``k_pe`` shared by every head,
+    ``wkv_b`` each head's ``[k_nope; v]`` from ``c``; interleaved-pair RoPE
+    on ``q_pe`` and ``k_pe`` alone; scores ``(q_nope . k_nope + q_pe .
+    k_pe) / sqrt(qk_nope + qk_rope)``. ``forward`` is the full-sequence form
+    (and ``forward_kv`` also returns every position's ``(c, k_pe)``, what
+    ``prefill`` caches); ``decode`` the absorbed form over a cache of latent
+    rows: ``q_nope`` through ``wkv_b``'s key half into the latent space,
+    attention over ``[c; k_pe]`` (``ops/mla_decode_attention.py``), the
+    latent output through ``wkv_b``'s value half and ``wo``."""
 
     def __init__(self, cfg: SamplerConfig, device=None):
         super().__init__()
+        self.cfg = cfg
+        H, R, r = cfg.nhead, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+        self.wq = PDense(cfg.d_model, H * cfg.qk_head_dim, cfg, device)
+        self.wkv_a = PDense(cfg.d_model, R + r, cfg, device)
+        self.kv_norm = RMSNorm(R, cfg.layer_norm_eps, device)
+        self.wkv_b = PDense(R, H * (cfg.qk_nope_head_dim + cfg.v_head_dim),
+                            cfg, device)
+        self.wo = PDense(H * cfg.v_head_dim, cfg.d_model, cfg, device)
+        self.scale = cfg.qk_head_dim ** -0.5
+
+    def _query(self, x: torch.Tensor, freqs_cis: torch.Tensor):
+        cfg = self.cfg
+        B, S, _ = x.shape
+        q = self.wq(x).reshape(B, S, cfg.nhead, cfg.qk_head_dim)
+        q_nope, q_pe = q.split([cfg.qk_nope_head_dim, cfg.qk_rope_head_dim],
+                               dim=-1)
+        return q_nope, apply_rotary_emb(q_pe, freqs_cis)
+
+    def _latent(self, x: torch.Tensor, freqs_cis: torch.Tensor):
+        """``(c [B, S, R] normed, k_pe [B, S, r] after RoPE)``."""
+        c, k_pe = self.wkv_a(x).split(
+            [self.cfg.kv_lora_rank, self.cfg.qk_rope_head_dim], dim=-1)
+        return (self.kv_norm(c),
+                apply_rotary_emb(k_pe.unsqueeze(2), freqs_cis)[:, :, 0])
+
+    def forward(self, x, freqs_cis, mask, train=False, generator=None,
+                probs_out=None):
+        return self.forward_kv(x, freqs_cis, mask, train, generator,
+                               probs_out)[0]
+
+    def forward_kv(self, x: torch.Tensor, freqs_cis: torch.Tensor,
+                   mask: torch.Tensor, train: bool = False,
+                   generator: Optional[torch.Generator] = None,
+                   probs_out: Optional[list] = None):
+        """As ``Attention.forward_kv``; the rows it returns are ``(c [B, S,
+        R], k_pe [B, S, r])``."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        H, dn, dv = cfg.nhead, cfg.qk_nope_head_dim, cfg.v_head_dim
+        q_nope, q_pe = self._query(x, freqs_cis)
+        c, k_pe = self._latent(x, freqs_cis)
+        k_nope, v = self.wkv_b(c).reshape(B, S, H, dn + dv).split([dn, dv],
+                                                                   dim=-1)
+        scores = (torch.einsum("bshd,bthd->bhst", q_nope.float(),
+                               k_nope.float())
+                  + torch.einsum("bshd,btd->bhst", q_pe.float(),
+                                 k_pe.float())) * self.scale
+        scores = torch.where(mask[None, None], scores,
+                             scores.new_full((), -1e30))
+        probs = torch.softmax(scores, dim=-1)
+        if probs_out is not None:
+            probs_out.append(probs.mean(1))
+        probs = dropout(probs, cfg.attn_dropout_p, train, generator)
+        out = torch.einsum("bhst,bthd->bshd", probs.to(v.dtype), v)
+        out = self.wo(out.reshape(B, S, H * dv).to(cfg.dtype))
+        return dropout(out, cfg.dropout, train, generator), (c, k_pe)
+
+    def decode(self, x: torch.Tensor, freqs_cis: torch.Tensor,
+               cache_layer: Tuple[torch.Tensor, torch.Tensor],
+               row: torch.Tensor, chunk_starts=None, op: bool = False):
+        """The absorbed form at one position: ``x [B, 1, d_model]``,
+        ``cache_layer`` one layer's ``(c [B, S, R], k_pe [B, S, r])``, read
+        below ``row`` (a one-element int32 tensor on the device). Returns
+        the output and this position's ``(c [B, R], k_pe [B, r])``."""
+        cfg = self.cfg
+        B = x.shape[0]
+        H, dn, dv = cfg.nhead, cfg.qk_nope_head_dim, cfg.v_head_dim
+        q_nope, q_pe = self._query(x, freqs_cis)
+        c, k_pe = self._latent(x, freqs_cis)
+        w = self.wkv_b.weight.to(cfg.dtype).reshape(H, dn + dv,
+                                                    cfg.kv_lora_rank)
+        q_lat = torch.bmm(q_nope[:, 0].transpose(0, 1), w[:, :dn])
+        q = torch.cat([q_lat.transpose(0, 1), q_pe[:, 0]], dim=-1)
+        c, k_pe = c[:, 0].contiguous(), k_pe[:, 0].contiguous()
+        with span("decode_step.attend"):
+            o_lat = mla_decode_attention(q.contiguous(), *cache_layer, c,
+                                         k_pe, row, self.scale)
+        o = torch.bmm(o_lat.transpose(0, 1).to(cfg.dtype),
+                      w[:, dn:].transpose(1, 2))  # [H, B, dv]
+        return self.wo(o.transpose(0, 1).reshape(B, 1, H * dv)), (c, k_pe)
+
+
+# ``Sampler.expert_choices``' entry for a choice a layer did not make
+NO_EXPERT = 255
+
+
+class Router(nn.Module):
+    """The routed-expert layer's gate: ``weight [E, d_model]`` (stored as
+    the matmul weights are, applied in float32) and the float32
+    ``e_score_correction_bias [E]``, which only chooses."""
+
+    def __init__(self, cfg: SamplerConfig, device=None):
+        super().__init__()
+        E = cfg.n_routed_experts
+        self.weight = nn.Parameter(torch.empty(E, cfg.d_model,
+                                               dtype=cfg.param_dtype,
+                                               device=device))
+        self.e_score_correction_bias = nn.Parameter(torch.zeros(E,
+                                                                device=device))
+
+
+class Experts(nn.Module):
+    """The routed experts' SwiGLU weights stacked, each expert's ``[in,
+    out]``: ``w1``, ``w3 [E, d_model, hidden]``, ``w2 [E, hidden,
+    d_model]``."""
+
+    def __init__(self, cfg: SamplerConfig, device=None):
+        super().__init__()
+        E, I, d = cfg.n_routed_experts, cfg.moe_intermediate_size, cfg.d_model
+        make = lambda *shape: nn.Parameter(torch.empty(
+            *shape, dtype=cfg.param_dtype, device=device))
+        self.w1, self.w3, self.w2 = make(E, d, I), make(E, d, I), make(E, I, d)
+
+
+def _grouped(x: torch.Tensor, w: torch.Tensor, ends: torch.Tensor
+             ) -> torch.Tensor:
+    """Rows ``x [N, K]`` sorted by expert, expert ``e`` owning rows up to
+    ``ends[e]``, times each one's ``w[e] [K, N_out]``: one grouped product
+    (``torch._grouped_mm``), ``[N, N_out]``."""
+    return torch._grouped_mm(x, w.to(x.dtype), offs=ends)
+
+
+class MoEFeedForward(nn.Module):
+    """DeepSeek-V3's routed-expert layer (arXiv:2412.19437 §2.1.2):
+    ``s = sigmoid(h gate^T)`` over the experts in float32, the choice
+    ``topk(s + bias)``, weights ``s[choice]`` (renormalised, scaled),
+    ``sum_j w_j E_j(h) + shared(h)``. Every shape is static and nothing
+    reads to the host, so a decode step that holds it records as a CUDA
+    graph: the routed rows are laid out by expert from a running count of
+    each expert's tokens (no sort), each of ``w1``, ``w3`` and ``w2`` is one
+    grouped product over them (each row's weight folded into its hidden
+    activations before ``w2``), and the rows go back by a gather.
+    ``routed_rows`` and ``routed_choice`` keep the last call's rows per
+    expert (int32 ``[E]``) and choices (``[T, k]``), on the device."""
+
+    def __init__(self, cfg: SamplerConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.gate = Router(cfg, device)
+        self.experts = Experts(cfg, device)
+        self.shared = FeedForward(
+            cfg, device, cfg.n_shared_experts * cfg.moe_intermediate_size)
+        self.routed_rows: Optional[torch.Tensor] = None
+        self.routed_choice: Optional[torch.Tensor] = None
+
+    def route(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``x [T, d_model]`` -> ``(choice [T, k] int64, weights [T, k]
+        float32)``."""
+        cfg = self.cfg
+        s = torch.sigmoid(F.linear(x.float(), self.gate.weight.float()))
+        choice = (s + self.gate.e_score_correction_bias.float()).topk(
+            cfg.num_experts_per_tok, dim=-1).indices
+        w = s.gather(1, choice)
+        if cfg.norm_topk_prob:
+            w = w / (w.sum(-1, keepdim=True) + 1e-20)
+        return choice, w * cfg.routed_scaling_factor
+
+    def routed(self, x: torch.Tensor, choice: torch.Tensor,
+               w: torch.Tensor) -> torch.Tensor:
+        """``sum_j w_j E_j(x)``, ``[T, d_model]`` in ``x``'s dtype."""
+        T, k = choice.shape
+        E = self.cfg.n_routed_experts
+        # each expert's tokens, in token order: a running count over the
+        # tokens ([E, T], one row an expert) gives each its place
+        chosen = torch.zeros(E, T, dtype=torch.int32, device=x.device)
+        chosen.scatter_(0, choice.t(), 1)
+        running = chosen.cumsum(1, dtype=torch.int32)
+        counts = running[:, -1]
+        ends = counts.cumsum(0, dtype=torch.int32)
+        slot = ((ends - counts)[choice]
+                + running.gather(0, choice.t()).t() - 1).reshape(-1).long()
+        src = torch.empty_like(slot).scatter_(
+            0, slot, torch.arange(T * k, device=x.device))
+        rows = x.index_select(0, src // k)
+        ex = self.experts
+        h = (F.silu(_grouped(rows, ex.w1, ends)) * _grouped(rows, ex.w3, ends)
+             * w.reshape(-1)[src, None].to(x.dtype))
+        y = _grouped(h, ex.w2, ends).index_select(0, slot)
+        self.routed_rows, self.routed_choice = counts, choice
+        return y.reshape(T, k, -1).sum(1)
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                spans: bool = False) -> torch.Tensor:
+        """``x [..., d_model]``; ``spans`` names the routing and the expert
+        products ``decode_step.route`` and ``decode_step.experts``."""
+        shape = x.shape
+        x = x.reshape(-1, shape[-1]).to(self.cfg.dtype)
+        with span("decode_step.route") if spans else contextlib.nullcontext():
+            choice, w = self.route(x)
+        with (span("decode_step.experts") if spans
+              else contextlib.nullcontext()):
+            out = self.routed(x, choice, w) + self.shared(x)
+        return dropout(out.reshape(shape), self.cfg.dropout, train, generator)
+
+
+class TransformerBlock(nn.Module):
+    """Pre-norm residual block: fused-QKV attention and SwiGLU, or, for the
+    DeepSeek-V3 block, latent attention and (from layer
+    ``first_k_dense_replace`` on) routed experts."""
+
+    def __init__(self, cfg: SamplerConfig, device=None, layer: int = 0):
+        super().__init__()
         self.drop_path_rate = cfg.drop_path_rate
-        self.attention = Attention(cfg, device)
-        self.feed_forward = FeedForward(cfg, device)
+        self.attention = (LatentAttention if cfg.mla else Attention)(cfg,
+                                                                     device)
+        self.feed_forward = (
+            MoEFeedForward(cfg, device)
+            if cfg.moe and layer >= cfg.first_k_dense_replace
+            else FeedForward(cfg, device))
         self.attention_norm = RMSNorm(cfg.d_model, cfg.layer_norm_eps, device)
         self.ffn_norm = RMSNorm(cfg.d_model, cfg.layer_norm_eps, device)
 
@@ -479,7 +807,10 @@ class TransformerBlock(nn.Module):
         a, kv = self.attention.decode(self.attention_norm(x), freqs_cis,
                                       cache_layer, row, chunk_starts, op)
         h = x + a
-        return h + self.feed_forward(self.ffn_norm(h)), kv
+        ff = self.feed_forward
+        if isinstance(ff, MoEFeedForward):
+            return h + ff(self.ffn_norm(h), spans=True), kv
+        return h + ff(self.ffn_norm(h)), kv
 
 
 class MultiCodebookEmbedding(nn.Module):
@@ -601,17 +932,35 @@ class Sampler(nn.Module):
         self.empty_video_emb = nn.Parameter(torch.empty(cfg.cond_dim,
                                                         device=device))
         self.layers = nn.ModuleList(
-            TransformerBlock(cfg, device) for _ in range(cfg.num_layers))
+            TransformerBlock(cfg, device, i) for i in range(cfg.num_layers))
         self.norm = RMSNorm(cfg.d_model, cfg.layer_norm_eps, device)
         self.lm_head = PDense(cfg.d_model, cfg.num_codebooks * cfg.d_codebook,
                                cfg, device)
-        freqs = precompute_freqs_cis(cfg.block_size, cfg.head_dim, cfg.rope_base)
+        freqs = precompute_freqs_cis(cfg.block_size, cfg.rope_dim, cfg.rope_base)
         self.register_buffer("freqs_cis", torch.as_tensor(freqs, device=device),
                              persistent=False)
         # tensor parallelism over the mesh's model axis (parallel.
         # shard_module): lm_head then holds this rank's logit rows, which
         # are gathered whole before the loss and sampling
         self.tp = None
+        # the rows routed to each expert at each decode position, int32
+        # ``[positions, moe_layers, n_routed_experts]`` on the device, when
+        # set (``VauraSystem.generate_tokens``): each step of
+        # ``decode_rows`` adds its counts at its position's row; and, when
+        # set, each row's chosen experts, uint8 ``[positions, moe_layers,
+        # rows, num_experts_per_tok]`` (``NO_EXPERT`` past a layer's own
+        # choices), written at its position's row
+        self.expert_load: Optional[torch.Tensor] = None
+        self.expert_choices: Optional[torch.Tensor] = None
+
+    @property
+    def cache_names(self) -> Tuple[str, ...]:
+        """The cache's tensors a layer reads: ``c``/``k_pe`` (latent
+        attention), else ``k``/``v`` and, quantized, their scales."""
+        if self.cfg.mla:
+            return ("c", "k_pe")
+        return (("k", "v", "k_scale", "v_scale") if self.cfg.quantize_cache
+                else ("k", "v"))
 
     @property
     def n_kv_local(self) -> int:
@@ -649,6 +998,10 @@ class Sampler(nn.Module):
         intermediates, stacked over layers by its ``nn.scan``); the blocks
         then run without recomputation."""
         cfg = self.cfg
+        if train and cfg.deepseek:
+            raise NotImplementedError(
+                "training the DeepSeek-V3 block: its expert-balance loss is "
+                "not ported")
         B, K, S = tokens.shape
         tok_emb = self.tok_embeddings(tokens)
         if tokens_per_frame is None:
@@ -711,11 +1064,20 @@ class Sampler(nn.Module):
         """A zero cache of ``max_seq`` rows: bf16 (or ``dtype``) ``k``/``v``,
         or with ``quantize_cache`` int8 ``k``/``v`` (``hd / 2`` bytes a row
         with ``cache_bits=4``) and float32 ``k_scale``/``v_scale``
-        (``dtype`` is then not read); and the rows' ``positions`` (and,
-        under ``int8_dots``, one quantization group: ``chunk_starts``)."""
+        (``dtype`` is then not read), or for latent attention bf16 (or
+        ``dtype``) ``c``/``k_pe``; and the rows' ``positions`` (and, under
+        ``int8_dots``, one quantization group: ``chunk_starts``)."""
         cfg = self.cfg
-        shape = (cfg.num_layers, batch, max_seq, self.n_kv_local, cfg.head_dim)
         dev = self.freqs_cis.device
+        if cfg.mla:
+            lat = (cfg.num_layers, batch, max_seq)
+            dtype = dtype or cfg.dtype
+            return {"c": torch.zeros(lat + (cfg.kv_lora_rank,), dtype=dtype,
+                                     device=dev),
+                    "k_pe": torch.zeros(lat + (cfg.qk_rope_head_dim,),
+                                        dtype=dtype, device=dev),
+                    "positions": self._positions(max_seq, dev)}
+        shape = (cfg.num_layers, batch, max_seq, self.n_kv_local, cfg.head_dim)
         if cfg.quantize_cache:
             packed = shape[:-1] + (cfg.head_dim // 2 if cfg.cache_bits == 4
                                    else cfg.head_dim,)
@@ -748,7 +1110,9 @@ class Sampler(nn.Module):
 
     def _store(self, k: torch.Tensor, v: torch.Tensor) -> Dict[str, torch.Tensor]:
         """K/V as the cache stores them: quantized for an int8 or int4
-        cache."""
+        cache; a latent cache's ``(c, k_pe)`` in the compute dtype."""
+        if self.cfg.mla:
+            return {"c": k.to(self.cfg.dtype), "k_pe": v.to(self.cfg.dtype)}
         if self.cfg.quantize_cache:
             qfn = quantize_kv4 if self.cfg.cache_bits == 4 else quantize_kv
             kq, ks = qfn(k)
@@ -826,21 +1190,33 @@ class Sampler(nn.Module):
             pos = int(pos)
             row = pos if row is None else int(row)
             if "positions" not in cache:
-                cache["positions"] = self._positions(cache["k"].shape[2],
-                                                     cache["k"].device)
+                first = cache[self.cache_names[0]]
+                cache["positions"] = self._positions(first.shape[2],
+                                                     first.device)
             row_t = cache["positions"][row:row + 1]
             freqs = self.freqs_cis[pos:pos + 1]
         tok_emb = self.tok_embeddings(tokens_t)
         h = torch.cat([cond_t.to(tok_emb.dtype), tok_emb], dim=-1)
-        names = ("k", "v", "k_scale", "v_scale") if self.cfg.quantize_cache \
-            else ("k", "v")
         ks, vs = [], []
         starts = cache.get("chunk_starts")
-        for layer, *cache_layer in zip(self.layers, *(cache[n] for n in names)):
+        for layer, *cache_layer in zip(self.layers,
+                                       *(cache[n] for n in self.cache_names)):
             h, (k, v) = layer.decode(h, freqs, tuple(cache_layer), row_t,
                                      starts, device_pos)
             ks.append(k)
             vs.append(v)
+        moe = [layer.feed_forward for layer in self.layers
+               if isinstance(layer.feed_forward, MoEFeedForward)]
+        if self.expert_load is not None:
+            routed = torch.stack([ff.routed_rows for ff in moe])
+            self.expert_load.index_add_(0, row_t, routed[None])
+        if self.expert_choices is not None:
+            k = self.expert_choices.shape[-1]
+            chosen = torch.stack([F.pad(ff.routed_choice,
+                                        (0, k - ff.routed_choice.shape[-1]),
+                                        value=NO_EXPERT) for ff in moe])
+            self.expert_choices.index_copy_(0, row_t.long(),
+                                            chosen[None].to(torch.uint8))
         return (self._logits(h)[:, :, 0, :],
                 self._store(torch.stack(ks), torch.stack(vs)))
 

@@ -30,7 +30,9 @@ without a mesh ``generate_tokens`` records one step in the device-position
 form (position, noise and cache in buffers that live through the loop) as a
 CUDA graph and replays it: one graph launch a step for the ~1,200 kernel
 launches of the flagship's step (``_device_loop``). The loop
-keeps ONE preallocated cache ``[L, 2B, S, H_kv, hd]``: the decode-attention
+keeps ONE preallocated cache ``[L, 2B, S, H_kv, hd]`` (for the DeepSeek-V3
+sampler the latent ``c``/``k_pe`` rows, and the routed experts' counters
+``Sampler.expert_load`` / ``expert_choices``): the decode-attention
 kernel reads only the rows below the current one, which is what
 ``decode_buckets`` achieved with chunk buffers on the TPU. The rolling cache
 of ``generate_long_kv`` is one buffer too (see ``_stream_kv_segments``).
@@ -74,6 +76,7 @@ from vaura_tpu_torch.models.bridges import IdentityBridge
 from vaura_tpu_torch.models.dac.model import Dac, DacConfig
 from vaura_tpu_torch.models.motionformer import MotionFormer, MotionFormerConfig
 from vaura_tpu_torch.models.sampler import (
+    NO_EXPERT,
     Sampler,
     SamplerConfig,
     default_tokens_per_frame,
@@ -83,6 +86,7 @@ from vaura_tpu_torch.models.sampler import (
 from vaura_tpu_torch.ops import decode_attention as da
 from vaura_tpu_torch.ops import divided_attention as ga
 from vaura_tpu_torch.ops import encoder_fused as ef
+from vaura_tpu_torch.ops import mla_decode_attention as mla
 from vaura_tpu_torch.ops.dropout import batch_shard
 from vaura_tpu_torch.ops.losses import masked_codebook_cross_entropy
 from vaura_tpu_torch.ops.patterns import (
@@ -125,6 +129,7 @@ _LAUNCH_COUNTERS = (
           "int8_dots_launches", "form_launches")),
     (ef, ("attention_launches", "mlp_launches")),
     (ga, ("launches",)),
+    (mla, ("launches",)),
 )
 _capture_streams: Dict[torch.device, "torch.cuda.Stream"] = {}
 
@@ -244,6 +249,10 @@ class VauraSystem(nn.Module):
         # beside the sampler, merged into its weights at each entry call
         self.lora_rank, self.lora_alpha = int(lora_rank), lora_alpha
         self.lora_sampler = None
+        if self.lora_rank > 0 and sampler_config.deepseek:
+            raise NotImplementedError(
+                "LoRA on the DeepSeek-V3 block: its adapters target the "
+                "Llama block's layers")
         if self.lora_rank > 0:
             self.lora_sampler = init_lora(
                 self.sampler, self.lora_rank,
@@ -253,6 +262,8 @@ class VauraSystem(nn.Module):
         self._weights_gathered = False
         # every rank runs the same call on the whole batch (``replicated``)
         self._replicated = False
+        # record each decode row's chosen experts (``expert_choices``)
+        self.record_routes = False
 
     @contextlib.contextmanager
     def gathered_weights(self):
@@ -722,6 +733,15 @@ class VauraSystem(nn.Module):
             cache["chunk_starts"] = torch.tensor(
                 chunk_bounds(S, decode_buckets, start_step)[:-1],
                 dtype=torch.int32, device=cache["k"].device)
+        cfg = self.sampler_config
+        if cfg.moe:  # the rows each expert gets, a row per position
+            self.sampler.expert_load = torch.zeros(
+                S, cfg.moe_layers, cfg.n_routed_experts, dtype=torch.int32,
+                device=cond_seq.device)
+            self.sampler.expert_choices = None if not self.record_routes \
+                else torch.full((S, cfg.moe_layers, cond_seq.shape[0],
+                                 cfg.num_experts_per_tok), NO_EXPERT,
+                                dtype=torch.uint8, device=cond_seq.device)
         gen_seq = gen_seq_init.clone()
         vm = torch.as_tensor(valid_mask, device=gen_seq.device)
         kw = dict(use_sampling=use_sampling, temp=temp, top_k=top_k,
@@ -742,8 +762,30 @@ class VauraSystem(nn.Module):
         """Whether ``generate_tokens`` replays its steps from a CUDA graph:
         the cache on a card, no mesh (tensor parallelism's all-reduces stay
         eager) and at least ``GRAPH_MIN_STEPS`` steps to run."""
-        return (cache["k"].is_cuda and self.placement is None
-                and steps >= GRAPH_MIN_STEPS)
+        return (cache[self.sampler.cache_names[0]].is_cuda
+                and self.placement is None and steps >= GRAPH_MIN_STEPS)
+
+    def expert_load(self) -> Optional[torch.Tensor]:
+        """The last ``generate_tokens`` call's rows routed to each expert,
+        int32 ``[positions, moe_layers, n_routed_experts]`` on the host (row
+        ``p`` the step that read position ``p``; rows no step ran are 0);
+        None without routed experts or before a call. Reads the device
+        counter once (``Sampler.expert_load``)."""
+        load = self.sampler.expert_load
+        return None if load is None else load.cpu()
+
+    def expert_choices(self, rows: Optional[torch.Tensor] = None
+                       ) -> Optional[torch.Tensor]:
+        """With ``record_routes`` set before the call, the last
+        ``generate_tokens`` call's chosen experts of each decode row (the CFG
+        null stream's rows after the batch's), uint8 ``[positions,
+        moe_layers, rows, num_experts_per_tok]`` on the host (``NO_EXPERT``
+        where no choice was made), of ``rows`` (a device index) or of
+        all; else None."""
+        ch = self.sampler.expert_choices
+        if ch is None:
+            return None
+        return (ch if rows is None else ch.index_select(2, rows)).cpu()
 
     def _device_loop(self, cache, gen_seq: torch.Tensor,
                      cond_seq: torch.Tensor, valid_mask: torch.Tensor,
@@ -1085,6 +1127,10 @@ class VauraSystem(nn.Module):
         segments, laid out over the whole horizon (segments wrap modulo the
         video's length), the conditioning and the UNKNOWN sequence to fill.
         Returns ``(pattern, valid_mask, S, cond_seq, gen_seq)``."""
+        if self.sampler_config.deepseek:
+            raise NotImplementedError(
+                "the rolling cache with the DeepSeek-V3 block: its latent "
+                "cache keeps every row")
         K = self.num_codebooks
         pattern, valid_mask, S = self.prepare_generation(total_tokens)
         if self.sampler_config.block_size < S:

@@ -508,6 +508,10 @@ def shard_module(system, mesh, *, train: bool = True) -> MeshPlacement:
     gathered weights, or in training at each use into the block's
     all-gathered weight. Their gradients are summed over the mesh by
     ``MeshPlacement.sum_replicated_grads``."""
+    if system.sampler_config.deepseek:
+        raise NotImplementedError(
+            "the DeepSeek-V3 block on a mesh: its experts and latent "
+            "attention have no tensor-parallel or FSDP2 placement")
     placement = MeshPlacement(mesh, system.sampler_config,
                               shards=train or mesh.size(1) > 1)
     place_modules(placement, {"sampler": system.sampler,

@@ -3,9 +3,11 @@
     python3 -m vaura_tpu_torch.profile_generate [--batch 2] [--out chiprun_out]
         [--quantize-cache] [--cache-bits {8,4}] [--int8-dots]
         [--quantize-weights] [--long {reprefill,stream_kv}]
+        [--sampler configs/modules/samplers/moonlight_9cbs.yaml]
 
 Runs the flagship path (``flagship.py``: frames -> codes -> audio, CFG 6.0,
-top-k 128, 221 tokens) once to warm up and once timed with CUDA events per
+top-k 128, 221 tokens; the encoder and the codec in slices of 32 clips, as
+the benchmark's cells) once to warm up and once timed with CUDA events per
 stage, then once more under ``torch.profiler`` (the CUDA activity) with
 the program's spans recorded (``utils.spans``), and reports per span name
 (the stages, ``encoder.*``, ``decode_setup``, ``decode_step`` and its
@@ -23,7 +25,11 @@ with the int8 x int8 attention products (both imply a quantized cache),
 ``--quantize-weights`` with int8 sampler weights. ``--long``
 runs ``flagship.py``'s long-horizon configuration instead (``bench.py``'s
 long-mode defaults: 10.24 s from 16 segments of frames, ``generate_long`` at
-a 0.64 s stride or ``generate_long_kv`` with a window of 4 x 56 steps). Writes
+a 0.64 s stride or ``generate_long_kv`` with a window of 4 x 56 steps).
+``--sampler`` takes the sampler of a sampler yaml in place of the
+flagship's (the DeepSeek-V3 block of ``moonlight_9cbs.yaml``: its eager
+loop's spans add ``decode_step.attend`` (the latent attention kernel),
+``decode_step.route`` and ``decode_step.experts``). Writes
 ``profile_generate[_<mode>].json`` into ``--out``. Needs a CUDA card.
 """
 
@@ -150,6 +156,19 @@ def print_replay(rep: dict) -> None:
                   f"{st['device_ms']:.3f} ms, {st['launches']:.1f} launches")
 
 
+def sampler_fields(path: str) -> dict:
+    """The sampler configuration of a sampler yaml (``{target, params}``) as
+    ``SamplerConfig`` fields, its dtypes left to the caller."""
+    import dataclasses
+    from pathlib import Path
+
+    from vaura_tpu_torch.config import instantiate_from_config, load_config
+
+    spec = instantiate_from_config(load_config(Path(path), Path.cwd()))
+    return {f.name: getattr(spec, f.name) for f in dataclasses.fields(spec)
+            if not f.name.endswith("dtype")}
+
+
 def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -176,6 +195,8 @@ def main() -> int:
     ap.add_argument("--int8-dots", action="store_true")
     ap.add_argument("--quantize-weights", action="store_true")
     ap.add_argument("--long", choices=["reprefill", "stream_kv"])
+    ap.add_argument("--sampler", help="a sampler yaml in place of the "
+                    "flagship's sampler")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_generate needs a CUDA card")
@@ -187,6 +208,8 @@ def main() -> int:
                  "cache_bits": args.cache_bits, "int8_dots": args.int8_dots}
     if args.long:
         overrides.update(LONG_SAMPLER)
+    if args.sampler:  # its fields, under the flags' own
+        overrides = {**sampler_fields(args.sampler), **overrides}
     gen = torch.Generator(device="cuda").manual_seed(0)
     system = flagship_system("cuda", gen, sampler_overrides=overrides)
     if args.long:
@@ -206,8 +229,9 @@ def main() -> int:
     else:
         frames = random_frames(args.batch, gen, "cuda")
 
-        def run():
-            return system.generate(frames, seed=0, **GENERATE_KW)
+        def run():  # the benchmark's slices: 32 clips an encoder and codec call
+            return system.generate(frames, seed=0, encoder_chunk_size=32,
+                                   dac_chunk_size=32, **GENERATE_KW)
 
     run()  # build kernels, warm up
     torch.cuda.synchronize()
@@ -243,6 +267,8 @@ def main() -> int:
         "_int8_weights" if args.quantize_weights else "")
     if args.long:
         mode = f"{mode}_long_{args.long}"
+    if args.sampler:
+        mode = f"{mode}_{os.path.splitext(os.path.basename(args.sampler))[0]}"
     mode = mode.strip("_")
     report = {"device": torch.cuda.get_device_name(0), "batch": args.batch,
               "nvidia_smi": nvidia_smi(), "mode": mode or "bf16",

@@ -64,7 +64,9 @@ class StageClock:
 _EMBEDDINGS = ("emb", "cls_token", "pos_embed", "temp_embed", "st_embed",
                "pos_emb", "empty_video_emb")
 # fan-in of tensors whose input axis is not everything after the first
-_FAN_IN = {"proj_v": lambda s: s[-1], "out_proj_w": lambda s: s[1]}
+# (the routed experts' stacked ``[E, in, out]`` weights: their second)
+_FAN_IN = {"proj_v": lambda s: s[-1], "out_proj_w": lambda s: s[1],
+           "w1": lambda s: s[1], "w3": lambda s: s[1], "w2": lambda s: s[1]}
 
 
 @torch.no_grad()

@@ -118,6 +118,10 @@ class _Program(nn.Module):
 
 def _cache_names(system) -> list:
     cfg = system.sampler_config
+    if cfg.deepseek:
+        raise NotImplementedError(
+            "exporting the DeepSeek-V3 block: its decode kernels have no "
+            "registered operator")
     names = ["k", "v"] + (["k_scale", "v_scale"] if cfg.quantize_cache else [])
     return names + (["chunk_starts"] if system._quantizes_probs() else [])
 
