@@ -219,9 +219,19 @@ result line):
              replayed, wall, the kernel's launches held to one a layer and
              step); the generate action from
              ``configs/generate_vgg_moonlight.yaml``, its launches held the
-             same way (``mla_moe: {...}``). ``python3 chip_smoke.py --phase
-             <name>`` runs the one phase ``phase_<name>`` alone, without
-             the kernel checks.
+             same way (``mla_moe: {...}``).
+ 19. snake   the DAC's Snake kernel (``csrc/snake.cu``) against its plain
+             version (the eager formula) at the decoder's five levels of a
+             32-clip slice and the encoder's five at 48 clips, in float32
+             (within 2 ulps) and bf16 (within 1), each level's device ms
+             beside its byte bound and the plain version's (at least 75% of
+             the bound at ``[32, 96, 113152]``); its launches in one
+             512-clip generation (464) and in one training step (29);
+             that generation's waveform against the eager formula's
+             decode of its codes (``snake: {...}``).
+
+``python3 chip_smoke.py --phase <name>`` runs the one phase
+``phase_<name>`` alone, without the kernel checks.
 
 It prints the action runs' wall times and audio-s/s (``action: {...}``),
 the train action's runs (``train_action: {...}``),
@@ -1175,9 +1185,10 @@ def _zero_counters():
     from vaura_tpu_torch.ops import divided_attention as ga
     from vaura_tpu_torch.ops import encoder_fused as ef
     from vaura_tpu_torch.ops import mla_decode_attention as mla
+    from vaura_tpu_torch.ops import snake
 
     da.launches = ef.attention_launches = ef.mlp_launches = ga.launches = 0
-    mla.launches = 0
+    mla.launches = snake.launches = 0
     da.device_pos_launches = da.int8_launches = 0
     da.int4_launches = da.int8_dots_launches = 0
     for form in da.form_launches:
@@ -2113,6 +2124,165 @@ ACTION_RUNS = (
       "dataloader.video_length=5.12", "dataloader.num_clips=8"], 2,
      int(5.12 * 86)),
 )
+
+
+# Snake's levels at the main path's shapes: the DAC decoder's five in a
+# 32-clip slice (the first block's input, then each block's output width),
+# and the encoder's five at the training batch of 48 clips
+SNAKE_DECODE_LEVELS = ((32, 1536, 221), (32, 768, 1768), (32, 384, 14144),
+                       (32, 192, 56576), (32, 96, 113152))
+SNAKE_ENCODE_LEVELS = ((48, 64, 113152), (48, 128, 56576), (48, 256, 14144),
+                       (48, 512, 1768), (48, 1024, 221))
+# the kernel's output against the plain version's, in ulps (the same
+# arithmetic in float32; bf16 rounds a*x and the quotient where both do)
+TOL_SNAKE_ULPS = {"float32": 2, "bfloat16": 1}
+# the kernel's share of its byte bound at the decoder's widest level
+SNAKE_MIN_BOUND_SHARE = 0.75
+
+
+def _max_ulps(a, b) -> int:
+    """The largest distance in ulps between two float32 or bf16 tensors
+    (their bit patterns as integers ordered like the values)."""
+    import torch
+
+    itype = torch.int32 if a.dtype == torch.float32 else torch.int16
+    top = (1 << 31) - 1 if a.dtype == torch.float32 else (1 << 15) - 1
+
+    def ordered(t):
+        bits = t.contiguous().view(itype).long()
+        return torch.where(bits < 0, -(bits & top), bits)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def _snake_level(shape, dtype, gen) -> dict:
+    """The kernel against the plain version (on the card: the eager
+    formula) at one shape: ulps, device ms of each and the byte bound."""
+    import torch
+
+    from vaura_tpu_torch.ops import snake as S
+
+    x = (torch.randn(shape, device="cuda", generator=gen) * 3.0).to(dtype)
+    alpha = torch.empty(shape[1], device="cuda").uniform_(
+        0.5, 2.0, generator=gen).to(dtype)
+    got, want = S.snake_cuda(x, alpha), S.snake_plain(x, alpha)
+    bound_ms = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
+    reps = max(3, min(50, int(20.0 / bound_ms)))
+    entry = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
+             "vector_path": S.vector_path(x, got),
+             "ulps": _max_ulps(got, want),
+             "bit_equal": bool(torch.equal(got, want)),
+             "ms": cuda_ms(lambda: S.snake_cuda(x, alpha), reps),
+             "plain_ms": cuda_ms(lambda: S.snake_plain(x, alpha), reps),
+             "bound_ms": bound_ms}
+    entry["bound_share"] = entry["bound_ms"] / entry["ms"]
+    del x, alpha, got, want
+    torch.cuda.empty_cache()
+    return entry
+
+
+def phase_snake(gen, report):
+    """Snake's kernel (``csrc/snake.cu``) against its plain version at the
+    DAC's levels in float32 and bf16; its launches in one 512-clip
+    generation (16 slices x 29) and one training step (29, the codec's
+    encode); that generation's waveform against the eager path's
+    decode of the same codes (``snake: {...}``)."""
+    import torch
+
+    from vaura_tpu_torch.flagship import (
+        GENERATE_KW,
+        flagship_system,
+        flagship_train_state,
+        random_train_batch,
+    )
+    from vaura_tpu_torch.models.dac import layers as DL
+    from vaura_tpu_torch.ops import snake as S
+    from vaura_tpu_torch.train.steps import make_train_step
+
+    problems, res = [], {"levels": []}
+    report["snake"] = res
+    for where, levels in (("decode", SNAKE_DECODE_LEVELS),
+                          ("encode", SNAKE_ENCODE_LEVELS)):
+        for shape in levels:
+            for dtype in (torch.float32, torch.bfloat16):
+                e = _snake_level(shape, dtype, gen)
+                e["where"] = where
+                res["levels"].append(e)
+                log(f"[snake] {where} {tuple(shape)} {e['dtype']}: "
+                    f"{e['ulps']} ulps (bit equal {e['bit_equal']}), "
+                    f"{e['ms']:.4f} ms, bound {e['bound_ms']:.4f} "
+                    f"({100 * e['bound_share']:.1f}%), plain "
+                    f"{e['plain_ms']:.4f}")
+                if e["ulps"] > TOL_SNAKE_ULPS[e["dtype"]]:
+                    problems.append(f"{where} {shape} {e['dtype']}: "
+                                    f"{e['ulps']} ulps")
+    widest = [e for e in res["levels"] if e["shape"] == [32, 96, 113152]
+              and e["dtype"] == "float32"][0]
+    if widest["bound_share"] < SNAKE_MIN_BOUND_SHARE:
+        problems.append(f"[32, 96, 113152] float32 at "
+                        f"{100 * widest['bound_share']:.1f}% of its bound")
+
+    # one 512-clip generation from features, the DAC in 32-clip slices
+    system = flagship_system("cuda", gen)
+    feats = torch.randn(512, 32, 768, device="cuda", generator=gen)
+    torch.cuda.synchronize()
+    before = S.launches
+    t0 = time.time()
+    out = system.generate(vis_feats=feats, seed=3, dac_chunk_size=32,
+                          **GENERATE_KW)
+    torch.cuda.synchronize()
+    res["generate"] = {"wall_s": time.time() - t0,
+                       "stage_ms": out["stage_ms"],
+                       "launches": S.launches - before}
+    _check_generation("snake", out, (512, 9, 221), problems)
+    if res["generate"]["launches"] != 16 * 29:
+        problems.append(f"512-clip generation: {res['generate']['launches']}"
+                        " Snake launches, expected 464")
+    # the same codes through the eager formula
+    kernel_forward = DL.Snake1d.forward
+    DL.Snake1d.forward = lambda self, x: S.snake_plain(
+        x, self.alpha.to(x.dtype))
+    try:
+        before = S.launches
+        eager = system.decode_audio(out["codes"], chunk_size=32)
+        torch.cuda.synchronize()
+        eager_launches = S.launches - before
+    finally:
+        DL.Snake1d.forward = kernel_forward
+    audio = out["audio"]
+    diff = (audio.float() - eager.float())
+    res["waveform"] = {
+        "max_abs": float(diff.abs().max()),
+        "rel_l2": float(diff.norm() / eager.float().norm()),
+        "bit_equal": bool(torch.equal(audio, eager)),
+        "eager_launches": eager_launches}
+    log(f"[snake] 512 clips: {res['generate']}; waveform against the eager "
+        f"path: {res['waveform']}")
+    if eager_launches != 0 or not res["waveform"]["max_abs"] <= 1e-5:
+        problems.append(f"waveform against the eager path: {res['waveform']}")
+    del system, feats, out, eager, audio, diff
+    torch.cuda.empty_cache()
+
+    # one training step (the count is the same at any batch; the flagship
+    # training configuration trains the encoder and does not fit 48 clips)
+    system = flagship_system("cuda", gen, training=True)
+    state = flagship_train_state(system)
+    batch = random_train_batch(4, gen, "cuda")
+    step = make_train_step(system)
+    torch.cuda.synchronize()
+    before = S.launches
+    state, metrics = step(state, batch, gen)
+    torch.cuda.synchronize()
+    res["train_step"] = {"loss": float(metrics["loss"]),
+                         "launches": S.launches - before}
+    log(f"[snake] training step at 4 clips: {res['train_step']}")
+    if res["train_step"]["launches"] != 29:
+        problems.append(f"training step: {res['train_step']['launches']} "
+                        "Snake launches, expected 29")
+    del system, state, batch
+    torch.cuda.empty_cache()
+    print(json.dumps({"snake": res}))
+    if problems:
+        raise AssertionError("; ".join(problems))
 
 
 def phase_action(gen, report):
@@ -5125,6 +5295,7 @@ def main() -> int:
     mesh_launches = run("mesh", phase_mesh, gen, report) or {}
     bench_launches = run("bench", phase_bench, gen, report) or {}
     mla_launches = run("mla_moe", phase_mla_moe, gen, report) or {}
+    run("snake", phase_snake, gen, report)
     if (report.get("finetune") or {}).get("tmp"):  # L's experiment
         import shutil
 

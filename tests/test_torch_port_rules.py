@@ -79,13 +79,14 @@ def test_every_kernel_source_is_built_and_counted():
     wrapper module keeps a launch counter."""
     from vaura_tpu_torch.kernels import build
     from vaura_tpu_torch.ops import decode_attention, divided_attention
-    from vaura_tpu_torch.ops import encoder_fused
+    from vaura_tpu_torch.ops import encoder_fused, snake
 
     on_disk = {p.stem for p in (ROOT / "vaura_tpu_torch" / "csrc").glob("*.cu")}
     assert on_disk == set(build.SOURCES)
     assert divided_attention.launches == 0 and decode_attention.launches == 0
     assert encoder_fused.attention_launches == 0
     assert encoder_fused.mlp_launches == 0
+    assert snake.launches == 0
 
 
 def test_a_changed_header_rebuilds_every_library(tmp_path, monkeypatch):

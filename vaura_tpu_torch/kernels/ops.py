@@ -1,5 +1,5 @@
-"""Decode attention as a registered PyTorch operator,
-``torch.ops.vaura_torch.decode_attention``.
+"""Decode attention and Snake as registered PyTorch operators,
+``torch.ops.vaura_torch.decode_attention`` and ``torch.ops.vaura_torch.snake``.
 
 ``torch.export`` records a registered operator in its graph but cannot
 trace through the ``ctypes`` launch of ``ops/decode_attention.py``, and a
@@ -21,7 +21,13 @@ an NVIDIA H100 80GB HBM3 machine at the flagship's decode shapes;
 ``PERF.md`` §6), 24 calls a decode step. The operator has no
 backward: it serves generation, which records no graph.
 
-Importing this module registers the operator and imports no model, so a
+``snake(x, alpha)`` (``ops/snake.py``) is registered the same way: the
+kernel ``snake_cuda`` for CUDA tensors, ``snake_plain`` for CPU tensors, a
+fake that returns ``torch.empty_like(x)``, no backward (the codec runs
+without a graph). ``models/dac/layers.py::Snake1d`` calls it, so the
+exported epilogue's DAC decode records it.
+
+Importing this module registers the operators and imports no model, so a
 process that loads an exported graph (``utils/aot.py::load_generate``) needs
 only this. The eager decode loop with a host position calls
 ``decode_attention`` directly; the device-position step
@@ -33,6 +39,7 @@ from __future__ import annotations
 import torch
 
 from vaura_tpu_torch.ops.decode_attention import decode_attention
+from vaura_tpu_torch.ops.snake import snake_cuda, snake_plain
 
 SCHEMA = ("decode_attention(Tensor q, Tensor k_cache, Tensor v_cache, "
           "Tensor k_cur, Tensor v_cur, Tensor pos, Tensor? k_scale=None, "
@@ -41,6 +48,7 @@ SCHEMA = ("decode_attention(Tensor q, Tensor k_cache, Tensor v_cache, "
 
 _LIB = torch.library.Library("vaura_torch", "DEF")
 _LIB.define(SCHEMA)
+_LIB.define("snake(Tensor x, Tensor alpha) -> Tensor")
 
 
 def _decode_attention(q, k_cache, v_cache, k_cur, v_cur, pos, k_scale=None,
@@ -63,3 +71,15 @@ def _decode_attention_fake(q, k_cache, v_cache, k_cur, v_cur, pos,
 
 
 decode_attention_op = torch.ops.vaura_torch.decode_attention.default
+
+
+_LIB.impl("snake", snake_plain, "CPU")
+_LIB.impl("snake", snake_cuda, "CUDA")
+
+
+@torch.library.register_fake("vaura_torch::snake")
+def _snake_fake(x, alpha):
+    return torch.empty_like(x)
+
+
+snake_op = torch.ops.vaura_torch.snake.default

@@ -2,10 +2,11 @@
 
 Counterpart of ``vaura_tpu/models/dac/layers.py``. Weight norm is stored
 folded (``W = g * v / ||v||``), as the JAX package stores it. Where the JAX
-package uses TPU formulations, this port uses the direct ones: ``torch.sin``
-for Snake's ``sin^2`` (JAX: the polynomial ``_sin2_poly``, max error ~5e-7)
+package uses TPU formulations, this port uses the direct ones: ``sin`` for
+Snake's ``sin^2`` (JAX: the polynomial ``_sin2_poly``, max error ~5e-7)
 and ``F.conv_transpose1d`` for the upsampling (JAX: the polyphase form,
-exact).
+exact). Snake is the operator ``torch.ops.vaura_torch.snake``
+(``ops/snake.py``): one kernel on the card, plain PyTorch on the CPU.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ import math
 
 import torch
 from torch import nn
+
+from vaura_tpu_torch.kernels.ops import snake_op
 
 
 class Snake1d(nn.Module):
@@ -25,8 +28,7 @@ class Snake1d(nn.Module):
                                              dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        a = self.alpha.to(x.dtype)[None, :, None]
-        return x + torch.sin(a * x) ** 2 / (a + 1e-9)
+        return snake_op(x, self.alpha.to(x.dtype))
 
 
 # The JAX package's Conv1d (symmetric padding) and ConvTranspose1d
