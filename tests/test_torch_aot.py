@@ -9,8 +9,6 @@ package's weights carried by ``from_jax_params``:
   and with int8 weights (``quantize=true``) over the int4 cache under int8 x
   int8 products; the artifact holds no tensor of the state;
 * greedy aot codes equal to the JAX package's jitted ``generate``;
-* the device-position step equal to the host-int step, token for token and
-  cache row for cache row, with every kind of cache;
 * the server: ``aot_export`` then ``aot_load`` give the eager server's
   codes; each mismatch and exclusion raises ``ValueError`` with JAX's words;
   an artifact of another device type is refused;
@@ -183,44 +181,6 @@ def test_greedy_aot_codes_equal_jax_jitted_generate(tiny, artifacts):
     fn, _ = load_generate(path, CPU)
     _, codes = fn(serving_state(tsys), feats, 0)
     np.testing.assert_array_equal(codes.numpy(), want)
-
-
-@pytest.mark.parametrize("extra", [
-    {}, {"quantize_cache": True}, {"quantize_cache": True, "cache_bits": 4},
-    {"quantize_cache": True, "int8_dots": True},
-], ids=["unquantized", "int8", "int4", "int8_dots"])
-def test_device_position_step_equals_host_int_step(tiny, extra):
-    """``generation_step`` with ``s`` a 0-d int64 tensor (``index_select``
-    reads, ``index_copy_`` writes, decode attention through the registered
-    operator) against the host-int form: the same tokens and cache rows at
-    every step, under int8_dots over the JAX package's chunks."""
-    from vaura_tpu_torch.models.vaura import chunk_bounds
-
-    tsys = port_system(tiny[2], **extra)
-    pattern, valid_mask, S = tsys.prepare_generation(N_TOKENS)
-    codes = torch.full((B, 3, N_TOKENS), -1, dtype=torch.long)
-    gen0, _, _ = pattern.build_pattern_sequence(codes, tsys.special_token_id)
-    cond = tsys.build_cond_seq_for_generation(_feats(), S, 7, cfg=True)
-    vm = torch.as_tensor(valid_mask)
-    runs = []
-    for device_pos in (False, True):
-        cache = tsys.sampler.init_cache(2 * B, S)
-        if tsys._quantizes_probs():
-            cache["chunk_starts"] = torch.tensor(chunk_bounds(S, 8)[:-1],
-                                                 dtype=torch.int32)
-        gen = gen0.clone()
-        g = torch.Generator().manual_seed(5)
-        for s in range(1, S):
-            tsys.generation_step(
-                cache, gen, cond, torch.tensor(s) if device_pos else s, vm,
-                g, **SAMPLING, top_p=0.0)
-        runs.append((gen, cache))
-    (gen_a, cache_a), (gen_b, cache_b) = runs
-    assert torch.equal(gen_a, gen_b)
-    assert (gen_a >= 0).all()
-    for name in ("k", "v", "k_scale", "v_scale"):
-        if name in cache_a:
-            assert torch.equal(cache_a[name], cache_b[name]), name
 
 
 def _serve_cfg(**overrides):

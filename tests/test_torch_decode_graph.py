@@ -1,19 +1,21 @@
-"""The decode loop that a card replays from a CUDA graph
-(``VauraSystem._device_loop``), run here with its step uncaptured: the
-position a 0-d int64 tensor that the step advances, the sampling's uniform
-draw made into one buffer before each step. It must give the host-int
-loop's sequence and cache, token for token and byte for byte, with every
-kind of cache and after a prefilled prompt; its draws must be
-``uniform_noise``'s, call after call (the benchmark's check draws them
-again); and ``generate_tokens`` must choose it only on a card without a
-mesh, with enough steps to repay the recording. On the card
+"""The port's one decode loop (``VauraSystem._device_loop``), which a card
+replays from a CUDA graph and which runs eagerly here: the position a 0-d
+int64 tensor that the step advances, the sampling's uniform draw made into
+one buffer before each step. Through ``generate_tokens`` it must give the
+sequence and cache of a plain loop with host ``int`` positions
+(``torch_port_util.reference_decode_loop``), token for token and byte for
+byte, with every kind of cache, with and without a prefilled prompt; its
+draws must be ``uniform_noise``'s, call after call (the benchmark's check
+draws them again); and ``generate_tokens`` must record a graph only on a
+card without a mesh, with enough steps to repay the recording. On the card
 ``chip_smoke.py``'s ``decode_graph`` phase holds the replayed codes to the
-eager loop's."""
+same loop run eagerly."""
 
 from types import SimpleNamespace
 
 import pytest
 import torch
+from torch_port_util import reference_decode_loop
 
 from vaura_tpu_torch.models import vaura as V
 from vaura_tpu_torch.models.dac.model import DacConfig
@@ -65,40 +67,42 @@ def loop_inputs(system, prompt: bool):
     return cond, gen_seq, valid_mask, S, start_step, cache
 
 
-def run_loop(system, inputs, device_loop: bool, monkeypatch):
-    """``generate_tokens`` over ``inputs``: the host-int loop it takes on
-    the CPU, or (``device_loop``) the graph loop's, its step uncaptured.
-    Returns ``(sequence, cache, eager steps, replayed steps)``."""
+def run_loop(system, inputs, reference: bool):
+    """``inputs``' steps through ``generate_tokens`` (its one loop, eager
+    on the CPU), or (``reference``) through the plain host-int loop on the
+    cache ``generate_tokens`` would make. Returns ``(sequence, cache, eager
+    steps, replayed steps)``."""
     cond, gen_seq, valid_mask, S, start_step, cache = inputs
     cache = ({k: v.clone() for k, v in cache.items()} if cache is not None
              else system.sampler.init_cache(2 * B, S))
-    with monkeypatch.context() as m:
-        if device_loop:
-            loop = system._device_loop
-            m.setattr(system, "_replays_steps", lambda cache, steps: True)
-            m.setattr(system, "_device_loop",
-                      lambda *a, graph, **kw: loop(*a, graph=False, **kw))
-        eager, replayed = V.eager_steps, V.replayed_steps
+    generator = torch.Generator().manual_seed(5)
+    eager, replayed = V.eager_steps, V.replayed_steps
+    if reference:
+        if system._quantizes_probs():
+            cache["chunk_starts"] = torch.tensor(
+                V.chunk_bounds(S, 8, start_step)[:-1], dtype=torch.int32)
+        seq = reference_decode_loop(system, cache, gen_seq.clone(), cond,
+                                    valid_mask, generator,
+                                    range(start_step, S), **SAMPLING)
+    else:
         seq = system.generate_tokens(
-            cond, gen_seq, torch.Generator().manual_seed(5), S=S,
-            valid_mask=valid_mask, start_step=start_step,
-            initial_cache=cache, decode_buckets=8, **SAMPLING)
+            cond, gen_seq, generator, S=S, valid_mask=valid_mask,
+            start_step=start_step, initial_cache=cache, decode_buckets=8,
+            **SAMPLING)
     return (seq, cache, V.eager_steps - eager,
             V.replayed_steps - replayed)
 
 
-@pytest.mark.parametrize("mode,prompt",
-                         [(m, False) for m in CACHES] + [("int8", True)],
-                         ids=list(CACHES) + ["int8_prompt"])
-def test_device_loop_equals_host_int_loop(mode, prompt, monkeypatch):
+@pytest.mark.parametrize(
+    "mode,prompt", [(m, p) for p in (False, True) for m in CACHES],
+    ids=list(CACHES) + [f"{m}_prompt" for m in CACHES])
+def test_device_loop_equals_host_int_loop(mode, prompt):
     system = tiny_system(**CACHES[mode])
     inputs = loop_inputs(system, prompt)
     S, start_step = inputs[3], inputs[4]
-    seq_a, cache_a, eager_a, rep_a = run_loop(system, inputs, False,
-                                              monkeypatch)
-    seq_b, cache_b, eager_b, rep_b = run_loop(system, inputs, True,
-                                              monkeypatch)
-    assert eager_a == eager_b == S - start_step and rep_a == rep_b == 0
+    seq_a, cache_a, _, _ = run_loop(system, inputs, True)
+    seq_b, cache_b, eager_b, rep_b = run_loop(system, inputs, False)
+    assert eager_b == S - start_step and rep_b == 0
     assert (seq_a >= 0).all()
     assert torch.equal(seq_a, seq_b)
     assert cache_a.keys() == cache_b.keys()
@@ -125,8 +129,8 @@ def test_noise_buffer_draw_equals_uniform_noise():
 
 
 def test_device_loop_draws_the_host_loops_noise(monkeypatch):
-    """Every step's buffer holds the draw the host-int step makes inside
-    ``sample_tokens``."""
+    """Every step's buffer holds the draw the plain host-int loop makes
+    inside ``sample_tokens``."""
     system = tiny_system(quantize_cache=True)
     inputs = loop_inputs(system, False)
     drawn = {False: [], True: []}
@@ -143,10 +147,11 @@ def test_device_loop_draws_the_host_loops_noise(monkeypatch):
         drawn[True].append(out.clone())
         return out
 
-    monkeypatch.setattr(torch, "rand", record_rand)
-    run_loop(system, inputs, False, monkeypatch)
+    with monkeypatch.context() as m:
+        m.setattr(torch, "rand", record_rand)
+        run_loop(system, inputs, True)
     monkeypatch.setattr(torch.Tensor, "uniform_", record_uniform)
-    run_loop(system, inputs, True, monkeypatch)
+    run_loop(system, inputs, False)
     assert len(drawn[False]) == len(drawn[True]) == inputs[3] - 1
     for a, b in zip(drawn[False], drawn[True]):
         assert torch.equal(a, b)

@@ -79,7 +79,7 @@ def test_long_prompt_runs_one_prefill_and_the_steps_after_it(systems, monkeypatc
     _, _, port, vis = systems
     tsys = port()
     calls = {"prefill": 0, "steps": 0}
-    prefill, step = tsys.sampler.prefill, tsys.sampler.decode_step
+    prefill, step = tsys.sampler.prefill, tsys.sampler.decode_rows
 
     def count(name, fn):
         def wrapped(*a, **k):
@@ -88,7 +88,7 @@ def test_long_prompt_runs_one_prefill_and_the_steps_after_it(systems, monkeypatc
         return wrapped
 
     monkeypatch.setattr(tsys.sampler, "prefill", count("prefill", prefill))
-    monkeypatch.setattr(tsys.sampler, "decode_step", count("steps", step))
+    monkeypatch.setattr(tsys.sampler, "decode_rows", count("steps", step))
     _, _, S = tsys.prepare_generation(MAX_NEW)
     first = tsys.pattern_provider.get_pattern(MAX_NEW) \
         .get_first_step_with_timesteps(PROMPT)

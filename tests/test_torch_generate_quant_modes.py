@@ -74,14 +74,14 @@ def _run_both(systems, monkeypatch, mode, buckets, prompt=None):
         return build(self, *a, chunk_starts=chunk_starts, **k)
 
     monkeypatch.setattr(JSystem, "build_generation_step", record)
-    step = TSampler.decode_step
+    step = TSampler.decode_rows
 
     def spy(self, tokens_t, cond_t, cache, pos, row=None):
         starts = cache.get("chunk_starts")
         seen["port"].add(None if starts is None else tuple(starts.tolist()))
         return step(self, tokens_t, cond_t, cache, pos, row)
 
-    monkeypatch.setattr(TSampler, "decode_step", spy)
+    monkeypatch.setattr(TSampler, "decode_rows", spy)
     want = jsys.generate(jp, None, jax.random.PRNGKey(0),
                          vis_feats=jnp.asarray(vis), decode_buckets=buckets,
                          audio_prompt_codes=None if prompt is None
@@ -140,14 +140,14 @@ def test_generate_action_keeps_the_int4_cache_under_quantize(tmp_path,
     from vaura_tpu_torch.main import main
 
     seen = set()
-    step = TSampler.decode_step
+    step = TSampler.decode_rows
 
     def spy(self, tokens_t, cond_t, cache, pos, row=None):
         seen.add((self.cfg.cache_bits, self.cfg.quantize_weights,
                   self.cfg.quantize_cache, cache["k"].shape[-1]))
         return step(self, tokens_t, cond_t, cache, pos, row)
 
-    monkeypatch.setattr(TSampler, "decode_step", spy)
+    monkeypatch.setattr(TSampler, "decode_rows", spy)
     main(["config=configs/experiments/dummy.yaml", "action=generate",
           "duration=0.15", "model_max_duration=0.64",
           "dataloader.batch_size=1", "max_batches=1", "quantize=true",

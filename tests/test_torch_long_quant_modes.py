@@ -70,7 +70,7 @@ def _spy_starts(monkeypatch):
         return build(self, *a, chunk_starts=chunk_starts, **k)
 
     monkeypatch.setattr(JSystem, "build_generation_step", record)
-    step = TSampler.decode_step
+    step = TSampler.decode_rows
 
     def spy(self, tokens_t, cond_t, cache, pos, row=None):
         starts = cache.get("chunk_starts")
@@ -78,7 +78,7 @@ def _spy_starts(monkeypatch):
                             else tuple(starts.tolist()))
         return step(self, tokens_t, cond_t, cache, pos, row)
 
-    monkeypatch.setattr(TSampler, "decode_step", spy)
+    monkeypatch.setattr(TSampler, "decode_rows", spy)
     return seen
 
 

@@ -18,6 +18,7 @@ import dataclasses
 
 import pytest
 import torch
+from torch_port_util import reference_decode_loop
 
 from port_bench import weights as W
 from port_bench.reference import dac as ref_dac
@@ -98,7 +99,7 @@ def test_prefill_then_decode_through_the_latent_cache(model, prompt):
     logits, pre = s.prefill(tokens[:, :, :prompt], cond[:, :prompt])
     torch.testing.assert_close(logits, want[:, :, :prompt], atol=TOL, rtol=0)
     cache = s.init_cache(tokens.shape[0], T)
-    assert set(cache) == {"c", "k_pe", "positions"}
+    assert set(cache) == {"c", "k_pe"}
     assert cache["c"].shape == (3, 2, T, 16) and cache["k_pe"].shape == (3, 2, T, 8)
     for name in ("c", "k_pe"):
         cache[name][:, :, :prompt] = pre[name]
@@ -221,10 +222,10 @@ def system():
     return _system()
 
 
-def _steps(system, device_pos: bool, T: int = 10):
-    """Tokens of one generation's steps, the host-int loop or the
-    device-position step (``_device_loop`` without a graph), and the
-    expert counter."""
+def _steps(system, reference: bool, T: int = 10):
+    """Tokens of one generation's steps, through ``generate_tokens`` (its
+    one loop, eager here) or (``reference``) the plain host-int loop
+    (``torch_port_util.reference_decode_loop``), and the expert counter."""
     g = torch.Generator().manual_seed(4)
     feats = torch.randn(2, 4, CFG["cond_in_dim"], generator=g)
     pattern, mask, S = system.prepare_generation(T)
@@ -233,22 +234,22 @@ def _steps(system, device_pos: bool, T: int = 10):
     cond = system.build_cond_seq_for_generation(feats, S, TPF, cfg=True)
     kw = dict(S=S, valid_mask=mask, temp=1.0, top_k=8, cfg_scale=3.0)
     gen = torch.Generator().manual_seed(5)
-    if not device_pos:
+    if not reference:
         return system.generate_tokens(cond, seq, gen, **kw), system.expert_load()
     cache = system.sampler.init_cache(4, S)
     cfg = system.sampler_config
     system.sampler.expert_load = torch.zeros(S, cfg.moe_layers, 8,
                                              dtype=torch.int32)
-    out = seq.clone()
-    system._device_loop(cache, out, cond, torch.as_tensor(mask), gen,
-                        range(1, S), graph=False, use_sampling=True, temp=1.0,
-                        top_k=8, top_p=0.0, cfg_scale=3.0)
+    system.sampler.expert_choices = None
+    out = reference_decode_loop(system, cache, seq.clone(), cond, mask, gen,
+                                range(1, S), use_sampling=True, temp=1.0,
+                                top_k=8, top_p=0.0, cfg_scale=3.0)
     return out, system.expert_load()
 
 
 def test_device_position_step_matches_the_host_int_step(system):
-    host, load_h = _steps(system, device_pos=False)
-    dev, load_d = _steps(system, device_pos=True)
+    host, load_h = _steps(system, reference=True)
+    dev, load_d = _steps(system, reference=False)
     assert torch.equal(host, dev)
     assert torch.equal(load_h, load_d)
     S = host.shape[-1]
@@ -344,7 +345,7 @@ def test_llama_block_unchanged_by_the_new_defaults(path):
         return
     cseq = s.build_cond_seq(s.embed_cond(feats), T, TPF)
     cache = s.init_cache(tokens.shape[0], T)
-    assert set(cache) == {"k", "v", "positions"}
+    assert set(cache) == {"k", "v"}
     for p in range(T):
         got = s.decode_step(tokens[:, :, p:p + 1], cseq[:, p:p + 1], cache, p)
         torch.testing.assert_close(got, want[:, :, p], atol=TOL, rtol=0)

@@ -181,7 +181,8 @@ def test_int8_attention_layer_matches_jax(n_kv_head, split):
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
     with torch.no_grad():
         got, (tk, tv) = tl.decode(t(x), torch.from_numpy(np.array(fr)),
-                                  (t(kq), t(vq), t(ks), t(vs)), pos)
+                                  (t(kq), t(vq), t(ks), t(vs)),
+                                  torch.tensor([pos], dtype=torch.int32))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     np.testing.assert_allclose(tk.numpy(), np.asarray(jk)[:, 0], **TOL)
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv)[:, 0], **TOL)

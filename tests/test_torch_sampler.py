@@ -131,24 +131,24 @@ def test_sampled_frequencies_follow_the_top_k_distribution():
 
 
 def test_decode_step_reads_pos_from_the_cache_positions(samplers):
-    """``init_cache`` makes the int32 positions once; ``decode_step`` hands
-    decode attention a one-element view of them and gives the logits it
-    gives for a cache without them (to which it adds them), bit for bit."""
+    """``decode_step`` takes its position (and cache row) as a host ``int``
+    or as a 0-d int64 tensor and gives the same logits and the same cache,
+    bit for bit; a cache holds no table of positions."""
     _, _, ts = samplers
     cfg = J_SAMPLER
     rng = np.random.default_rng(5)
     made = ts.init_cache(B, S, dtype=torch.float32)
-    assert made["positions"].dtype == torch.int32
-    assert made["positions"].tolist() == list(range(S))
-    bare = {"k": made["k"].clone(), "v": made["v"].clone()}
-    for pos in range(3):
+    assert set(made) == {"k", "v"}
+    other = {k: v.clone() for k, v in made.items()}
+    for pos, row in ((0, None), (1, None), (2, None), (7, 3)):
         tok = torch.from_numpy(rng.integers(
             0, cfg.vocab_with_special, (B, cfg.num_codebooks, 1)).astype(np.int32))
         cond = torch.from_numpy(
             rng.standard_normal((B, 1, cfg.cond_dim)).astype(np.float32))
-        a = ts.decode_step(tok, cond, made, pos)
-        b = ts.decode_step(tok, cond, bare, pos)
+        a = ts.decode_step(tok, cond, made, pos, row)
+        b = ts.decode_step(tok, cond, other, torch.tensor(pos),
+                           None if row is None else torch.tensor(row))
         assert torch.equal(a, b)
-    assert bare["positions"].tolist() == list(range(S))
-    assert made["positions"].tolist() == list(range(S))
-    assert torch.equal(made["k"], bare["k"])
+    assert set(other) == {"k", "v"}
+    for name in made:
+        assert torch.equal(made[name], other[name]), name

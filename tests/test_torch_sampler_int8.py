@@ -133,8 +133,7 @@ def test_prefill_matches_jax(tree, quantize_cache):
     tl, tc = ts.prefill(torch.from_numpy(tok), torch.from_numpy(cond))
     assert tl.shape == (2 * B, jcfg.num_codebooks, T, jcfg.d_codebook)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
-    assert set(tc) == set(jc) | {"positions"}
-    assert tc["positions"].tolist() == list(range(T))
+    assert set(tc) == set(jc)
     _assert_cache_close(tc, jc, T)
     if not quantize_cache:
         return
@@ -172,6 +171,6 @@ def test_decode_step_into_another_row_matches_jax_chunks(tree):
     tl = ts.decode_step(torch.from_numpy(tok), torch.from_numpy(cond), rolled,
                         9, row=3)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
-    _assert_cache_close({k: t[:, :, 3:4] for k, t in rolled.items()
-                         if k != "positions"}, jc[1], 1)
+    _assert_cache_close({k: t[:, :, 3:4] for k, t in rolled.items()},
+                        jc[1], 1)
     assert not rolled["k_scale"][:, :, 4].any()  # nothing else written

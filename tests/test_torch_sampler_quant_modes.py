@@ -203,7 +203,8 @@ def _attend(cfg, c0, x, pos, starts):
                          False, masks)
     got, _ = tatt.decode(torch.from_numpy(x), torch.from_numpy(freqs),
                          tuple(torch.from_numpy(c0[n][0]) for n in names),
-                         pos, torch.tensor(starts, dtype=torch.int32))
+                         torch.tensor([pos], dtype=torch.int32),
+                         torch.tensor(starts, dtype=torch.int32))
     return got.detach().numpy(), np.asarray(want)
 
 

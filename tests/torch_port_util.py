@@ -1,5 +1,6 @@
 """Shared helpers of the ``test_torch_*`` parity tests: tiny configurations
-of both packages and parameter trees carried from JAX to the port.
+of both packages, parameter trees carried from JAX to the port, and a plain
+decode loop that the port's one decode loop is held to.
 
 JAX and PyTorch meet only through numpy arrays; every input is made with
 numpy from a seed and handed to both."""
@@ -202,3 +203,36 @@ def assert_same(a, b, path="batch"):
         np.testing.assert_array_equal(a, b, err_msg=path)
     else:
         assert a == b, path
+
+
+def reference_decode_loop(system, cache, gen_seq, cond_seq, valid_mask,
+                          generator, steps, *, use_sampling, temp, top_k,
+                          top_p, cfg_scale):
+    """``gen_seq`` and ``cache`` filled in place over ``steps`` with host
+    ``int`` positions and plain slicing, the oracle of the bookkeeping of
+    ``VauraSystem._device_loop`` (``index_select`` reads, ``index_copy_``
+    writes, the noise buffer): each step is ``Sampler.decode_step`` at
+    ``s - 1``, the CFG blend, ``sample_tokens`` drawing its own noise from
+    ``generator``, the special token where ``valid_mask [K, S]`` is false,
+    and the tokens already in ``gen_seq`` (a prompt) kept where they are
+    not UNKNOWN. Returns ``gen_seq``."""
+    from vaura_tpu_torch.models.vaura import UNKNOWN_TOKEN
+    from vaura_tpu_torch.ops.sampling import cfg_blend, sample_tokens
+
+    valid = torch.as_tensor(valid_mask)
+    B = gen_seq.shape[0]
+    for s in steps:
+        tok = gen_seq[:, :, s - 1:s]
+        if cfg_scale > 1.0:
+            tok = tok.repeat(2, 1, 1)
+        logits = system.sampler.decode_step(tok, cond_seq[:, s - 1:s], cache,
+                                            s - 1)
+        if cfg_scale > 1.0:
+            logits = cfg_blend(logits[:B], logits[B:], cfg_scale)
+        new = sample_tokens(logits, generator=generator,
+                            use_sampling=use_sampling, temp=temp, top_k=top_k,
+                            top_p=top_p)
+        new = torch.where(valid[:, s][None], new, system.special_token_id)
+        cur = gen_seq[:, :, s]
+        gen_seq[:, :, s] = torch.where(cur == UNKNOWN_TOKEN, new, cur)
+    return gen_seq

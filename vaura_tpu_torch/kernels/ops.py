@@ -29,9 +29,9 @@ exported epilogue's DAC decode records it.
 
 Importing this module registers the operators and imports no model, so a
 process that loads an exported graph (``utils/aot.py::load_generate``) needs
-only this. The eager decode loop with a host position calls
-``decode_attention`` directly; the device-position step
-(``Sampler.decode_rows`` with a tensor position) goes through the operator.
+only this. Every decode step of the model (``Sampler.decode_rows``, whose
+position is a tensor) reaches decode attention through the operator,
+replayed from a CUDA graph or run eagerly.
 """
 
 from __future__ import annotations

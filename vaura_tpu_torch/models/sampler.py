@@ -37,12 +37,13 @@ here, where JAX returns an updated copy; ``decode_rows`` returns the rows
 and commits nothing). ``prefill`` fills a fresh cache from a causal forward
 over a prompt.
 
-The decode step takes its position as a host ``int`` (the eager loops) or
-as a 0-d int64 tensor on the device (the device-position form, which
-``torch.export`` traces once for every step: ``utils/aot.py``): then nothing
-indexes with a host ``int`` and decode attention is reached through the
-registered operator ``torch.ops.vaura_torch.decode_attention``
-(``kernels/ops.py``).
+A decode step's position is a 0-d int64 tensor on the device, so nothing
+indexes with a host ``int``: the RoPE row is an ``index_select``, the cache
+write an ``index_copy_``, and decode attention the registered operator
+``torch.ops.vaura_torch.decode_attention`` (``kernels/ops.py``). One traced
+step then serves every position, whether ``torch.export`` traces it
+(``utils/aot.py``) or a CUDA graph records it (``VauraSystem``'s decode
+loop). ``decode_step`` alone also takes a host ``int``.
 
 ``quantize_weights`` stores the decoder blocks' and the LM head's matmul
 weights as int8 with per-output-channel scales (``kernel_q``/``scale``,
@@ -66,7 +67,7 @@ import contextlib
 import dataclasses
 import functools
 import math
-from typing import Callable, Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -80,7 +81,6 @@ from torch.utils.checkpoint import (
 )
 
 from vaura_tpu_torch.kernels.ops import decode_attention_op
-from vaura_tpu_torch.ops.decode_attention import decode_attention
 from vaura_tpu_torch.ops.dropout import (
     batch_shard,
     current_batch_shard,
@@ -98,9 +98,6 @@ from vaura_tpu_torch.ops.rope import apply_rotary_emb, precompute_freqs_cis
 from vaura_tpu_torch.parallel import tensor_parallel as tp_ops
 from vaura_tpu_torch.utils import ANY, drop_unported_fields
 from vaura_tpu_torch.utils.spans import span
-
-# a decode position: a host int, or a 0-d int64 tensor on the device
-Pos = Union[int, torch.Tensor]
 
 
 _aten = torch.ops.aten
@@ -527,19 +524,16 @@ class Attention(nn.Module):
         return dropout(out, cfg.dropout, train, generator), kv
 
     def decode(self, x: torch.Tensor, freqs_cis: torch.Tensor,
-               cache_layer: Tuple[torch.Tensor, ...],
-               row: Union[int, torch.Tensor],
-               chunk_starts: Optional[torch.Tensor] = None,
-               op: bool = False
+               cache_layer: Tuple[torch.Tensor, ...], row: torch.Tensor,
+               chunk_starts: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         """``x [B, 1, d_model]`` whose RoPE row is ``freqs_cis``;
         ``cache_layer`` one layer's ``(k, v)`` ``[B, S, H_kv, hd]`` (and, for
         a quantized cache, ``(k_scale, v_scale) [B, S, H_kv]``), read below
-        ``row`` only (an ``int`` or a one-element int32 tensor on ``x``'s
-        device); ``chunk_starts`` the quantization groups of ``int8_dots``;
-        ``op`` reaches decode attention through the registered operator (a
-        tensor ``row``). Returns the output and this position's ``(k, v)
-        [B, H_kv, hd]``."""
+        ``row`` only (a one-element int32 tensor on ``x``'s device) by the
+        registered decode-attention operator; ``chunk_starts`` the
+        quantization groups of ``int8_dots``. Returns the output and this
+        position's ``(k, v) [B, H_kv, hd]``."""
         cfg = self.cfg
         B = x.shape[0]
         H, Hkv, hd = self.n_heads, self.n_kv, cfg.head_dim
@@ -548,8 +542,7 @@ class Attention(nn.Module):
         k = apply_rotary_emb(k.reshape(B, 1, Hkv, hd), freqs_cis)[:, 0]
         v = v.reshape(B, Hkv, hd).contiguous()
         k_cache, v_cache, *scales = cache_layer
-        attend = decode_attention_op if op else decode_attention
-        out = attend(
+        out = decode_attention_op(
             q.contiguous(), k_cache, v_cache, k.contiguous(), v, row, *scales,
             cache_bits=cfg.cache_bits,
             int8_dots=cfg.int8_dots and cfg.quantize_cache,
@@ -633,7 +626,7 @@ class LatentAttention(nn.Module):
 
     def decode(self, x: torch.Tensor, freqs_cis: torch.Tensor,
                cache_layer: Tuple[torch.Tensor, torch.Tensor],
-               row: torch.Tensor, chunk_starts=None, op: bool = False):
+               row: torch.Tensor, chunk_starts=None):
         """The absorbed form at one position: ``x [B, 1, d_model]``,
         ``cache_layer`` one layer's ``(c [B, S, R], k_pe [B, S, r])``, read
         below ``row`` (a one-element int32 tensor on the device). Returns
@@ -802,10 +795,9 @@ class TransformerBlock(nn.Module):
         h = x + a
         return h + self.feed_forward(self.ffn_norm(h)), kv
 
-    def decode(self, x, freqs_cis, cache_layer, row, chunk_starts=None,
-               op=False):
+    def decode(self, x, freqs_cis, cache_layer, row, chunk_starts=None):
         a, kv = self.attention.decode(self.attention_norm(x), freqs_cis,
-                                      cache_layer, row, chunk_starts, op)
+                                      cache_layer, row, chunk_starts)
         h = x + a
         ff = self.feed_forward
         if isinstance(ff, MoEFeedForward):
@@ -1065,8 +1057,8 @@ class Sampler(nn.Module):
         or with ``quantize_cache`` int8 ``k``/``v`` (``hd / 2`` bytes a row
         with ``cache_bits=4``) and float32 ``k_scale``/``v_scale``
         (``dtype`` is then not read), or for latent attention bf16 (or
-        ``dtype``) ``c``/``k_pe``; and the rows' ``positions`` (and, under
-        ``int8_dots``, one quantization group: ``chunk_starts``)."""
+        ``dtype``) ``c``/``k_pe``; under ``int8_dots`` also one quantization
+        group (``chunk_starts``)."""
         cfg = self.cfg
         dev = self.freqs_cis.device
         if cfg.mla:
@@ -1075,8 +1067,7 @@ class Sampler(nn.Module):
             return {"c": torch.zeros(lat + (cfg.kv_lora_rank,), dtype=dtype,
                                      device=dev),
                     "k_pe": torch.zeros(lat + (cfg.qk_rope_head_dim,),
-                                        dtype=dtype, device=dev),
-                    "positions": self._positions(max_seq, dev)}
+                                        dtype=dtype, device=dev)}
         shape = (cfg.num_layers, batch, max_seq, self.n_kv_local, cfg.head_dim)
         if cfg.quantize_cache:
             packed = shape[:-1] + (cfg.head_dim // 2 if cfg.cache_bits == 4
@@ -1085,28 +1076,19 @@ class Sampler(nn.Module):
                     "v": torch.zeros(packed, dtype=torch.int8, device=dev),
                     "k_scale": torch.zeros(shape[:-1], device=dev),
                     "v_scale": torch.zeros(shape[:-1], device=dev),
-                    **self._cache_rows(max_seq, dev)}
+                    **self._one_group(dev)}
         dtype = dtype or cfg.dtype
         return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                "v": torch.zeros(shape, dtype=dtype, device=dev),
-                "positions": self._positions(max_seq, dev)}
+                "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
-    @staticmethod
-    def _positions(max_seq: int, device) -> torch.Tensor:
-        """``0 .. max_seq - 1`` as int32 on the cache's device, made once
-        per cache: ``positions[row:row + 1]`` is the row as a device scalar
-        for decode attention, a view that costs no launch."""
-        return torch.arange(max_seq, dtype=torch.int32, device=device)
-
-    def _cache_rows(self, max_seq: int, device) -> Dict[str, torch.Tensor]:
-        """A quantized cache's ``positions`` and, under ``int8_dots``, its
-        one quantization group (``chunk_starts`` ``[0]``), which the decode
-        loops replace by the JAX package's chunks."""
-        rows = {"positions": self._positions(max_seq, device)}
-        if self.cfg.int8_dots:
-            rows["chunk_starts"] = torch.zeros(1, dtype=torch.int32,
-                                               device=device)
-        return rows
+    def _one_group(self, device) -> Dict[str, torch.Tensor]:
+        """Under ``int8_dots`` with a quantized cache, its one quantization
+        group (``chunk_starts`` ``[0]``), which the decode loops replace by
+        the JAX package's chunks; else nothing."""
+        if not (self.cfg.int8_dots and self.cfg.quantize_cache):
+            return {}
+        return {"chunk_starts": torch.zeros(1, dtype=torch.int32,
+                                            device=device)}
 
     def _store(self, k: torch.Tensor, v: torch.Tensor) -> Dict[str, torch.Tensor]:
         """K/V as the cache stores them: quantized for an int8 or int4
@@ -1126,13 +1108,11 @@ class Sampler(nn.Module):
         """Causal forward over the padded prompt ``tokens [B, K, S]`` with
         the per-position conditioning ``cond_seq [B, S, cond_dim]``: returns
         the logits ``[B, K, S, vocab]`` and a fresh cache of ``S`` rows
-        holding every position's K/V (int8 with ``quantize_cache``), with
-        its ``positions`` (and one ``chunk_starts`` group under
-        ``int8_dots``). Positions past the prompt hold K/V of whatever
-        the padding was; decode attention never reads a row at or past its
-        own, and the decode steps rewrite them first (JAX
-        ``sampler.py:773-804``)."""
-        cfg = self.cfg
+        holding every position's K/V (int8 with ``quantize_cache``; one
+        ``chunk_starts`` group under ``int8_dots``). Positions past the
+        prompt hold K/V of whatever the padding was; decode attention never
+        reads a row at or past its own, and the decode steps rewrite them
+        first (JAX ``sampler.py:773-804``)."""
         S = tokens.shape[2]
         tok_emb = self.tok_embeddings(tokens)
         h = torch.cat([cond_seq.to(tok_emb.dtype), tok_emb], dim=-1)
@@ -1144,57 +1124,44 @@ class Sampler(nn.Module):
             ks.append(k)
             vs.append(v)
         cache = self._store(torch.stack(ks), torch.stack(vs))
-        cache.update(self._cache_rows(S, h.device) if cfg.quantize_cache
-                     else {"positions": self._positions(S, h.device)})
-        return self._logits(h), cache
+        return self._logits(h), {**cache, **self._one_group(h.device)}
 
     @torch.no_grad()
     def decode_step(self, tokens_t: torch.Tensor, cond_t: torch.Tensor,
-                    cache: Dict[str, torch.Tensor], pos: Pos,
-                    row: Optional[Pos] = None) -> torch.Tensor:
+                    cache: Dict[str, torch.Tensor], pos: int,
+                    row: Optional[int] = None) -> torch.Tensor:
         """One step at position ``pos``: ``tokens_t [B, K, 1]``,
         ``cond_t [B, 1, cond_dim]``. Returns next-token logits
         ``[B, K, vocab]`` and commits this position's K/V into cache row
         ``row`` (default ``pos``) in place after all layers have read the
         rows below it: ``pos`` picks the RoPE row, ``row`` the cache row,
-        which differ in the rolling cache of ``generate_long_kv``. Decode
-        attention takes the row from device memory (a one-element view of
-        the cache's ``positions``, added to a cache that lacks it); RoPE and
-        the cache write index with the host ``int``. Under ``int8_dots`` the
-        cache's ``chunk_starts`` are the probabilities' quantization
-        groups. ``pos`` and ``row`` may instead be 0-d int64 tensors on the
-        device (``decode_rows``), and the write is then an ``index_copy_``."""
-        row = pos if row is None else row
+        which differ in the rolling cache of ``generate_long_kv``. Under
+        ``int8_dots`` the cache's ``chunk_starts`` are the probabilities'
+        quantization groups. ``pos`` and ``row`` are host ``int``s (or 0-d
+        int64 tensors), made 0-d int64 tensors on the cache's device for
+        ``decode_rows`` and ``commit_rows``."""
+        dev = cache[self.cache_names[0]].device
+        pos = torch.as_tensor(pos, dtype=torch.int64, device=dev)
+        row = pos if row is None else torch.as_tensor(row, dtype=torch.int64,
+                                                      device=dev)
         logits, rows = self.decode_rows(tokens_t, cond_t, cache, pos, row)
         self.commit_rows(cache, rows, row)
         return logits
 
     @torch.no_grad()
     def decode_rows(self, tokens_t: torch.Tensor, cond_t: torch.Tensor,
-                    cache: Dict[str, torch.Tensor], pos: Pos,
-                    row: Optional[Pos] = None
+                    cache: Dict[str, torch.Tensor], pos: torch.Tensor,
+                    row: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """``decode_step`` without the write: ``(logits [B, K, vocab], this
-        position's rows {name: [L, B, ...]})``, the rows as the cache stores
-        them (quantized for an int8 or int4 cache), for ``commit_rows``.
-        With a tensor ``pos`` (and ``row``) the RoPE row is an
-        ``index_select``, the cache row an int32 copy of ``row`` and decode
-        attention the registered operator: a graph traced once serves every
-        position."""
-        device_pos = isinstance(pos, torch.Tensor)
-        if device_pos:
-            row = pos if row is None else row
-            row_t = row.reshape(1).to(torch.int32)
-            freqs = self.freqs_cis.index_select(0, pos.reshape(1))
-        else:
-            pos = int(pos)
-            row = pos if row is None else int(row)
-            if "positions" not in cache:
-                first = cache[self.cache_names[0]]
-                cache["positions"] = self._positions(first.shape[2],
-                                                     first.device)
-            row_t = cache["positions"][row:row + 1]
-            freqs = self.freqs_cis[pos:pos + 1]
+        """``decode_step`` without the write, at ``pos`` (and cache row
+        ``row``, default ``pos``), 0-d int64 tensors on the device: ``(logits
+        [B, K, vocab], this position's rows {name: [L, B, ...]})``, the rows
+        as the cache stores them (quantized for an int8 or int4 cache), for
+        ``commit_rows``. The RoPE row is an ``index_select`` and decode
+        attention reads the rows below an int32 copy of ``row``: a graph
+        traced once serves every position."""
+        row_t = (pos if row is None else row).reshape(1).to(torch.int32)
+        freqs = self.freqs_cis.index_select(0, pos.reshape(1))
         tok_emb = self.tok_embeddings(tokens_t)
         h = torch.cat([cond_t.to(tok_emb.dtype), tok_emb], dim=-1)
         ks, vs = [], []
@@ -1202,7 +1169,7 @@ class Sampler(nn.Module):
         for layer, *cache_layer in zip(self.layers,
                                        *(cache[n] for n in self.cache_names)):
             h, (k, v) = layer.decode(h, freqs, tuple(cache_layer), row_t,
-                                     starts, device_pos)
+                                     starts)
             ks.append(k)
             vs.append(v)
         moe = [layer.feed_forward for layer in self.layers
@@ -1222,11 +1189,8 @@ class Sampler(nn.Module):
 
     @staticmethod
     def commit_rows(cache: Dict[str, torch.Tensor],
-                    rows: Dict[str, torch.Tensor], row: Pos) -> None:
-        """Write ``decode_rows``' rows into cache row ``row`` in place (an
-        ``index_copy_`` for a tensor ``row``)."""
+                    rows: Dict[str, torch.Tensor], row: torch.Tensor) -> None:
+        """Write ``decode_rows``' rows into cache row ``row`` (a 0-d int64
+        tensor on the device) in place, by ``index_copy_``."""
         for name, t in rows.items():
-            if isinstance(row, torch.Tensor):
-                cache[name].index_copy_(2, row.reshape(1), t.unsqueeze(2))
-            else:
-                cache[name][:, :, int(row)] = t
+            cache[name].index_copy_(2, row.reshape(1), t.unsqueeze(2))

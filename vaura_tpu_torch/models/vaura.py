@@ -24,23 +24,25 @@ Counterpart of ``vaura_tpu/models/vaura.py`` (``visual_features``,
 step, ``generate_tokens``, ``generate_tokens_streaming``, ``generate``,
 ``generate_long``, ``long_chunk_schedule``, ``generate_long_kv``, the two
 streaming generators, ``decode_audio``). JAX runs the decode loop as a
-compiled ``lax.scan``; here it is a Python loop over steps whose position
-is a host integer, so nothing waits for the device inside it. On a card
-without a mesh ``generate_tokens`` records one step in the device-position
-form (position, noise and cache in buffers that live through the loop) as a
-CUDA graph and replays it: one graph launch a step for the ~1,200 kernel
-launches of the flagship's step (``_device_loop``). The loop
-keeps ONE preallocated cache ``[L, 2B, S, H_kv, hd]`` (for the DeepSeek-V3
-sampler the latent ``c``/``k_pe`` rows, and the routed experts' counters
-``Sampler.expert_load`` / ``expert_choices``): the decode-attention
-kernel reads only the rows below the current one, which is what
-``decode_buckets`` achieved with chunk buffers on the TPU. The rolling cache
-of ``generate_long_kv`` is one buffer too (see ``_stream_kv_segments``).
-JAX's chunk buffers are more than a regrouping under ``int8_dots``: there
-the attention probabilities are quantized per chunk, so the chunks change
-the numbers, and the port hands JAX's chunk boundaries to the kernel as the
-cache's ``chunk_starts`` (``chunk_bounds``, the kept chunks' rows of the
-rolling cache).
+compiled ``lax.scan``; here every decode loop is ``_device_loop``, a Python
+loop over one step whose position is a 0-d int64 tensor on the device
+(position, noise and cache in buffers that live through the loop), so
+nothing waits for the device inside it. On a card without a mesh
+``generate_tokens`` records that step as a CUDA graph and replays it: one
+graph launch a step for the ~1,200 kernel launches of the flagship's step;
+elsewhere (the CPU, a mesh, short loops, the rolling cache) the same step
+runs eagerly. The loop keeps ONE preallocated cache
+``[L, 2B, S, H_kv, hd]`` (for the DeepSeek-V3 sampler the latent
+``c``/``k_pe`` rows, and the routed experts' counters
+``Sampler.expert_load`` / ``expert_choices``): the
+decode-attention kernel reads only the rows below the current one, which is
+what ``decode_buckets`` achieved with chunk buffers on the TPU. The rolling
+cache of ``generate_long_kv`` is one buffer too (see
+``_stream_kv_segments``). JAX's chunk buffers are more than a regrouping
+under ``int8_dots``: there the attention probabilities are quantized per
+chunk, so the chunks change the numbers, and the port hands JAX's chunk
+boundaries to the kernel as the cache's ``chunk_starts`` (``chunk_bounds``,
+the kept chunks' rows of the rolling cache).
 Sampling draws from the caller's ``torch.Generator``, one generator for the
 whole call where JAX splits its key per chunk.
 
@@ -603,43 +605,6 @@ class VauraSystem(nn.Module):
                 [cond_emb, self.sampler.uncond_cond_emb(B, Tv)], dim=0)
         return self.sampler.build_cond_seq(cond_emb, S, tokens_per_frame)
 
-    def generation_step(self, cache, gen_seq: torch.Tensor,
-                        cond_seq: torch.Tensor, s,
-                        valid_mask: torch.Tensor,
-                        generator: Optional[torch.Generator], *,
-                        use_sampling: bool, temp: float, top_k: int,
-                        top_p: float, cfg_scale: float,
-                        row=None,
-                        noise: Optional[torch.Tensor] = None) -> None:
-        """Step ``s``: feed the token at ``s-1``, advance the cache (its row
-        ``row``, by default ``s-1``), blend CFG, sample, force the special
-        token on invalid codebook slots and write ``gen_seq[:, :, s]`` where
-        it is still UNKNOWN (prompt tokens win). Updates ``gen_seq`` and
-        ``cache`` in place. ``s`` (and ``row``) may be 0-d int64 tensors on
-        the device: the device-position form (``step_rows``, which takes
-        ``noise``), whose writes are ``index_copy_``."""
-        kw = dict(use_sampling=use_sampling, temp=temp, top_k=top_k,
-                  top_p=top_p, cfg_scale=cfg_scale)
-        if isinstance(s, torch.Tensor):
-            col, rows = self.step_rows(cache, gen_seq, cond_seq, s,
-                                       valid_mask, generator, row=row,
-                                       noise=noise, **kw)
-            self.sampler.commit_rows(cache, rows, s - 1 if row is None
-                                     else row)
-            gen_seq.index_copy_(2, s.reshape(1), col.unsqueeze(2))
-            return
-        with span("decode_step"):
-            with span("decode_step.forward"):
-                tok_in = gen_seq[:, :, s - 1:s]
-                if cfg_scale > 1.0:
-                    tok_in = tok_in.repeat(2, 1, 1)
-                logits = self.sampler.decode_step(
-                    tok_in, cond_seq[:, s - 1:s], cache, s - 1, row)
-            with span("decode_step.sample"):
-                gen_seq[:, :, s] = self._next_tokens(
-                    logits, gen_seq[:, :, s], valid_mask[:, s], generator,
-                    **kw)
-
     def step_rows(self, cache, gen_seq: torch.Tensor, cond_seq: torch.Tensor,
                   s: torch.Tensor, valid_mask: torch.Tensor,
                   generator: Optional[torch.Generator] = None, *,
@@ -647,26 +612,32 @@ class VauraSystem(nn.Module):
                   cfg_scale: float, row: Optional[torch.Tensor] = None,
                   noise: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """The device-position step, which writes nothing: ``s`` (and
-        ``row``) 0-d int64 tensors on the device, ``valid_mask [K, S]`` a
-        device bool tensor; every index is an ``index_select`` and decode
-        attention the registered operator (``Sampler.decode_rows``), so one
-        traced graph serves every step. ``noise`` is the sampling's uniform
-        draw (``ops.sampling.uniform_noise``), else drawn from
-        ``generator``. Returns ``(the column gen_seq[:, :, s] becomes [B,
-        K], this position's cache rows)``."""
+        """Step ``s``, which writes nothing: feed the token at ``s-1``, run
+        the sampler at position ``s-1`` into cache row ``row`` (by default
+        ``s-1``), blend CFG, sample, force the special token on invalid
+        codebook slots and keep the column's tokens that are not UNKNOWN
+        (prompt tokens win). ``s`` (and ``row``) are 0-d int64 tensors on
+        the device, ``valid_mask [K, S]`` a device bool tensor; every index
+        is an ``index_select`` and decode attention the registered operator
+        (``Sampler.decode_rows``), so one traced graph serves every step.
+        ``noise`` is the sampling's uniform draw
+        (``ops.sampling.uniform_noise``), else drawn from ``generator``.
+        Returns ``(the column gen_seq[:, :, s] becomes [B, K], this
+        position's cache rows)``."""
         prev = (s - 1).reshape(1)
-        tok_in = gen_seq.index_select(2, prev)
-        if cfg_scale > 1.0:
-            tok_in = tok_in.repeat(2, 1, 1)
-        logits, rows = self.sampler.decode_rows(
-            tok_in, cond_seq.index_select(1, prev), cache, s - 1,
-            s - 1 if row is None else row)
-        col = self._next_tokens(
-            logits, gen_seq.index_select(2, s.reshape(1))[..., 0],
-            valid_mask.index_select(1, s.reshape(1))[:, 0], generator,
-            noise=noise, use_sampling=use_sampling, temp=temp, top_k=top_k,
-            top_p=top_p, cfg_scale=cfg_scale)
+        with span("decode_step.forward"):
+            tok_in = gen_seq.index_select(2, prev)
+            if cfg_scale > 1.0:
+                tok_in = tok_in.repeat(2, 1, 1)
+            logits, rows = self.sampler.decode_rows(
+                tok_in, cond_seq.index_select(1, prev), cache, s - 1,
+                s - 1 if row is None else row)
+        with span("decode_step.sample"):
+            col = self._next_tokens(
+                logits, gen_seq.index_select(2, s.reshape(1))[..., 0],
+                valid_mask.index_select(1, s.reshape(1))[:, 0], generator,
+                noise=noise, use_sampling=use_sampling, temp=temp,
+                top_k=top_k, top_p=top_p, cfg_scale=cfg_scale)
         return col, rows
 
     def _next_tokens(self, logits: torch.Tensor, cur: torch.Tensor,
@@ -722,11 +693,10 @@ class VauraSystem(nn.Module):
         first rows (``chunk_bounds``) become the cache's
         ``chunk_starts``.
 
-        On a card without a mesh, with at least ``GRAPH_MIN_STEPS`` steps,
-        the steps are replayed from a CUDA graph (``_device_loop``): the
-        same kernels on the same values, the same draws from
+        The steps run in ``_device_loop``; on a card without a mesh, with at
+        least ``GRAPH_MIN_STEPS`` steps, they are replayed from a CUDA graph:
+        the same kernels on the same values, the same draws from
         ``generator``."""
-        global eager_steps
         cache = (initial_cache if initial_cache is not None else
                  self.sampler.init_cache(cond_seq.shape[0], S, dtype=cache_dtype))
         if self._quantizes_probs():
@@ -747,15 +717,10 @@ class VauraSystem(nn.Module):
         kw = dict(use_sampling=use_sampling, temp=temp, top_k=top_k,
                   top_p=top_p, cfg_scale=cfg_scale)
         steps = range(start_step, S)
-        if self._replays_steps(cache, len(steps)):
-            with torch.cuda.device_of(gen_seq):  # its device's streams
-                self._device_loop(cache, gen_seq, cond_seq, vm, generator,
-                                  steps, graph=True, **kw)
-            return gen_seq
-        for s in steps:
-            self.generation_step(cache, gen_seq, cond_seq, s, vm, generator,
-                                 **kw)
-        eager_steps += len(steps)
+        with torch.cuda.device_of(gen_seq):  # its device's streams
+            self._device_loop(cache, gen_seq, cond_seq, vm, generator, steps,
+                              graph=self._replays_steps(cache, len(steps)),
+                              **kw)
         return gen_seq
 
     def _replays_steps(self, cache, steps: int) -> bool:
@@ -790,28 +755,33 @@ class VauraSystem(nn.Module):
     def _device_loop(self, cache, gen_seq: torch.Tensor,
                      cond_seq: torch.Tensor, valid_mask: torch.Tensor,
                      generator: Optional[torch.Generator], steps: range, *,
-                     graph: bool, **kw) -> None:
-        """Steps ``steps`` in the device-position form, in place: the
-        position a 0-d int64 tensor that each step advances by one, and
-        before each step the sampling's uniform draw made from
-        ``generator`` into one buffer (``uniform_noise``'s values, in its
-        order). The step reads and writes only tensors that live through
-        the loop, so with ``graph`` the loop runs the first
-        ``GRAPH_WARMUP_STEPS`` eagerly on a side stream, records the next
-        as a CUDA graph there (span ``decode_capture``) and replays it for
-        that step and every later one on the current stream (span
-        ``decode_step.replay``). A replay adds to the launch counters what
-        its recording launched; the recording counts none. The graph and
-        its memory pool go when the loop ends, the pool's memory back to the
-        card (without a pool of its own a released graph's memory stays
-        reserved: ~0.9 GiB a call at batch 512). Without ``graph`` every
-        step runs eagerly on the current stream."""
+                     graph: bool, row_shift: int = 0, **kw) -> None:
+        """Steps ``steps`` in place, every decode loop's: the position a
+        0-d int64 tensor that each step advances by one, and before each
+        step the sampling's uniform draw made from ``generator`` into one
+        buffer (``uniform_noise``'s values, in its order; under a mesh the
+        whole batch's rows, of which ``sample_tokens`` keeps this rank's). A
+        step is ``step_rows``, its rows committed to cache row ``s - 1 +
+        row_shift`` (the rolling cache's shift; 0 adds no launch) and its
+        column written to ``gen_seq[:, :, s]``. The step reads and writes
+        only tensors that live through the loop, so with ``graph`` the loop
+        runs the first ``GRAPH_WARMUP_STEPS`` eagerly on a side stream,
+        records the next as a CUDA graph there (span ``decode_capture``)
+        and replays it for that step and every later one on the current
+        stream (span ``decode_step.replay``). A replay adds to the launch
+        counters what its recording launched; the recording counts none.
+        The graph and its memory pool go when the loop ends, the pool's
+        memory back to the card (without a pool of its own a released
+        graph's memory stays reserved: ~0.9 GiB a call at batch 512).
+        Without ``graph`` every step runs eagerly on the current stream."""
         global replayed_steps, eager_steps
         dev = gen_seq.device
         s = torch.full((), steps.start, dtype=torch.int64, device=dev)
         noise = None
         if draws_noise(kw["use_sampling"], kw["temp"]):
-            noise = torch.empty(gen_seq.shape[0], self.num_codebooks,
+            whole = self._sample_rows(gen_seq.shape[0])
+            noise = torch.empty(whole[1] if whole else gen_seq.shape[0],
+                                self.num_codebooks,
                                 self.sampler_config.d_codebook, device=dev)
 
         def draw():
@@ -819,8 +789,12 @@ class VauraSystem(nn.Module):
                 noise.uniform_(generator=generator)
 
         def step():
-            self.generation_step(cache, gen_seq, cond_seq, s, valid_mask,
-                                 None, noise=noise, **kw)
+            row = s + (row_shift - 1) if row_shift else None
+            col, rows = self.step_rows(cache, gen_seq, cond_seq, s,
+                                       valid_mask, row=row, noise=noise, **kw)
+            self.sampler.commit_rows(cache, rows, s - 1 if row is None
+                                     else row)
+            gen_seq.index_copy_(2, s.reshape(1), col.unsqueeze(2))
             s.add_(1)
 
         n_eager = min(GRAPH_WARMUP_STEPS, len(steps)) if graph else len(steps)
@@ -1218,18 +1192,18 @@ class VauraSystem(nn.Module):
         after them. A step then attends every buffer row below its own, the
         one bound the decode-attention kernel knows. Positions stay GLOBAL:
         a step's RoPE row and conditioning are those of its position,
-        ``row`` (its buffer row) is what ``decode_step`` writes and bounds
+        ``row`` (its buffer row) is what the step writes and bounds
         attention with; RoPE scores depend only on position differences, so
-        K/V keep their rows' values when they move."""
-        global eager_steps
+        K/V keep their rows' values when they move. A segment's steps run
+        eagerly in ``_device_loop``, their buffer rows their positions less
+        one constant (``row_shift``)."""
         eff, bounds, kept_per_seg = self.rolling_cache_plan(
             S, chunk_steps, window_chunks, sink_chunks)
         size = lambda i: bounds[i + 1] - bounds[i]
         rows = max(sum(size(i) for i in kept) for kept in kept_per_seg)
         cache = self.sampler.init_cache(cond_seq.shape[0], rows,
                                         dtype=cache_dtype)
-        buffers = [t for n, t in cache.items()
-                   if n not in ("positions", "chunk_starts")]
+        buffers = [cache[n] for n in self.sampler.cache_names]
         n_groups = max(len(kept) for kept in kept_per_seg)
         gen_seq = gen_seq_init.clone()
         vm = torch.as_tensor(valid_mask, device=gen_seq.device)
@@ -1252,13 +1226,11 @@ class VauraSystem(nn.Module):
                 cache["chunk_starts"] = torch.tensor(
                     starts + [rows] * (n_groups - len(starts)),
                     dtype=torch.int32, device=cache["k"].device)
-            for s in range(lo, hi):
-                self.generation_step(
-                    cache, gen_seq, cond_seq, s, vm, generator,
-                    use_sampling=use_sampling, temp=temp, top_k=top_k,
-                    top_p=top_p, cfg_scale=cfg_scale,
-                    row=offset[j] + (s - 1) - bounds[j])
-            eager_steps += hi - lo
+            self._device_loop(
+                cache, gen_seq, cond_seq, vm, generator, range(lo, hi),
+                graph=False, row_shift=offset[j] - bounds[j],
+                use_sampling=use_sampling, temp=temp, top_k=top_k,
+                top_p=top_p, cfg_scale=cfg_scale)
             lo = hi
             yield hi, gen_seq
 
