@@ -1182,6 +1182,7 @@ def _differs(launches, want) -> bool:
 
 def _zero_counters():
     from vaura_tpu_torch.ops import decode_attention as da
+    from vaura_tpu_torch.ops import decode_block as db
     from vaura_tpu_torch.ops import divided_attention as ga
     from vaura_tpu_torch.ops import encoder_fused as ef
     from vaura_tpu_torch.ops import mla_decode_attention as mla
@@ -1189,6 +1190,8 @@ def _zero_counters():
 
     da.launches = ef.attention_launches = ef.mlp_launches = ga.launches = 0
     mla.launches = snake.launches = 0
+    for name in db.launches:
+        db.launches[name] = 0
     da.device_pos_launches = da.int8_launches = 0
     da.int4_launches = da.int8_dots_launches = 0
     for form in da.form_launches:
@@ -1311,18 +1314,143 @@ def _graph_or_eager(system, feats, eager: bool) -> dict:
             "replayed_steps": V.replayed_steps - steps[0],
             "eager_steps": V.eager_steps - steps[1],
             "launches": _counters(), "form_launches": _form_counts(),
+            "block_launches": _block_counts(),
             "reserved_growth_mib": (torch.cuda.memory_reserved()
                                     - reserved) / 2 ** 20,
             "span_host_ms": {n: {"count": c, "mean_ms": ms / c}
                              for n, (c, ms) in spans.items()}}
 
 
-def phase_decode_graph(report):
+def _block_case(name, got, want, fn, plain, bytes_, timed) -> dict:
+    """One decode-block kernel case: each output against the plain path's
+    (ulps of a float output, equality of an int8 one), and where ``timed``
+    the device ms of the kernel and of the plain path and the byte
+    bound."""
+    import torch
+
+    outs = []
+    for g, w in zip(got, want):
+        if g.dtype.is_floating_point:
+            outs.append({"dtype": str(g.dtype).split(".")[-1],
+                         "ulps": _max_ulps(g, w),
+                         "bit_equal": bool(torch.equal(g, w))})
+        else:
+            outs.append({"dtype": str(g.dtype).split(".")[-1], "ulps": None,
+                         "bit_equal": bool(torch.equal(g, w))})
+    e = {"name": name, "outputs": outs,
+         "bound_ms": bytes_ / HBM_BYTES_PER_S * 1e3}
+    if timed:
+        e["ms"] = cuda_ms(fn, 50)
+        e["plain_ms"] = cuda_ms(plain, 50)
+        e["bound_share"] = e["bound_ms"] / e["ms"]
+    return e
+
+
+def _decode_block_kernels(gen) -> list:
+    """The decode block's kernels (``csrc/decode_block.cu``) against their
+    plain paths (on the card: the eager ops they replace): the norm with
+    and without the residual at d 1536 and 2048, RoPE with and without the
+    int8 store at three positions, SwiGLU at 4096, 2816 and 11264, each at
+    B2 = 1,024 rows in bf16 (timed, beside the plain path and the byte
+    bound), once in float32, and on the scalar paths (widths that are no
+    multiple of a 16-byte vector)."""
+    import torch
+
+    from vaura_tpu_torch.ops import decode_block as db
+    from vaura_tpu_torch.ops.rope import precompute_freqs_cis
+
+    R, H, hd, L = DECODE_BLOCK_ROWS, 16, 96, 24
+    cases = []
+
+    def rand(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(*shape, device="cuda", generator=gen)
+                * scale).to(dtype)
+
+    for D, dtype, timed in ((1536, torch.bfloat16, True),
+                            (2048, torch.bfloat16, True),
+                            (1536, torch.float32, False),
+                            (1004, torch.bfloat16, False)):
+        x, a = rand(R, 1, D, dtype=dtype), rand(R, 1, D, dtype=dtype)
+        w = torch.empty(D, device="cuda").uniform_(0.5, 1.5, generator=gen)
+        tag = f"d{D}_{str(dtype).split('.')[-1]}"
+        el = x.element_size()
+        cases.append(_block_case(
+            f"add_rmsnorm_{tag}", db.add_rmsnorm_cuda(x, a, w, 1e-5),
+            db.add_rmsnorm_plain(x, a, w, 1e-5),
+            lambda: db.add_rmsnorm_cuda(x, a, w, 1e-5),
+            lambda: db.add_rmsnorm_plain(x, a, w, 1e-5),
+            4 * R * D * el + 4 * D, timed))
+        cases.append(_block_case(
+            f"rmsnorm_{tag}", (db.rmsnorm_cuda(x, w, 1e-5),),
+            (db.rmsnorm_plain(x, w, 1e-5),),
+            lambda: db.rmsnorm_cuda(x, w, 1e-5),
+            lambda: db.rmsnorm_plain(x, w, 1e-5),
+            2 * R * D * el + 4 * D, timed and D == 1536))
+
+    table = torch.as_tensor(precompute_freqs_cis(256, hd), device="cuda")
+    for pos, dtype, head_dim, timed in ((0, torch.bfloat16, hd, False),
+                                        (100, torch.bfloat16, hd, False),
+                                        (228, torch.bfloat16, hd, True),
+                                        (228, torch.float32, hd, False),
+                                        (57, torch.bfloat16, 20, False)):
+        cs = (table if head_dim == hd else torch.as_tensor(
+            precompute_freqs_cis(256, head_dim), device="cuda"))[pos:pos + 1]
+        N = 3 * H * head_dim
+        qkv = rand(R, 1, N, dtype=dtype, scale=2.0)
+        tag = f"pos{pos}_hd{head_dim}_{str(dtype).split('.')[-1]}"
+        bufs = [[torch.zeros(L, R, H, head_dim, dtype=torch.int8,
+                             device="cuda") for _ in range(2)]
+                + [torch.zeros(L, R, H, device="cuda") for _ in range(2)]
+                for _ in range(2)]
+        got = db.rope_qkv_store_cuda(qkv, cs, H, H, *bufs[0], layer=5)
+        want = db.rope_qkv_store_plain(qkv, cs, H, H, *bufs[1], layer=5)
+        el = qkv.element_size()
+        cases.append(_block_case(
+            f"rope_qkv_store_{tag}", got + tuple(bufs[0]),
+            want + tuple(bufs[1]),
+            lambda: db.rope_qkv_store_cuda(qkv, cs, H, H, *bufs[0], layer=5),
+            lambda: db.rope_qkv_store_plain(qkv, cs, H, H, *bufs[1],
+                                            layer=5),
+            R * (2 * N * el + 2 * H * head_dim + 8 * H) + head_dim * 4,
+            timed))
+        cases.append(_block_case(
+            f"rope_qkv_{tag}", db.rope_qkv_store_cuda(qkv, cs, H, H),
+            db.rope_qkv_store_plain(qkv, cs, H, H),
+            lambda: db.rope_qkv_store_cuda(qkv, cs, H, H),
+            lambda: db.rope_qkv_store_plain(qkv, cs, H, H),
+            R * 2 * N * el + head_dim * 4, False))
+
+    for rows, n, dtype, timed in ((R, 4096, torch.bfloat16, True),
+                                  (R, 2816, torch.bfloat16, True),
+                                  (R, 11264, torch.bfloat16, True),
+                                  (R, 4096, torch.float32, False),
+                                  (R - 1, 4095, torch.bfloat16, False)):
+        g, u = (rand(rows, 1, n, dtype=dtype, scale=3.0),
+                rand(rows, 1, n, dtype=dtype, scale=3.0))
+        cases.append(_block_case(
+            f"swiglu_{n}_{str(dtype).split('.')[-1]}",
+            (db.swiglu_cuda(g, u),), (db.swiglu_plain(g, u),),
+            lambda: db.swiglu_cuda(g, u), lambda: db.swiglu_plain(g, u),
+            3 * rows * n * g.element_size(), timed))
+    torch.cuda.empty_cache()
+    return cases
+
+
+def _block_counts() -> dict:
+    from vaura_tpu_torch.ops import decode_block as db
+
+    return dict(db.launches)
+
+
+def phase_decode_graph(_gen, report):
     """The decode loop replayed from a CUDA graph against the eager loop
     on one seed: batch 2 with the bf16 cache (``phase_main``'s flagship)
-    and batch 64 with the int8 cache (as the benchmark serves). Weights and
-    features come from a generator of its own, so the phases after it draw
-    from the shared one what they drew before this phase was added."""
+    and batch 64 with the int8 cache (as the benchmark serves), with the
+    decode block's kernel launches a step (``ops/decode_block.py``: 2 L + 1
+    norms, L RoPEs, L SwiGLUs); first each of those kernels against its
+    plain path (``_decode_block_kernels``). Weights, features and inputs
+    come from a generator of its own, so the phases after it draw from the
+    shared one what they drew before this phase was added."""
     import torch
 
     from vaura_tpu_torch.flagship import GENERATE_KW, flagship_system
@@ -1330,6 +1458,26 @@ def phase_decode_graph(report):
 
     gen = torch.Generator(device="cuda").manual_seed(21)
     res, problems = {}, []
+    res["kernels"] = _decode_block_kernels(
+        torch.Generator(device="cuda").manual_seed(25))
+    for e in res["kernels"]:
+        tol = (TOL_NORM_ULPS[e["outputs"][-1]["dtype"]]
+               if "rmsnorm" in e["name"] else 0)
+        ulps = [o["ulps"] for o in e["outputs"] if o["ulps"] is not None]
+        exact = [o["bit_equal"] for o in e["outputs"]
+                 if o["ulps"] is None]
+        timing = (f"{e['ms']:.4f} ms ({100 * e['bound_share']:.1f}% of "
+                  f"{e['bound_ms']:.4f}), plain {e['plain_ms']:.4f} ms"
+                  if "ms" in e else "")
+        log(f"[decode_graph] {e['name']}: ulps {ulps}, int8 equal {exact} "
+            f"{timing}")
+        # the norm's last output may differ (its sum's order), its h not
+        if "rmsnorm" in e["name"]:
+            ulps, last = ulps[:-1], ulps[-1]
+            if last > tol:
+                problems.append(f"{e['name']}: {last} ulps")
+        if any(u != 0 for u in ulps) or not all(exact):
+            problems.append(f"{e['name']}: not bit for bit ({e['outputs']})")
     for tag, batch, overrides, kernel in (
             ("b2_bf16", 2, {}, "decode_attention"),
             ("b64_int8", 64, {"quantize_cache": True},
@@ -1342,12 +1490,18 @@ def phase_decode_graph(report):
         n_steps = system.prepare_generation(
             GENERATE_KW["max_new_tokens"])[2] - 1
         want = {kernel: cfg.num_layers * n_steps}
+        want_block = {"add_rmsnorm": (2 * cfg.num_layers + 1) * n_steps,
+                      "rope_qkv_store": cfg.num_layers * n_steps,
+                      "swiglu": cfg.num_layers * n_steps}
         _graph_or_eager(system, feats, False)  # the path warmed up
         graph = _graph_or_eager(system, feats, False)
         eager = _graph_or_eager(system, feats, True)
         equal = float((graph["codes"] == eager["codes"]).float().mean())
         r = {"batch": batch, "steps": n_steps, "equal_token_share": equal,
-             "expected_launches": want}
+             "expected_launches": want,
+             "expected_block_launches": want_block,
+             "block_launches_a_step": {
+                 k: v / n_steps for k, v in graph["block_launches"].items()}}
         for side, run in (("graph", graph), ("eager", eager)):
             r[side] = {k: v for k, v in run.items() if k != "codes"}
         res[tag] = r
@@ -1371,6 +1525,10 @@ def phase_decode_graph(report):
             if _differs(run["launches"], want):
                 problems.append(f"{tag} {side}: launches {run['launches']}, "
                                 f"expected {want}")
+            if run["block_launches"] != want_block:
+                problems.append(f"{tag} {side}: decode block launches "
+                                f"{run['block_launches']}, expected "
+                                f"{want_block}")
         del system
         torch.cuda.empty_cache()
     report["decode_graph"] = res
@@ -2053,10 +2211,16 @@ def phase_mla_moe(gen, report):
                         "times, not 54")
 
     # (b) the cell's batch through VauraSystem.generate: one launch a
-    # layer and step, a replay counting what its recording launched
+    # layer and step, a replay counting what its recording launched; of
+    # the decode block's kernels 2 L + 1 norms and L SwiGLUs (layer 0's
+    # dense one, then the shared experts') a step, no RoPE (the latent
+    # attention's own)
     x = torch.randn(512, 32, 768, device="cuda", generator=g)
     n_layers = system.sampler_config.num_layers
-    want_b = n_layers * (system.prepare_generation(221)[2] - 1)
+    n_steps_b = system.prepare_generation(221)[2] - 1
+    want_b = n_layers * n_steps_b
+    want_block = {"add_rmsnorm": (2 * n_layers + 1) * n_steps_b,
+                  "rope_qkv_store": 0, "swiglu": n_layers * n_steps_b}
     replayed, eager_n = V.replayed_steps, V.eager_steps
     torch.cuda.synchronize()
     _zero_counters()
@@ -2070,6 +2234,8 @@ def phase_mla_moe(gen, report):
                    "eager": V.eager_steps - eager_n,
                    "mla_launches": M.launches,
                    "expected_mla_launches": want_b,
+                   "block_launches": _block_counts(),
+                   "expected_block_launches": want_block,
                    "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     log(f"[mla_moe] B=512: {res['b512']}")
     codes = out["codes"]
@@ -2079,6 +2245,10 @@ def phase_mla_moe(gen, report):
     if M.launches != want_b:
         problems.append(f"B=512 generation: {M.launches} launches of "
                         f"mla_decode_attention, expected {want_b}")
+    if res["b512"]["block_launches"] != want_block:
+        problems.append(f"B=512 generation: decode block launches "
+                        f"{res['b512']['block_launches']}, expected "
+                        f"{want_block}")
     del out, system, made, s, x
     torch.cuda.empty_cache()
 
@@ -2138,6 +2308,13 @@ SNAKE_ENCODE_LEVELS = ((48, 64, 113152), (48, 128, 56576), (48, 256, 14144),
 TOL_SNAKE_ULPS = {"float32": 2, "bfloat16": 1}
 # the kernel's share of its byte bound at the decoder's widest level
 SNAKE_MIN_BOUND_SHARE = 0.75
+# the decode block's kernels (csrc/decode_block.cu): the rows of a decode
+# step at the benchmark's batch (512 clips and their CFG null stream); the
+# norm's output against the plain path, in ulps (its float32 sum of squares
+# in another order: a warp tree, not PyTorch's reduction; RoPE, the int8
+# rows and SwiGLU must be bit for bit)
+DECODE_BLOCK_ROWS = 1024
+TOL_NORM_ULPS = {"bfloat16": 1, "float32": 8}
 
 
 def _max_ulps(a, b) -> int:
@@ -5273,7 +5450,7 @@ def main() -> int:
                                                  entry["tol"]):
             failed.append(f"{entry['name']} tolerance")
     launches = run("main", phase_main, gen, report) or {}
-    run("decode_graph", phase_decode_graph, report)
+    run("decode_graph", phase_decode_graph, gen, report)
     int8_launches = run("int8", phase_int8, gen, report) or {}
     train_launches = run("train", phase_train, gen, report) or {}
     run("long", phase_long, gen, report)

@@ -31,7 +31,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("decode_attention", "encoder_attention", "encoder_mlp",
-           "grouped_cls_attention", "snake")
+           "grouped_cls_attention", "snake", "decode_block")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

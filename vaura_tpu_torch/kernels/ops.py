@@ -1,5 +1,6 @@
-"""Decode attention and Snake as registered PyTorch operators,
-``torch.ops.vaura_torch.decode_attention`` and ``torch.ops.vaura_torch.snake``.
+"""Decode attention, Snake and the decode block's fused elementwise work as
+registered PyTorch operators: ``torch.ops.vaura_torch.decode_attention``,
+``snake``, ``rmsnorm``, ``add_rmsnorm``, ``rope_qkv_store`` and ``swiglu``.
 
 ``torch.export`` records a registered operator in its graph but cannot
 trace through the ``ctypes`` launch of ``ops/decode_attention.py``, and a
@@ -27,6 +28,12 @@ fake that returns ``torch.empty_like(x)``, no backward (the codec runs
 without a graph). ``models/dac/layers.py::Snake1d`` calls it, so the
 exported epilogue's DAC decode records it.
 
+The decode block's operators (``ops/decode_block.py``) are registered the
+same way: the ``*_cuda`` kernels for CUDA tensors, the ``*_plain`` versions
+for CPU tensors, fakes that return empty outputs, no backward (decode runs
+without a graph). ``rope_qkv_store`` mutates its optional int8 rows buffers
+(``Tensor(a!)?`` in its schema), so an exported step records the writes.
+
 Importing this module registers the operators and imports no model, so a
 process that loads an exported graph (``utils/aot.py::load_generate``) needs
 only this. Every decode step of the model (``Sampler.decode_rows``, whose
@@ -39,6 +46,7 @@ from __future__ import annotations
 import torch
 
 from vaura_tpu_torch.ops.decode_attention import decode_attention
+from vaura_tpu_torch.ops import decode_block as db
 from vaura_tpu_torch.ops.snake import snake_cuda, snake_plain
 
 SCHEMA = ("decode_attention(Tensor q, Tensor k_cache, Tensor v_cache, "
@@ -49,6 +57,14 @@ SCHEMA = ("decode_attention(Tensor q, Tensor k_cache, Tensor v_cache, "
 _LIB = torch.library.Library("vaura_torch", "DEF")
 _LIB.define(SCHEMA)
 _LIB.define("snake(Tensor x, Tensor alpha) -> Tensor")
+_LIB.define("rmsnorm(Tensor x, Tensor w, float eps) -> Tensor")
+_LIB.define("add_rmsnorm(Tensor x, Tensor a, Tensor w, float eps) "
+            "-> (Tensor, Tensor)")
+_LIB.define("rope_qkv_store(Tensor qkv, Tensor cos_sin, int n_heads, "
+            "int n_kv, Tensor(a!)? k_rows=None, Tensor(b!)? v_rows=None, "
+            "Tensor(c!)? k_scale=None, Tensor(d!)? v_scale=None, "
+            "int layer=0) -> (Tensor, Tensor, Tensor)")
+_LIB.define("swiglu(Tensor g, Tensor u) -> Tensor")
 
 
 def _decode_attention(q, k_cache, v_cache, k_cur, v_cur, pos, k_scale=None,
@@ -83,3 +99,37 @@ def _snake_fake(x, alpha):
 
 
 snake_op = torch.ops.vaura_torch.snake.default
+
+
+for _name in ("rmsnorm", "add_rmsnorm", "rope_qkv_store", "swiglu"):
+    _LIB.impl(_name, getattr(db, f"{_name}_plain"), "CPU")
+    _LIB.impl(_name, getattr(db, f"{_name}_cuda"), "CUDA")
+
+
+@torch.library.register_fake("vaura_torch::rmsnorm")
+def _rmsnorm_fake(x, w, eps):
+    return torch.empty_like(x)
+
+
+@torch.library.register_fake("vaura_torch::add_rmsnorm")
+def _add_rmsnorm_fake(x, a, w, eps):
+    return torch.empty_like(x), torch.empty_like(x)
+
+
+@torch.library.register_fake("vaura_torch::rope_qkv_store")
+def _rope_qkv_store_fake(qkv, cos_sin, n_heads, n_kv, k_rows=None,
+                         v_rows=None, k_scale=None, v_scale=None, layer=0):
+    B, hd = qkv.shape[0], 2 * cos_sin.shape[-2]
+    return (qkv.new_empty(B, n_heads, hd), qkv.new_empty(B, n_kv, hd),
+            qkv.new_empty(B, n_kv, hd))
+
+
+@torch.library.register_fake("vaura_torch::swiglu")
+def _swiglu_fake(g, u):
+    return torch.empty_like(g)
+
+
+rmsnorm_op = torch.ops.vaura_torch.rmsnorm.default
+add_rmsnorm_op = torch.ops.vaura_torch.add_rmsnorm.default
+rope_qkv_store_op = torch.ops.vaura_torch.rope_qkv_store.default
+swiglu_op = torch.ops.vaura_torch.swiglu.default

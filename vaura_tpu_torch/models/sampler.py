@@ -45,6 +45,16 @@ step then serves every position, whether ``torch.export`` traces it
 (``utils/aot.py``) or a CUDA graph records it (``VauraSystem``'s decode
 loop). ``decode_step`` alone also takes a host ``int``.
 
+The decode step's elementwise work runs as fused operators
+(``ops/decode_block.py``, registered in ``kernels/ops.py``): each residual
+add with the norm after it (``RMSNorm.add_norm``; ``decode_rows`` carries a
+block's feed-forward output into the next block's norm, the last one into
+``norm``), RoPE with the split of the fused q/k/v and, for the int8 cache,
+the quantized rows (``Attention.decode``, into the buffers of
+``Sampler._int8_rows``), and SwiGLU's product (``FeedForward.decode``).
+Training, ``forward`` and ``prefill`` keep the modules' eager ops; on the
+CPU the operators compute those ops' arithmetic.
+
 ``quantize_weights`` stores the decoder blocks' and the LM head's matmul
 weights as int8 with per-output-channel scales (``kernel_q``/``scale``,
 ``ops/quantization.py::quant_dense``), as the JAX package's ``PDense``.
@@ -80,7 +90,13 @@ from torch.utils.checkpoint import (
     noop_context_fn,
 )
 
-from vaura_tpu_torch.kernels.ops import decode_attention_op
+from vaura_tpu_torch.kernels.ops import (
+    add_rmsnorm_op,
+    decode_attention_op,
+    rmsnorm_op,
+    rope_qkv_store_op,
+    swiglu_op,
+)
 from vaura_tpu_torch.ops.dropout import (
     batch_shard,
     current_batch_shard,
@@ -432,6 +448,15 @@ class RMSNorm(nn.Module):
         norm = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + self.eps)
         return (norm * self.weight).to(x.dtype)
 
+    def add_norm(self, x: torch.Tensor, a: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The decode path's residual add and norm as one fused operator
+        (``ops/decode_block.py``): ``(h, n)`` with ``h = x + a`` (``x``
+        itself without ``a``) and ``n`` this norm of ``h``."""
+        if a is None:
+            return x, rmsnorm_op(x, self.weight, self.eps)
+        return add_rmsnorm_op(x, a, self.weight, self.eps)
+
 
 class FeedForward(nn.Module):
     """SwiGLU: ``w2(silu(w1 x) * w3 x)``. Under tensor parallelism
@@ -455,6 +480,13 @@ class FeedForward(nn.Module):
         x = tp_ops.enter(self.tp, x)
         out = tp_ops.reduce(self.tp, self.w2(F.silu(self.w1(x)) * self.w3(x)))
         return dropout(out, self.dropout, train, generator)
+
+    def decode(self, x: torch.Tensor) -> torch.Tensor:
+        """``forward`` at a decode step: the product ``silu(w1 x) * w3 x`` as
+        one fused operator (``ops/decode_block.py``), no dropout."""
+        x = tp_ops.enter(self.tp, x)
+        return tp_ops.reduce(self.tp, self.w2(swiglu_op(self.w1(x),
+                                                        self.w3(x))))
 
 
 class Attention(nn.Module):
@@ -525,25 +557,30 @@ class Attention(nn.Module):
 
     def decode(self, x: torch.Tensor, freqs_cis: torch.Tensor,
                cache_layer: Tuple[torch.Tensor, ...], row: torch.Tensor,
-               chunk_starts: Optional[torch.Tensor] = None
+               chunk_starts: Optional[torch.Tensor] = None,
+               store: Optional[Tuple[Dict[str, torch.Tensor], int]] = None
                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-        """``x [B, 1, d_model]`` whose RoPE row is ``freqs_cis``;
-        ``cache_layer`` one layer's ``(k, v)`` ``[B, S, H_kv, hd]`` (and, for
-        a quantized cache, ``(k_scale, v_scale) [B, S, H_kv]``), read below
-        ``row`` only (a one-element int32 tensor on ``x``'s device) by the
-        registered decode-attention operator; ``chunk_starts`` the
-        quantization groups of ``int8_dots``. Returns the output and this
-        position's ``(k, v) [B, H_kv, hd]``."""
+        """``x [B, 1, d_model]`` whose RoPE row is ``freqs_cis [1, hd/2,
+        2]``; ``cache_layer`` one layer's ``(k, v)`` ``[B, S, H_kv, hd]``
+        (and, for a quantized cache, ``(k_scale, v_scale) [B, S, H_kv]``),
+        read below ``row`` only (a one-element int32 tensor on ``x``'s
+        device) by the registered decode-attention operator;
+        ``chunk_starts`` the quantization groups of ``int8_dots``. RoPE and
+        the split of q, k and v are one fused operator
+        (``ops/decode_block.py``), which with ``store`` (the step's int8
+        rows buffers and this layer's index, ``Sampler._int8_rows``) also
+        writes this position's quantized k and v rows there. Returns the
+        output and this position's ``(k, v) [B, H_kv, hd]``."""
         cfg = self.cfg
         B = x.shape[0]
         H, Hkv, hd = self.n_heads, self.n_kv, cfg.head_dim
-        q, k, v = self.wqkv(x).split([H * hd, Hkv * hd, Hkv * hd], dim=-1)
-        q = apply_rotary_emb(q.reshape(B, 1, H, hd), freqs_cis)[:, 0]
-        k = apply_rotary_emb(k.reshape(B, 1, Hkv, hd), freqs_cis)[:, 0]
-        v = v.reshape(B, Hkv, hd).contiguous()
+        rows, layer = store if store is not None else ({}, 0)
+        q, k, v = rope_qkv_store_op(
+            self.wqkv(x), freqs_cis, H, Hkv, rows.get("k"), rows.get("v"),
+            rows.get("k_scale"), rows.get("v_scale"), layer)
         k_cache, v_cache, *scales = cache_layer
         out = decode_attention_op(
-            q.contiguous(), k_cache, v_cache, k.contiguous(), v, row, *scales,
+            q, k_cache, v_cache, k, v, row, *scales,
             cache_bits=cfg.cache_bits,
             int8_dots=cfg.int8_dots and cfg.quantize_cache,
             chunk_starts=chunk_starts)
@@ -749,18 +786,25 @@ class MoEFeedForward(nn.Module):
         return y.reshape(T, k, -1).sum(1)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None,
-                spans: bool = False) -> torch.Tensor:
-        """``x [..., d_model]``; ``spans`` names the routing and the expert
-        products ``decode_step.route`` and ``decode_step.experts``."""
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``x [..., d_model]``."""
         shape = x.shape
         x = x.reshape(-1, shape[-1]).to(self.cfg.dtype)
-        with span("decode_step.route") if spans else contextlib.nullcontext():
-            choice, w = self.route(x)
-        with (span("decode_step.experts") if spans
-              else contextlib.nullcontext()):
-            out = self.routed(x, choice, w) + self.shared(x)
+        choice, w = self.route(x)
+        out = self.routed(x, choice, w) + self.shared(x)
         return dropout(out.reshape(shape), self.cfg.dropout, train, generator)
+
+    def decode(self, x: torch.Tensor) -> torch.Tensor:
+        """``forward`` at a decode step: the shared experts through
+        ``FeedForward.decode``, no dropout; spans ``decode_step.route`` and
+        ``decode_step.experts`` name the routing and the expert products."""
+        shape = x.shape
+        x = x.reshape(-1, shape[-1]).to(self.cfg.dtype)
+        with span("decode_step.route"):
+            choice, w = self.route(x)
+        with span("decode_step.experts"):
+            out = self.routed(x, choice, w) + self.shared.decode(x)
+        return out.reshape(shape)
 
 
 class TransformerBlock(nn.Module):
@@ -795,14 +839,23 @@ class TransformerBlock(nn.Module):
         h = x + a
         return h + self.feed_forward(self.ffn_norm(h)), kv
 
-    def decode(self, x, freqs_cis, cache_layer, row, chunk_starts=None):
-        a, kv = self.attention.decode(self.attention_norm(x), freqs_cis,
-                                      cache_layer, row, chunk_starts)
-        h = x + a
-        ff = self.feed_forward
-        if isinstance(ff, MoEFeedForward):
-            return h + ff(self.ffn_norm(h), spans=True), kv
-        return h + ff(self.ffn_norm(h)), kv
+    def decode(self, x: torch.Tensor, pending: Optional[torch.Tensor],
+               freqs_cis: torch.Tensor, cache_layer: Tuple[torch.Tensor, ...],
+               row: torch.Tensor, chunk_starts: Optional[torch.Tensor] = None,
+               store: Optional[Tuple[Dict[str, torch.Tensor], int]] = None):
+        """One decode step of the block on the residual stream ``x`` plus
+        ``pending``, the previous block's feed-forward output (None before
+        the first block): each residual add is fused into the norm after
+        it (``RMSNorm.add_norm``). Returns ``(the stream after the
+        attention residual, this block's feed-forward output, this
+        position's rows)``; the caller adds the output in the next norm.
+        ``store``: ``Attention.decode``'s."""
+        h, n = self.attention_norm.add_norm(x, pending)
+        kw = {} if store is None else {"store": store}
+        a, kv = self.attention.decode(n, freqs_cis, cache_layer, row,
+                                      chunk_starts, **kw)
+        h, n = self.ffn_norm.add_norm(h, a)
+        return h, self.feed_forward.decode(n), kv
 
 
 class MultiCodebookEmbedding(nn.Module):
@@ -962,10 +1015,14 @@ class Sampler(nn.Module):
 
     # ---------------------------------------------------------------- #
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
+        return self._head(self.norm(h))
+
+    def _head(self, n: torch.Tensor) -> torch.Tensor:
+        """The LM head on the normed stream ``n [B, S, d_model]``: logits
+        ``[B, K, S, vocab]``."""
         cfg = self.cfg
-        B, S, _ = h.shape
-        out = tp_ops.gather(self.tp, self.lm_head(
-            tp_ops.enter(self.tp, self.norm(h))))
+        B, S, _ = n.shape
+        out = tp_ops.gather(self.tp, self.lm_head(tp_ops.enter(self.tp, n)))
         out = out.reshape(B, S, cfg.num_codebooks, cfg.d_codebook)
         return out.permute(0, 2, 1, 3)  # [B, K, S, vocab]
 
@@ -1157,21 +1214,26 @@ class Sampler(nn.Module):
         ``row``, default ``pos``), 0-d int64 tensors on the device: ``(logits
         [B, K, vocab], this position's rows {name: [L, B, ...]})``, the rows
         as the cache stores them (quantized for an int8 or int4 cache), for
-        ``commit_rows``. The RoPE row is an ``index_select`` and decode
-        attention reads the rows below an int32 copy of ``row``: a graph
-        traced once serves every position."""
+        ``commit_rows``: for the int8 cache the buffers each layer's RoPE
+        operator wrote, else ``_store`` of the stacked rows. The RoPE row is
+        an ``index_select`` and decode attention reads the rows below an
+        int32 copy of ``row``: a graph traced once serves every position."""
         row_t = (pos if row is None else row).reshape(1).to(torch.int32)
         freqs = self.freqs_cis.index_select(0, pos.reshape(1))
         tok_emb = self.tok_embeddings(tokens_t)
         h = torch.cat([cond_t.to(tok_emb.dtype), tok_emb], dim=-1)
         ks, vs = [], []
         starts = cache.get("chunk_starts")
-        for layer, *cache_layer in zip(self.layers,
-                                       *(cache[n] for n in self.cache_names)):
-            h, (k, v) = layer.decode(h, freqs, tuple(cache_layer), row_t,
-                                     starts)
-            ks.append(k)
-            vs.append(v)
+        int8_rows = self._int8_rows(h.shape[0], h.device)
+        pending = None
+        for i, (layer, *cache_layer) in enumerate(zip(
+                self.layers, *(cache[n] for n in self.cache_names))):
+            h, pending, (k, v) = layer.decode(
+                h, pending, freqs, tuple(cache_layer), row_t, starts,
+                None if int8_rows is None else (int8_rows, i))
+            if int8_rows is None:
+                ks.append(k)
+                vs.append(v)
         moe = [layer.feed_forward for layer in self.layers
                if isinstance(layer.feed_forward, MoEFeedForward)]
         if self.expert_load is not None:
@@ -1184,8 +1246,29 @@ class Sampler(nn.Module):
                                         value=NO_EXPERT) for ff in moe])
             self.expert_choices.index_copy_(0, row_t.long(),
                                             chosen[None].to(torch.uint8))
-        return (self._logits(h)[:, :, 0, :],
-                self._store(torch.stack(ks), torch.stack(vs)))
+        logits = self._head(self.norm.add_norm(h, pending)[1])[:, :, 0, :]
+        if int8_rows is not None:
+            return logits, int8_rows
+        return logits, self._store(torch.stack(ks), torch.stack(vs))
+
+    def _int8_rows(self, batch: int, device
+                   ) -> Optional[Dict[str, torch.Tensor]]:
+        """For the int8 cache of the Llama block, the buffers a decode
+        step's ``rope_qkv_store`` calls write this position's quantized
+        rows into, one layer each (``{"k", "v"}`` int8 ``[L, B, H_kv,
+        hd]``, ``{"k_scale", "v_scale"}`` float32 ``[L, B, H_kv]``): the
+        rows ``_store`` would make of the stacked k and v. None for every
+        other cache, whose rows ``_store`` makes."""
+        cfg = self.cfg
+        if cfg.mla or not cfg.quantize_cache or cfg.cache_bits != 8:
+            return None
+        shape = (cfg.num_layers, batch, self.n_kv_local)
+        return {"k": torch.empty(shape + (cfg.head_dim,), dtype=torch.int8,
+                                 device=device),
+                "v": torch.empty(shape + (cfg.head_dim,), dtype=torch.int8,
+                                 device=device),
+                "k_scale": torch.empty(shape, device=device),
+                "v_scale": torch.empty(shape, device=device)}
 
     @staticmethod
     def commit_rows(cache: Dict[str, torch.Tensor],

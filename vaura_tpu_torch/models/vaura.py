@@ -86,6 +86,7 @@ from vaura_tpu_torch.models.sampler import (
     use_weights,
 )
 from vaura_tpu_torch.ops import decode_attention as da
+from vaura_tpu_torch.ops import decode_block as db
 from vaura_tpu_torch.ops import divided_attention as ga
 from vaura_tpu_torch.ops import encoder_fused as ef
 from vaura_tpu_torch.ops import mla_decode_attention as mla
@@ -132,6 +133,7 @@ _LAUNCH_COUNTERS = (
     (ef, ("attention_launches", "mlp_launches")),
     (ga, ("launches",)),
     (mla, ("launches",)),
+    (db, ("launches",)),
 )
 _capture_streams: Dict[torch.device, "torch.cuda.Stream"] = {}
 
